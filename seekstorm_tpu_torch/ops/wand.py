@@ -1,0 +1,1139 @@
+"""Bucket-WAND lexical engine on one torch device.
+
+Port of ``seekstorm_tpu/ops/wand.py`` for a single device (D=1).  The
+engine has four phases per batch:
+
+  1. phase-1 scan (``ops/wand_scan.py``, kernel K1 on CUDA): matched words,
+     exact counts by popcount and a per-bucket score upper bound (UB);
+  2. ``_rung_topks``: exact top-(K_SEL+1) regions per query at 32-, 128-
+     and 512-doc granularity;
+  3. ``_rescore_regions``: exact rescore of the selected buckets through a
+     positional CSR read of the flat impact pool;
+  4. ``_ladder_device``: the page, the WAND termination test and a rung-2
+     escalation, returned as one slim i32 buffer per query.
+
+Phases 2-4 are torch ops.  Queries the device ladder cannot finish go
+through the host rung ladder (native ``st_rescore``) and, when their UBs
+saturate, the host exact evaluation (``_exact_fallback``).  Every query
+gets an exact page and count on this path; there is no dense fallback.
+
+The host glue (slot rows, ladders, exact evaluation) restates the
+reference's numpy code, because the reference module cannot be imported
+without jax.  u32 words travel as int32 bit patterns (torch has no u32
+shifts or comparisons on the CPU).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from seekstorm_tpu.metrics import METRICS
+from seekstorm_tpu.schema import BLOCK_SIZE
+from seekstorm_tpu.utils import ceil_pow2
+
+from .wand_scan import popcount32, scan_blocks
+
+NW = BLOCK_SIZE // 32          # packed words per block == buckets per block
+BUCKET = 32                    # docs per bucket (one u32 word)
+T_MAX = 8                      # max term slots per query on this path
+K_SEL = 64                     # selected regions per query per rung
+F_LADDER = (1, 4, 16)          # rung coarsening factors (32/128/512 docs)
+P_PAGE = 64                    # device page entries per query
+# on-device WAND termination margin (the reference's _MARGIN): slightly
+# stricter than the host ladder's 3e-7, never laxer
+MARGIN = 1.000001
+# pool budgets (the reference's SEEKSTORM_TPU_WAND_MB / _IMP_MB defaults):
+# past them the slot cache flushes and rebuilds from the live working set
+POOL_MB = 6144
+IMP_MB = 3072
+
+
+# ---------------------------------------------------------------------------
+# device phases (torch)
+
+
+def _sort_desc(x):
+    """Descending sort that keeps the lower index first on ties."""
+    return torch.sort(x, dim=1, descending=True, stable=True)
+
+
+def _topk_lanes(x, K: int, gmax=None):
+    """Exact top-K (values desc, -inf padded, ties to the lower index
+    within the candidate order) over x[Bq, L] by a two-stage 128-lane
+    group reduction; region ids returned alongside as int32."""
+    Bq, L = x.shape
+    K_eff = min(K, L)
+    G = min(128, L)
+    ng = L // G
+    if gmax is None:
+        gmax = x.reshape(Bq, ng, G).amax(dim=2)
+    kg = min(K_eff, ng)
+    gi = _sort_desc(gmax)[1][:, :kg]                        # [Bq, kg]
+    cand = torch.gather(x.reshape(Bq, ng, G), 1,
+                        gi[:, :, None].expand(Bq, kg, G))
+    vals, ti = _sort_desc(cand.reshape(Bq, kg * G))
+    vals, ti = vals[:, :K_eff], ti[:, :K_eff]
+    gsel = torch.gather(gi, 1, ti // G)
+    ids = (gsel * G + ti % G).to(torch.int32)
+    if K_eff < K:
+        pad = K - K_eff
+        vals = torch.cat([vals, torch.full((Bq, pad), float("-inf"),
+                                           device=x.device)], dim=1)
+        ids = torch.cat([ids, torch.zeros((Bq, pad), dtype=torch.int32,
+                                          device=x.device)], dim=1)
+    return vals, ids
+
+
+def _rung_topks(allub, NBLK: int):
+    """Phase 2: per coarsening factor F, the exact top-(K_SEL+1) regions
+    (ub f32[Bq, K_SEL+1] desc with -inf padding, region id i32).  The
+    coarse rungs chain off the finer maxima, so allub is read once
+    (L1 = NBLK * NW, a multiple of 2048)."""
+    assert F_LADDER == (1, 4, 16)
+    Bq, L1 = allub.shape
+    ub4 = allub.reshape(Bq, L1 // 4, 4).amax(dim=2)
+    ub16 = ub4.reshape(Bq, L1 // 16, 4).amax(dim=2)
+    g1 = ub4.reshape(Bq, L1 // 128, 32).amax(dim=2)
+    return [_topk_lanes(allub, K_SEL + 1, gmax=g1),
+            _topk_lanes(ub4, K_SEL + 1),
+            _topk_lanes(ub16, K_SEL + 1)]
+
+
+_BIT = torch.arange(32, dtype=torch.int32)
+# (1 << bit) - 1 per bit, as int32 bit patterns
+_BELOW = torch.tensor([(1 << b) - 1 for b in range(32)], dtype=torch.int32)
+
+
+def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                     slotmap, tslot, treq, tneg, wshard, ids, vals):
+    """Phase 3: exact rescore of the selected buckets.
+
+    ids / vals [Bq, K]: bucket ids and their UBs (-inf = unselected).  For
+    term t and bucket w of block b, the doc at bit j reads the flat impact
+    pool at ioff + rank[w] + popcount(word & (2^j - 1)) — a direct gather
+    (the reference's one-hot MXU select is not needed here).  Scores add
+    one term at a time in column order with a separate mul and add, the
+    host rescore's two-rounding chain, so UB >= score stays bitwise.
+
+    Returns (score f32[Bq, K*32] with -inf for unmatched lanes, lane
+    i32[Bq, K*32] doc lanes = bucket*32 + bit, found i32[Bq])."""
+    dev = ppool.device
+    Bq, K = ids.shape
+    T = tslot.shape[1]
+    NBLK = sp_prow.shape[1]
+    big = NBLK * NW
+    valid = vals > float("-inf")
+    ids_s = torch.where(valid, ids.long(), big).sort(dim=1)[0]
+    valid_s = ids_s < big
+    ids_c = ids_s.clamp(max=big - 1)
+    blk = ids_c // NW                                   # [Bq, K]
+    w = ids_c % NW
+
+    ts_ok = tslot >= 0
+    srow = torch.where(ts_ok, slotmap.long()[tslot.clamp(min=0).long()],
+                       torch.full_like(tslot, -1, dtype=torch.long))
+    rows3 = srow[:, :, None].expand(Bq, T, K)
+    blk3 = blk[:, None, :].expand(Bq, T, K)
+    w3 = w[:, None, :].expand(Bq, T, K)
+    rows3c = rows3.clamp(min=0)
+    prow = sp_prow[rows3c, blk3]
+    ioff = sp_ioff[rows3c, blk3]
+    ok3 = (rows3 >= 0) & (prow >= 0) & valid_s[:, None, :]
+    prow_c = prow.clamp(min=0).long()
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    pres = torch.where(ok3, ppool[prow_c, w3], zero_i)  # [Bq, T, K]
+    rank = rpool[prow_c, w3]
+
+    bit = _BIT.to(dev)
+    pres4 = pres[..., None]                              # [Bq, T, K, 1]
+    rank_b = popcount32(pres4 & _BELOW.to(dev))          # [Bq, T, K, 32]
+    pos = (ioff.clamp(min=0) + rank)[..., None].long() + rank_b
+    val_b = ipool[pos.clamp(0, ipool.shape[0] - 1)]
+    present = ((pres4 >> bit) & 1) != 0
+    imp_b = torch.where(present & ok3[..., None], val_b,
+                        torch.zeros((), device=dev))
+
+    andw = torch.full((Bq, K), -1, dtype=torch.int32, device=dev)
+    posw = torch.zeros((Bq, K), dtype=torch.int32, device=dev)
+    negw = torch.zeros((Bq, K), dtype=torch.int32, device=dev)
+    for t in range(T):
+        req_t = (treq[:, t] & ~tneg[:, t] & ts_ok[:, t])[:, None]
+        andw = torch.where(req_t, andw & pres[:, t], andw)
+        posw = posw | torch.where((~tneg[:, t] & ts_ok[:, t])[:, None],
+                                  pres[:, t], zero_i)
+        negw = negw | torch.where((tneg[:, t] & ts_ok[:, t])[:, None],
+                                  pres[:, t], zero_i)
+    matched_w = andw & posw & ~negw & ~delw[blk, w]
+    matched = ((matched_w[..., None] >> bit) & 1) != 0
+    matched = matched & valid_s[..., None]               # [Bq, K, 32]
+
+    sid3 = sid.long()[blk][:, None, :].expand(Bq, T, K)
+    wt = torch.gather(wshard.permute(1, 2, 0), 2, sid3)  # [Bq, T, K]
+    score = torch.zeros((Bq, K, 32), dtype=torch.float32, device=dev)
+    for t in range(T):
+        score = score + wt[:, t, :, None] * imp_b[:, t]
+    score = torch.where(matched, score,
+                        torch.full((), float("-inf"), device=dev))
+    found = matched.sum(dim=(1, 2), dtype=torch.int32)
+    lane = (ids_c[:, :, None] * 32
+            + bit.long()).reshape(Bq, K * 32).to(torch.int32)
+    return score.reshape(Bq, K * 32), lane, found
+
+
+def _page_topk(score, lane):
+    """Device page: top-P_PAGE candidates by (score desc, lane asc — the
+    candidate lanes ascend and the sort is stable), plus the count of
+    candidates tying or beating the page's last entry."""
+    vals, sel = _sort_desc(score)
+    psc = vals[:, :P_PAGE].contiguous()
+    plane = torch.gather(lane, 1, sel[:, :P_PAGE])
+    last = psc[:, P_PAGE - 1]
+    n_ge = ((score >= last[:, None]) & (score > float("-inf"))).sum(
+        dim=1, dtype=torch.int32)
+    return psc, plane, n_ge
+
+
+def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
+                   s_gt1: bool):
+    """Phases 3+4: rung-1 rescore, WAND termination test, rung-2
+    escalation when any query did not terminate, packed into one slim i32
+    buffer per query (the reference's layout):
+
+      [0] exact match count  [1] code (0/1 = terminated at device rung,
+      2 = pending -> host)   [2] matched-candidate count  [3] reserved
+      [4 : 4+2*P] page (P scores as f32 bits | P lanes)
+      [A : A+K_SEL+1] rung-3 region ids + next_ub
+      [s_gt1: A+KP : A+2*KP] rung-1 bucket ids + next_ub."""
+    dev = cnt.device
+    ninf = float("-inf")
+    margin = torch.tensor(MARGIN, dtype=torch.float32, device=dev)
+
+    def terminated(psc, found, next_ub, n_ge):
+        kth = psc[:, need - 1]
+        term = (next_ub == ninf) | ((found >= need)
+                                    & (kth > next_ub * margin))
+        if multi:
+            term = term & ~(n_ge > P_PAGE)
+        return term
+
+    vals1, ids1 = rungs[0]
+    sc, lane, found1 = rescore_fn(ids1[:, :K_SEL], vals1[:, :K_SEL])
+    psc1, plane1, n_ge1 = _page_topk(sc, lane)
+    term1 = terminated(psc1, found1, vals1[:, K_SEL], n_ge1)
+
+    vals2, ids2 = rungs[1]
+    F2 = F_LADDER[1]
+    Bq = cnt.shape[0]
+    if bool((~term1).any()):
+        idsb = (ids2[:, :K_SEL, None] * F2
+                + torch.arange(F2, dtype=torch.int32, device=dev)
+                ).reshape(Bq, K_SEL * F2)
+        valsb = torch.repeat_interleave(vals2[:, :K_SEL], F2, dim=1)
+        sc, lane, found2 = rescore_fn(idsb, valsb)
+        psc2, plane2, n_ge2 = _page_topk(sc, lane)
+    else:
+        psc2 = torch.full((Bq, P_PAGE), ninf, device=dev)
+        plane2 = torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev)
+        n_ge2 = found2 = torch.zeros(Bq, dtype=torch.int32, device=dev)
+    term2 = terminated(psc2, found2, vals2[:, K_SEL], n_ge2)
+
+    code = torch.where(term1, 0, torch.where(term2, 1, 2)).to(torch.int32)
+    psc = torch.where(term1[:, None], psc1, psc2)
+    plane = torch.where(term1[:, None], plane1, plane2)
+    found = torch.where(term1, found1, found2)
+
+    vals3, ids3 = rungs[2]
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    parts = [cnt[:, None].to(torch.int32), code[:, None], found[:, None],
+             torch.zeros((Bq, 1), dtype=torch.int32, device=dev),
+             bits(psc), plane,
+             ids3[:, :K_SEL], bits(vals3[:, K_SEL:K_SEL + 1])]
+    if s_gt1:
+        parts += [ids1[:, :K_SEL], bits(vals1[:, K_SEL:K_SEL + 1])]
+    return torch.cat(parts, dim=1)
+
+
+def scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq, tneg,
+            wshard, *, with_counts: bool):
+    """Phase 1 over the resident pools: join the batch's slots to their
+    pool rows (prow [NBLK, V]) and run the scan (K1 on CUDA).  Returns
+    (allub f32[Bq, NBLK*NW], cnt i32[Bq])."""
+    prow = torch.where((slotmap >= 0)[:, None],
+                       sp_prow[slotmap.clamp(min=0).long()],
+                       -1).T.contiguous()
+    return scan_blocks(ppool, vpool, prow, delw, None, tslot, treq, tneg,
+                       wshard, sid, with_counts=with_counts)
+
+
+def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+              slotmap, tslot, treq, tneg, wshard, *, with_counts: bool,
+              with_rescore: bool, need: int = 0, multi: bool = False):
+    """One WAND dispatch over the resident pools.
+
+    with_rescore=True returns the slim i32 buffer of _ladder_device;
+    otherwise (cnt i32[Bq], rungs) for the host rung ladder."""
+    allub, cnt = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot,
+                         treq, tneg, wshard, with_counts=with_counts)
+    rungs = _rung_topks(allub, sp_prow.shape[1])
+    if not with_rescore:
+        return cnt, rungs
+
+    def rescore_fn(ids, vals):
+        return _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw,
+                                sid, slotmap, tslot, treq, tneg, wshard,
+                                ids, vals)
+
+    return _ladder_device(cnt, rungs, rescore_fn, need=need, multi=multi,
+                          s_gt1=wshard.shape[0] > 1)
+
+
+# ---------------------------------------------------------------------------
+# per-slot host rows + device pools
+
+
+_POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint16)
+
+
+def _popcount_u32(words: np.ndarray) -> np.ndarray:
+    return _POPCNT8[words.view(np.uint8)].reshape(len(words), 4).sum(
+        axis=1, dtype=np.uint32)
+
+
+class _SlotRows:
+    """Per-term cached structures covering all shards' blocks."""
+
+    __slots__ = ("row", "keys", "imps", "df")
+
+    def __init__(self):
+        self.row = -1                 # row in the sp_* slot tables
+        # host rescore join arrays: key = global_block << 16 | docid, sorted
+        self.keys = np.zeros(0, np.uint32)
+        self.imps = np.zeros(0, np.float32)
+        self.df = 0
+
+
+def pools_from_numpy(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw,
+                     sid, device):
+    """The reference WandState's arrays (fetched as numpy, with or without
+    the leading device axis) as the port's tensors on `device`:
+    (ppool i32, vpool f32, rpool i32, ipool f32, sp_prow i32, sp_ioff i32,
+    delw i32, sid i32).  u32 words become int32 bit patterns and the u16
+    rank rows widen to int32."""
+    def strip(x, ndim):
+        x = np.asarray(x)
+        return x[0] if x.ndim == ndim + 1 else x
+
+    def put(x):
+        return torch.from_numpy(np.array(x, order="C")).to(device)
+
+    return (put(strip(ppool, 2).view(np.int32)),
+            put(strip(vpool, 2).astype(np.float32)),
+            put(strip(rpool, 2).astype(np.int32)),
+            put(strip(ipool, 1).astype(np.float32)),
+            put(np.asarray(sp_prow, np.int32)),
+            put(np.asarray(sp_ioff, np.int32)),
+            put(np.asarray(delw, np.uint32).view(np.int32)),
+            put(np.asarray(sid, np.int32)))
+
+
+class WandState:
+    """Device pools + host caches for one committed index generation on one
+    torch device.
+
+    Rows are built on first touch per query term and kept; when the pools
+    pass their budgets the whole cache flushes and rebuilds.  Row appends
+    write in place (index_copy_) into rows no earlier dispatch reads, and
+    capacity grows by doubling into new tensors, so a batch that holds the
+    previous tensors keeps a consistent view."""
+
+    def __init__(self, index, device):
+        self.index = index
+        self.device = torch.device(device)
+        self.lock = threading.Lock()
+        base = []
+        b = 0
+        for sh in index.shards:
+            base.append(b)
+            b += sh.lexical.n_blocks
+        self.block_base = base
+        # K1 has no block step, so unlike the reference (whose XLA scan
+        # steps 8 blocks at a time) the pools are not padded past nblk
+        self.nblk = max(b, 1)
+
+        blk_shard = np.zeros(self.nblk, np.int32)
+        for s, sh in enumerate(index.shards):
+            blk_shard[base[s]: base[s] + sh.lexical.n_blocks] = s
+        self.blk_shard = blk_shard
+        self.sid_dev = torch.from_numpy(blk_shard).to(self.device)
+
+        delw = np.zeros((self.nblk, NW), np.uint32)
+        for s, sh in enumerate(index.shards):
+            if sh.deleted:
+                ids = np.fromiter(sh.deleted, np.int64)
+                ids = ids[ids < sh.committed_doc_count]
+                if len(ids):
+                    g = base[s] + (ids >> 16)
+                    local = ids & 0xFFFF
+                    np.bitwise_or.at(
+                        delw, (g, local >> 5),
+                        (np.uint32(1) << (local & 31).astype(np.uint32)))
+        self.delw_dev = torch.from_numpy(delw.view(np.int32)).to(self.device)
+        self.deleted_sorted = [
+            np.sort(np.fromiter(sh.deleted, np.int64)) if sh.deleted
+            else np.zeros(0, np.int64)
+            for sh in index.shards
+        ]
+        multi = len(np.unique(blk_shard)) > 1
+        # one device owning blocks of several shards: lane order is not
+        # gid order, so a page whose tie class is cut must go to the host
+        self.multi_shard = bool(multi)
+
+        cap_bytes = POOL_MB * 1024 * 1024
+        # presence (4 B) + bucket-max (4 B) + rank rows per word
+        self.cap_prows = max(cap_bytes * 9 // 10 // (NW * 10), 64)
+        self.cap_slots = max(cap_bytes // 10 // (self.nblk * 4), 64)
+        self.cap_imps = max(IMP_MB * 1024 * 1024 // 4, 4096)
+        self._reset()
+
+    @property
+    def pools(self):
+        return (self.ppool, self.vpool, self.rpool, self.ipool,
+                self.sp_prow, self.sp_ioff, self.delw_dev, self.sid_dev)
+
+    def pool_bytes(self) -> int:
+        return sum(x.numel() * x.element_size()
+                   for x in (self.ppool, self.vpool, self.rpool, self.ipool))
+
+    def _reset(self):
+        dev = self.device
+        self.ppool = torch.zeros((64, NW), dtype=torch.int32, device=dev)
+        self.vpool = torch.zeros((64, NW), dtype=torch.float32, device=dev)
+        # per presence row the exclusive prefix popcount before each word
+        # (bucket -> position in the segment's flat impact run)
+        self.rpool = torch.zeros((64, NW), dtype=torch.int32, device=dev)
+        self.ipool = torch.zeros(1024, dtype=torch.float32, device=dev)
+        self.sp_prow = torch.full((16, self.nblk), -1, dtype=torch.int32,
+                                  device=dev)
+        self.sp_ioff = torch.full((16, self.nblk), -1, dtype=torch.int32,
+                                  device=dev)
+        self.n_prows = 0
+        self.n_imps = 0
+        self.n_slots = 0
+        self.slot_cache: dict[int, _SlotRows] = {}
+        self._pend_prow: list[np.ndarray] = []
+        self._pend_vrow: list[np.ndarray] = []
+        self._pend_rrow: list[np.ndarray] = []
+        self._pend_imp: list[np.ndarray] = []
+        self._pend_slot: list[np.ndarray] = []
+        self._pend_ioff: list[np.ndarray] = []
+
+    def _build_slot(self, h: int) -> _SlotRows:
+        sr = _SlotRows()
+        prow_vec = np.full(self.nblk, -1, np.int32)
+        ioff_vec = np.full(self.nblk, -1, np.int32)
+        keys_parts, imp_parts = [], []
+        any_seg = False
+        for s, sh in enumerate(self.index.shards):
+            lex = sh.lexical
+            d = lex.directory
+            if d is None:
+                continue
+            ti = d.lookup(h)
+            if ti < 0:
+                continue
+            for e in range(int(d.seg_start[ti]), int(d.seg_start[ti + 1])):
+                off = int(d.seg_offset[e])
+                ln = int(d.seg_len[e])
+                if ln <= 0:
+                    continue
+                any_seg = True
+                g = self.block_base[s] + int(d.seg_block[e])
+                ids = lex.pl_docid[off: off + ln].astype(np.int64)
+                imp = lex.pl_impact[off: off + ln]
+                pw = np.zeros(NW, np.uint32)
+                np.bitwise_or.at(
+                    pw, ids >> 5,
+                    np.uint32(1) << (ids & 31).astype(np.uint32))
+                # per-bucket exact max impact (docids sorted -> reduceat)
+                buckets = (ids >> 5).astype(np.int64)
+                starts = np.flatnonzero(np.r_[True, np.diff(buckets) != 0])
+                vrow = np.zeros(NW, np.float32)
+                vrow[buckets[starts]] = np.maximum.reduceat(imp, starts)
+                prow_vec[g] = self.n_prows
+                self._pend_prow.append(pw)
+                self._pend_vrow.append(vrow)
+                pc = _popcount_u32(pw)
+                rrow = np.zeros(NW, np.uint16)
+                # max prefix is 65536 - popcount(last word) <= 65504
+                rrow[1:] = np.cumsum(pc[:-1]).astype(np.uint16)
+                self._pend_rrow.append(rrow)
+                ioff_vec[g] = self.n_imps
+                self._pend_imp.append(imp.astype(np.float32))
+                self.n_imps += ln
+                self.n_prows += 1
+                keys_parts.append((np.uint32(g) << np.uint32(16))
+                                  | ids.astype(np.uint32))
+                imp_parts.append(imp)
+                sr.df += ln
+        if any_seg:
+            sr.row = self.n_slots
+            self._pend_slot.append(prow_vec)
+            self._pend_ioff.append(ioff_vec)
+            self.n_slots += 1
+        if keys_parts:
+            sr.keys = np.concatenate(keys_parts)
+            sr.imps = np.concatenate(imp_parts).astype(np.float32)
+            order = np.argsort(sr.keys, kind="stable")
+            if not np.all(order[:-1] < order[1:]):
+                sr.keys = sr.keys[order]
+                sr.imps = sr.imps[order]
+        return sr
+
+    def ensure_slots(self, hashes: list[int]) -> None:
+        """Build and upload any missing slots' rows (call under self.lock)."""
+        missing =[h for h in hashes if h not in self.slot_cache]
+        if not missing:
+            return
+        with METRICS.timer("wand_build"):
+            for h in missing:
+                self.slot_cache[h] = self._build_slot(h)
+            if (self.n_prows > self.cap_prows
+                    or self.n_imps > self.cap_imps
+                    or self.n_slots > self.cap_slots):
+                METRICS.inc("wand_resets_total")
+                self._reset()
+                for h in hashes:
+                    self.slot_cache[h] = self._build_slot(h)
+            METRICS.inc("wand_rows_built_total", len(missing))
+            self._upload_pending()
+
+    @staticmethod
+    def _grown(x, n: int, minimum: int, fill=0):
+        """x with axis 0 grown (doubling, power of two) to hold n."""
+        if x.shape[0] >= n:
+            return x
+        cap = ceil_pow2(max(n, x.shape[0] * 2), minimum)
+        out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                         device=x.device)
+        out[: x.shape[0]] = x
+        return out
+
+    def _put(self, arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _upload_pending(self):
+        k = len(self._pend_prow)
+        if k:
+            # one spare row past the high-water mark, as the reference keeps
+            n = self.n_prows + 1
+            self.ppool = self._grown(self.ppool, n, 16)
+            self.vpool = self._grown(self.vpool, n, 16)
+            self.rpool = self._grown(self.rpool, n, 16)
+            rows = torch.arange(self.n_prows - k, self.n_prows,
+                                device=self.device)
+            self.ppool.index_copy_(
+                0, rows, self._put(np.stack(self._pend_prow).view(np.int32)))
+            self.vpool.index_copy_(
+                0, rows, self._put(np.stack(self._pend_vrow)))
+            self.rpool.index_copy_(
+                0, rows, self._put(np.stack(self._pend_rrow).astype(np.int32)))
+            self._pend_prow.clear()
+            self._pend_vrow.clear()
+            self._pend_rrow.clear()
+        ui = sum(len(x) for x in self._pend_imp)
+        if ui:
+            # 32-float tail slack: the rescore reads up to 32 positions per
+            # bucket (indices clamp, non-present lanes are masked)
+            self.ipool = self._grown(self.ipool, self.n_imps + ui + 32, 1024)
+            start = self.n_imps - ui
+            self.ipool[start: start + ui] = self._put(
+                np.concatenate(self._pend_imp))
+            self._pend_imp.clear()
+        if self._pend_slot:
+            n0 = self.n_slots - len(self._pend_slot)
+            rows = torch.arange(n0, self.n_slots, device=self.device)
+            self.sp_prow = self._grown(self.sp_prow, self.n_slots, 16, -1)
+            self.sp_ioff = self._grown(self.sp_ioff, self.n_slots, 16, -1)
+            self.sp_prow.index_copy_(0, rows,
+                                     self._put(np.stack(self._pend_slot)))
+            self.sp_ioff.index_copy_(0, rows,
+                                     self._put(np.stack(self._pend_ioff)))
+            self._pend_slot.clear()
+            self._pend_ioff.clear()
+
+
+def _signature(index) -> tuple:
+    """What a WandState was built from: per shard the committed level
+    object, committed doc count, block count and delete count.  Keyed on
+    the index's own state rather than index._device_dirty, which the
+    reference's executor clears when it rebuilds."""
+    return tuple((id(sh.lexical), sh.committed_doc_count,
+                  sh.lexical.n_blocks, len(sh.deleted))
+                 for sh in index.shards)
+
+
+def get_state(index, device) -> WandState:
+    """The index's WandState on `device`, rebuilt after a commit or
+    delete."""
+    device = torch.device(device)
+    states = index.__dict__.setdefault("_torch_wand_states", {})
+    sig = _signature(index)
+    hit = states.get(str(device))
+    if hit is None or hit[0] != sig:
+        hit = states[str(device)] = (sig, WandState(index, device))
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
+# host rescore + exact evaluation (numpy / native C++)
+
+
+def native_library():
+    """The native host library (ctypes, built from native/ on first use),
+    or None when it does not load."""
+    from seekstorm_tpu import native as native_mod
+
+    return native_mod.load()
+
+
+def query_ok(spec) -> bool:
+    """Eligibility: 1..T_MAX slots.  Phrase specs are eligible; their
+    positional verification runs downstream in _finalize_lexical."""
+    return 0 < len(spec.slots) <= T_MAX
+
+
+def _flags(spec, t) -> int:
+    fl = 0
+    if spec.negated.get(t, False):
+        fl |= 1
+    if spec.required.get(t, False):
+        fl |= 2
+    if t in spec.weights:
+        fl |= 4
+    return fl
+
+
+def _deleted_flat(state, S):
+    dels = state.deleted_sorted
+    del_off = np.zeros(S + 1, np.int64)
+    for s_, d in enumerate(dels):
+        del_off[s_ + 1] = del_off[s_] + len(d)
+    del_flat = np.ascontiguousarray(
+        np.concatenate(dels) if any(len(d) for d in dels)
+        else np.zeros(1, np.int64), np.int64)
+    return del_flat, del_off
+
+
+def _rescore_many(state: WandState, slot_rows, specs_sel, idf_per_shard,
+                  buckets_list, S: int, need: int = 0):
+    """Exact host rescore of many queries' candidate buckets: the native
+    st_rescore when the library loads, else the numpy formulation."""
+    out = _rescore_many_native(state, slot_rows, specs_sel, idf_per_shard,
+                               buckets_list, S, need)
+    if out is not None:
+        return out
+    return _rescore_many_np(state, slot_rows, specs_sel, idf_per_shard,
+                            buckets_list, S)
+
+
+def _rescore_many_native(state: WandState, slot_rows, specs_sel,
+                         idf_per_shard, buckets_list, S: int, need: int):
+    """st_rescore (C++, GIL released): one call per batch rung.  Output is
+    cut to kmax = max(need*4, 64) entries per query; the length of the
+    returned arrays still reports the true matched count (-inf / -1
+    sentinels past kmax).  None when the native library is absent."""
+    import ctypes as C
+
+    lib = native_library()
+    if lib is None or not hasattr(lib, "st_rescore"):
+        return None
+    nq = len(specs_sel)
+    empty = (np.zeros(0, np.float32), np.zeros(0, np.int64))
+    if nq == 0:
+        return []
+    used = sorted({t for sp in specs_sel for t in sp.slots})
+    uidx = {t: i for i, t in enumerate(used)}
+    n_used = len(used)
+    key_ptrs = np.zeros(n_used, np.uint64)
+    imp_ptrs = np.zeros(n_used, np.uint64)
+    slot_len = np.zeros(n_used, np.int64)
+    keep = []  # keeps the numpy buffers alive across the call
+    zu32 = np.zeros(1, np.uint32)
+    zf32 = np.zeros(1, np.float32)
+    for i, t in enumerate(used):
+        sr = slot_rows.get(t)
+        k = sr.keys if sr is not None and len(sr.keys) else zu32
+        im = sr.imps if sr is not None and len(sr.imps) else zf32
+        keep.append((k, im))
+        key_ptrs[i] = k.ctypes.data
+        imp_ptrs[i] = im.ctypes.data
+        slot_len[i] = 0 if sr is None else len(sr.keys)
+    w_slot_shard = np.ascontiguousarray(idf_per_shard[:, used].T, np.float32)
+
+    q_slots, q_flags, qs_off = [], [], [0]
+    for sp in specs_sel:
+        for t in sorted(sp.slots):
+            q_slots.append(uidx[t])
+            q_flags.append(_flags(sp, t))
+        qs_off.append(len(q_slots))
+    q_slots = np.asarray(q_slots, np.int32)
+    q_flags = np.asarray(q_flags, np.uint8)
+    qs_off = np.asarray(qs_off, np.int64)
+
+    nbs = np.array([len(b) for b in buckets_list], dtype=np.int64)
+    qoff = np.zeros(nq + 1, np.int64)
+    np.cumsum(nbs, out=qoff[1:])
+    if int(qoff[-1]) == 0:
+        return [empty] * nq
+    buckets = np.ascontiguousarray(
+        np.concatenate([np.sort(b) for b in buckets_list]), np.int64)
+    blk_shard = np.ascontiguousarray(state.blk_shard, np.int32)
+    base = np.asarray(state.block_base, np.int64)
+    del_flat, del_off = _deleted_flat(state, S)
+
+    kmax = max(need * 4, 64)
+    out_s = np.zeros(nq * kmax, np.float32)
+    out_g = np.zeros(nq * kmax, np.int64)
+    out_m = np.zeros(nq, np.int64)
+    out_f = np.zeros(nq, np.int64)
+
+    def p(a, ct):
+        return a.ctypes.data_as(C.POINTER(ct))
+
+    lib.st_rescore(
+        n_used, p(key_ptrs, C.c_uint64), p(imp_ptrs, C.c_uint64),
+        p(slot_len, C.c_int64), p(w_slot_shard, C.c_float),
+        nq, p(q_slots, C.c_int32), p(q_flags, C.c_uint8),
+        p(qs_off, C.c_int64), p(buckets, C.c_int64), p(qoff, C.c_int64),
+        p(blk_shard, C.c_int32), p(base, C.c_int64), S, NW,
+        p(del_flat, C.c_int64), p(del_off, C.c_int64),
+        C.POINTER(C.c_uint32)(), C.POINTER(C.c_float)(),
+        kmax, p(out_s, C.c_float), p(out_g, C.c_int64),
+        p(out_m, C.c_int64), p(out_f, C.c_int64))
+    del keep
+    out = []
+    for qi in range(nq):
+        m = int(out_m[qi])
+        found = int(out_f[qi])
+        sc = out_s[qi * kmax: qi * kmax + m].copy()
+        gid = out_g[qi * kmax: qi * kmax + m].copy()
+        if found > m:
+            sc = np.concatenate([sc, np.full(found - m, -np.inf, np.float32)])
+            gid = np.concatenate([gid, np.full(found - m, -1, np.int64)])
+        out.append((sc, gid))
+    return out
+
+
+def _rescore_many_np(state: WandState, slot_rows, specs_sel, idf_per_shard,
+                     buckets_list, S: int):
+    """numpy host rescore: per query (scores f32[n], gids i64[n]) sorted by
+    (score desc, gid asc).  Scoring slots add in ascending slot id, the
+    order of the device UB chain."""
+    nq = len(specs_sel)
+    empty = (np.zeros(0, np.float32), np.zeros(0, np.int64))
+    nbs = np.array([len(b) for b in buckets_list], dtype=np.int64)
+    qoff = np.zeros(nq + 1, np.int64)
+    np.cumsum(nbs, out=qoff[1:])
+    NB = int(qoff[-1])
+    if NB == 0:
+        return [empty] * nq
+    buckets = np.concatenate([np.sort(b) for b in buckets_list])
+    qmap = np.repeat(np.arange(nq, dtype=np.int64), nbs)
+    blk = (buckets // NW).astype(np.int64)
+    word = (buckets % NW).astype(np.int64)
+    lo_key = ((blk.astype(np.uint32)) << np.uint32(16)) \
+        | (word * 32).astype(np.uint32)
+    hi_key = lo_key + np.uint32(32)
+
+    scores = np.zeros((NB, BUCKET), np.float32)
+    reqc = np.zeros((NB, BUCKET), np.int16)
+    anyh = np.zeros((NB, BUCKET), bool)
+    negh = np.zeros((NB, BUCKET), bool)
+    nreq = np.array(
+        [sum(1 for t in sp.slots
+             if sp.required.get(t, False) and not sp.negated.get(t, False))
+         for sp in specs_sel], dtype=np.int16)
+
+    slot_q: dict[int, list[int]] = {}
+    for qi, sp in enumerate(specs_sel):
+        for t in sp.slots:
+            slot_q.setdefault(t, []).append(qi)
+
+    for t in sorted(slot_q):
+        sr = slot_rows.get(t)
+        if sr is None or not len(sr.keys):
+            continue
+        rows_sel = np.concatenate(
+            [np.arange(qoff[qi], qoff[qi + 1]) for qi in slot_q[t]])
+        lo = np.searchsorted(sr.keys, lo_key[rows_sel])
+        hi = np.searchsorted(sr.keys, hi_key[rows_sel])
+        cnts = hi - lo
+        tot = int(cnts.sum())
+        if tot == 0:
+            continue
+        rows = np.repeat(rows_sel, cnts)
+        idxs = (np.repeat(lo, cnts) + np.arange(tot, dtype=np.int64)
+                - np.repeat(np.cumsum(cnts) - cnts, cnts))
+        local = (sr.keys[idxs] & 31).astype(np.int64)
+        q_of = qmap[rows]
+        negf = np.array([specs_sel[qi].negated.get(t, False)
+                         for qi in range(nq)], dtype=bool)
+        reqf = np.array([specs_sel[qi].required.get(t, False)
+                         for qi in range(nq)], dtype=bool) & ~negf
+        scf = np.array([t in specs_sel[qi].weights
+                        for qi in range(nq)], dtype=bool) & ~negf
+        m = negf[q_of]
+        if m.any():
+            negh[rows[m], local[m]] = True
+        m = ~negf[q_of]
+        if m.any():
+            anyh[rows[m], local[m]] = True
+        m = reqf[q_of]
+        if m.any():
+            reqc[rows[m], local[m]] += 1
+        m = scf[q_of]
+        if m.any():
+            rm, lm, im = rows[m], local[m], idxs[m]
+            w = idf_per_shard[state.blk_shard[blk[rm]], t]
+            # (row, local) pairs are unique within one slot
+            scores[rm, lm] += w.astype(np.float32) * sr.imps[im]
+
+    matched = anyh & ~negh & (reqc >= nreq[qmap][:, None])
+    shard_of = state.blk_shard[blk]
+    base_arr = np.asarray(state.block_base, np.int64)
+    lvl_local0 = ((blk - base_arr[shard_of]) * BLOCK_SIZE + word * 32)
+    for s_ in np.unique(shard_of):
+        dels = state.deleted_sorted[s_]
+        if not len(dels):
+            continue
+        m = shard_of == s_
+        cand_ids = (lvl_local0[m][:, None]
+                    + np.arange(BUCKET, dtype=np.int64)[None, :])
+        isdel = np.clip(np.searchsorted(dels, cand_ids.reshape(-1)), 0,
+                        len(dels) - 1)
+        hit = dels[isdel] == cand_ids.reshape(-1)
+        mm = matched[m]
+        mm &= ~hit.reshape(mm.shape)
+        matched[m] = mm
+
+    rows, local = np.nonzero(matched)
+    if not len(rows):
+        return [empty] * nq
+    sc = scores[rows, local]
+    gid = ((lvl_local0[rows] + local) * S + shard_of[rows]).astype(np.int64)
+    qi_of = qmap[rows]
+    order = np.lexsort((gid, -sc, qi_of))
+    sc, gid, qi_of = sc[order], gid[order], qi_of[order]
+    ends = np.cumsum(np.bincount(qi_of, minlength=nq))
+    out = []
+    a = 0
+    for qi in range(nq):
+        b = int(ends[qi])
+        out.append((sc[a:b].astype(np.float32), gid[a:b]))
+        a = b
+    return out
+
+
+def _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N, need):
+    """st_exact_eval (C++) version of the exact evaluation: GIL released,
+    bit-identical accumulation.  None when the native library is absent."""
+    import ctypes as C
+
+    lib = native_library()
+    if lib is None or not hasattr(lib, "st_exact_eval"):
+        return None
+    order = sorted(spec.slots)
+    keys_parts, imps_parts, offs, flags, ws = [], [], [0], [], []
+    for t in order:
+        sr = slot_rows.get(t)
+        k = sr.keys if sr is not None else np.zeros(0, np.uint32)
+        im = sr.imps if sr is not None else np.zeros(0, np.float32)
+        keys_parts.append(k)
+        imps_parts.append(im)
+        offs.append(offs[-1] + len(k))
+        flags.append(_flags(spec, t))
+        ws.append(idf_per_shard[:, t])
+    keys = np.ascontiguousarray(
+        np.concatenate(keys_parts) if keys_parts else np.zeros(0), np.uint32)
+    imps = np.ascontiguousarray(
+        np.concatenate(imps_parts) if imps_parts else np.zeros(0), np.float32)
+    offs = np.asarray(offs, np.int64)
+    flags = np.asarray(flags, np.uint8)
+    wss = np.ascontiguousarray(np.stack(ws), np.float32) if ws \
+        else np.zeros((0, S), np.float32)
+    blk_shard = np.ascontiguousarray(state.blk_shard, np.int32)
+    base = np.asarray(state.block_base, np.int64)
+    del_flat, del_off = _deleted_flat(state, S)
+    k = max(need * 4, 64)
+    out_s = np.zeros(k, np.float32)
+    out_g = np.zeros(k, np.int64)
+    out_c = np.zeros(1, np.int64)
+
+    def p(a, ct):
+        return a.ctypes.data_as(C.POINTER(ct))
+
+    m = lib.st_exact_eval(
+        len(order), p(keys, C.c_uint32), p(imps, C.c_float),
+        p(offs, C.c_int64), p(wss, C.c_float), p(flags, C.c_uint8),
+        p(blk_shard, C.c_int32), p(base, C.c_int64), S, N,
+        p(del_flat, C.c_int64), p(del_off, C.c_int64),
+        C.POINTER(C.c_uint32)(), C.POINTER(C.c_float)(), k,
+        p(out_s, C.c_float), p(out_g, C.c_int64), p(out_c, C.c_int64))
+    m = int(m)
+    return out_s[:m], out_g[:m], int(out_c[0])
+
+
+def _exact_fallback(state: WandState, slot_rows, spec, idf_per_shard,
+                    S: int, need: int):
+    """Exact full evaluation of one query on the host CSR, for queries
+    whose UBs saturate every rung.  Accumulation matches the rescores
+    (ascending slot id, f32), so scores are bit-identical to WAND pages.
+    Returns (scores, gids, count)."""
+    N = 0
+    for s_, sh in enumerate(state.index.shards):
+        N = max(N, int(sh.committed_doc_count) * S + s_ + 1)
+    N = max(N, 1)
+    native = _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N,
+                                need)
+    if native is not None:
+        return native
+    score = np.zeros(N, np.float32)
+    any_cnt = np.zeros(N, np.int16)
+    req_cnt = np.zeros(N, np.int16)
+    neg_cnt = np.zeros(N, np.int16)
+    base_arr = np.asarray(state.block_base, np.int64)
+    nreq = 0
+    for t in sorted(spec.slots):
+        sr = slot_rows.get(t)
+        neg = spec.negated.get(t, False)
+        req = spec.required.get(t, False) and not neg
+        if req:
+            nreq += 1
+        if sr is None or not len(sr.keys):
+            continue
+        blk = (sr.keys >> np.uint32(16)).astype(np.int64)
+        docid = (sr.keys & np.uint32(0xFFFF)).astype(np.int64)
+        shard_of = state.blk_shard[blk]
+        gid = ((blk - base_arr[shard_of]) * BLOCK_SIZE + docid) * S + shard_of
+        if neg:
+            neg_cnt += np.bincount(gid, minlength=N).astype(np.int16)
+            continue
+        any_cnt += np.bincount(gid, minlength=N).astype(np.int16)
+        if req:
+            req_cnt += np.bincount(gid, minlength=N).astype(np.int16)
+        if t in spec.weights:
+            w = idf_per_shard[shard_of, t].astype(np.float32)
+            score += np.bincount(
+                gid, weights=(w * sr.imps).astype(np.float64),
+                minlength=N).astype(np.float32)
+    matched = (any_cnt > 0) & (neg_cnt == 0) & (req_cnt >= nreq)
+    for s_, dels in enumerate(state.deleted_sorted):
+        if len(dels):
+            g = dels * S + s_
+            matched[g[g < N]] = False
+    count = int(matched.sum())
+    if count == 0:
+        return np.zeros(0, np.float32), np.zeros(0, np.int64), 0
+    k = min(max(need * 4, 64), count)
+    sc_m = np.where(matched, score, -np.inf)
+    # everything strictly above the kth value, then the smallest gids of
+    # the kth tie class
+    neg_s = -sc_m
+    kthv = np.partition(neg_s, k - 1)[k - 1]
+    above = np.flatnonzero(neg_s < kthv)
+    ties = np.flatnonzero(neg_s == kthv)
+    sel = np.concatenate([above, ties[: k - len(above)]])
+    order = np.lexsort((sel, -sc_m[sel]))
+    gids = sel[order].astype(np.int64)
+    return sc_m[gids].astype(np.float32), gids, count
+
+
+def _apply_slim(state: WandState, buf, specs, S: int,
+                out_scores, out_gids, counts) -> list[int]:
+    """Consume the slim device-ladder buffer: fill the outputs of every
+    query the device terminated (code 0/1) and return the pending query
+    indices for the host ladder.  One shard: the device page is already
+    (score desc, lane asc) = oracle order; several shards: one global
+    (query, -score, gid) sort restores it."""
+    B = len(specs)
+    buf_f = buf.view(np.float32)
+    cnt = buf[:B, 0].astype(np.int64)
+    code = buf[:B, 1]
+    found = buf[:B, 2].astype(np.int64)
+    psc = buf_f[:B, 4: 4 + P_PAGE]
+    plane = buf[:B, 4 + P_PAGE: 4 + 2 * P_PAGE].astype(np.int64)
+
+    blk = plane >> 16
+    doc = plane & 0xFFFF
+    shard_of = state.blk_shard[np.minimum(blk, state.nblk - 1)]
+    base_arr = np.asarray(state.block_base, np.int64)
+    gid = ((blk - base_arr[shard_of]) * BLOCK_SIZE + doc) * S + shard_of
+    valid = psc > -np.inf
+
+    qi_of, ci = np.nonzero(valid)
+    sc_v = psc[qi_of, ci].astype(np.float32)
+    gid_v = gid[qi_of, ci]
+    if S > 1:
+        order = np.lexsort((gid_v, -sc_v, qi_of))
+        sc_v, gid_v, qi_of = sc_v[order], gid_v[order], qi_of[order]
+    ends = np.cumsum(np.bincount(qi_of, minlength=B))
+
+    still: list[int] = []
+    a = 0
+    for qi in range(B):
+        b = int(ends[qi])
+        sc, gd = sc_v[a:b], gid_v[a:b]
+        a = b
+        if code[qi] > 1:
+            still.append(qi)
+            continue
+        nf = int(found[qi])
+        if nf > len(sc):
+            # the length reports the true matched count (the
+            # `n_found >= need` tests downstream)
+            sc = np.concatenate([sc, np.full(nf - len(sc), -np.inf,
+                                             np.float32)])
+            gd = np.concatenate([gd, np.full(nf - len(gd), -1, np.int64)])
+        out_scores[qi] = sc
+        out_gids[qi] = gd
+        counts[qi] = cnt[qi]
+    return still
+
+
+def plan_batch(state: WandState, slots, specs, idf_per_shard):
+    """Build the batch's term rows and its per-query tables (call under
+    state.lock): slotmap i32[V] (batch slot -> slot row), tslot i32[Bq, T],
+    treq / tneg bool[Bq, T], wsh f32[S, Bq, T], and the _SlotRows the host
+    rescores read, pinned against a concurrent reset.  Positive slots come
+    first in ascending slot id: the UB chain and the rescores add terms in
+    this same order."""
+    used = sorted({s for spec in specs for s in spec.slots})
+    state.ensure_slots([slots[s].hash for s in used])
+    V = ceil_pow2(max(len(slots), 1), 16)
+    slotmap = np.full(V, -1, np.int32)
+    for s in used:
+        slotmap[s] = state.slot_cache[slots[s].hash].row
+    slot_rows = {s: state.slot_cache[slots[s].hash] for s in used}
+    Bq = ceil_pow2(len(specs), 16)
+    t_need = max(len(sp.slots) for sp in specs)
+    T = 2 if t_need <= 2 else (4 if t_need <= 4 else T_MAX)
+    S = idf_per_shard.shape[0]
+    tslot = np.full((Bq, T), -1, np.int32)
+    treq = np.zeros((Bq, T), bool)
+    tneg = np.zeros((Bq, T), bool)
+    wsh = np.zeros((S, Bq, T), np.float32)
+    for qi, spec in enumerate(specs):
+        ordered = (sorted(s for s in spec.slots
+                          if not spec.negated.get(s, False))
+                   + [s for s in spec.slots if spec.negated.get(s, False)])
+        for j, s in enumerate(ordered):
+            tslot[qi, j] = s
+            treq[qi, j] = spec.required.get(s, False)
+            tneg[qi, j] = spec.negated.get(s, False)
+            if s in spec.weights:
+                wsh[:, qi, j] = idf_per_shard[:, s]
+    return slotmap, tslot, treq, tneg, wsh, slot_rows
+
+
+def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
+              with_counts: bool, device):
+    """Execute a batch of eligible (query_ok) queries on the WAND path.
+
+    idf_per_shard: f32[S, V] per-shard idf per slot (realtime aware).
+    Pages of need <= 16 finish on the device ladder; deeper pages and
+    device stragglers go through the host rung ladder, and queries whose
+    UBs saturate every rung through the host exact evaluation.
+    Returns (scores list, gids list, counts i64[B])."""
+    state = get_state(index, device)
+    dev = state.device
+    B = len(specs)
+    S = index.shard_count
+    out_scores: list = [np.zeros(0, np.float32)] * B
+    out_gids: list = [np.zeros(0, np.int64)] * B
+    counts = np.zeros(B, np.int64)
+
+    with state.lock:
+        slotmap, tslot, treq, tneg, wsh, slot_rows = plan_batch(
+            state, slots, specs, idf_per_shard)
+        pools = state.pools
+
+    dev_rescore = max(need * 4, 64) <= P_PAGE
+    qargs = [torch.from_numpy(a).to(dev)
+             for a in (slotmap, tslot, treq, tneg, wsh)]
+    METRICS.inc("device_dispatch_total")
+    KP = K_SEL + 1
+    with METRICS.timer("lex_device"):
+        if dev_rescore:
+            out = wand_scan(*pools, *qargs, with_counts=with_counts,
+                            with_rescore=True, need=need,
+                            multi=state.multi_shard)
+            packed = out.cpu().numpy()
+        else:
+            cnt_d, rungs_d = wand_scan(*pools, *qargs,
+                                       with_counts=with_counts,
+                                       with_rescore=False)
+            cnt = cnt_d.cpu().numpy().astype(np.int64)
+            rungs = [(v.cpu().numpy(), i.cpu().numpy()) for v, i in rungs_d]
+
+    if dev_rescore:
+        A = 4 + 2 * P_PAGE
+        buf_f = packed.view(np.float32)
+        cnt = packed[:B, 0].astype(np.int64)
+        pending = _apply_slim(state, packed, specs, S, out_scores, out_gids,
+                              counts)
+        METRICS.inc("wand_dev_pages_total", B - len(pending))
+        host_rungs = []
+        if S > 1:
+            host_rungs.append((packed[:B, A + KP: A + KP + K_SEL],
+                               buf_f[:B, A + 2 * KP - 1], 1))
+        host_rungs.append((packed[:B, A: A + K_SEL], buf_f[:B, A + K_SEL],
+                           F_LADDER[2]))
+    else:
+        pending = list(range(B))
+        host_rungs = [(ids.astype(np.int64), vals[:, K_SEL], F)
+                      for (vals, ids), F in zip(rungs, F_LADDER)]
+
+    # host ladder: rescore each pending query's selected regions exactly
+    # and terminate on the strict WAND test (kth > next_ub, 3e-7 margin)
+    for ids_arr, nub_arr, F in host_rungs:
+        if not pending:
+            break
+        buckets_list = [
+            np.unique(ids_arr[qi].astype(np.int64)[:, None] * F
+                      + np.arange(F, dtype=np.int64)[None, :])
+            for qi in pending
+        ]
+        with METRICS.timer("wand_rescore"):
+            rescored = _rescore_many(state, slot_rows,
+                                     [specs[qi] for qi in pending],
+                                     idf_per_shard, buckets_list, S, need)
+        still = []
+        for (sc, gid), qi in zip(rescored, pending):
+            next_ub = float(nub_arr[qi])
+            n_found = len(gid)
+            kth = float(sc[need - 1]) if n_found >= need else -np.inf
+            if (next_ub == -np.inf) or (
+                    n_found >= need and kth > next_ub * (1.0 + 3e-7)):
+                out_scores[qi] = sc[: max(need * 4, 64)]
+                out_gids[qi] = gid[: max(need * 4, 64)]
+                counts[qi] = cnt[qi]
+            else:
+                still.append(qi)
+        pending = still
+        if pending:
+            METRICS.inc("wand_escalations_total")
+    METRICS.inc("wand_fallbacks_total", len(pending))
+    for qi in pending:
+        with METRICS.timer("wand_exact_fallback"):
+            sc, gid, count = _exact_fallback(state, slot_rows, specs[qi],
+                                             idf_per_shard, S, need)
+        out_scores[qi] = sc
+        out_gids[qi] = gid
+        counts[qi] = count
+    return out_scores, out_gids, counts

@@ -1,0 +1,190 @@
+"""Phase-1 bucket-WAND scan: kernel K1 (csrc/wand_scan.cu) and its plain
+PyTorch version.
+
+Replaces the TPU kernel ``seekstorm_tpu/ops/wand_pallas.py::scan_blocks``
+(body ``_kernel``, the ``pl.pallas_call`` at wand_pallas.py:247) and the XLA
+step of ``seekstorm_tpu/ops/wand.py::_scan_local`` for score-mode batches.
+
+For each query and each u32 word (32-doc bucket) of every block it computes
+the matched words ``AND(req) & OR(pos) & ~OR(neg) & ~deleted & ~filter``,
+the exact match count by popcount, and the bucket upper bound: the max over
+presence classes of the first ``min(T, 3)`` positive columns plus the
+residual ``sum w_t * bucketmax_t`` of the later columns, accumulated in
+ascending column order; ``-inf`` where nothing matched.
+
+What bounds it on the card is bytes: each (query, block, word) reads T
+presence and T bucket-max words and writes one f32 UB.  K1 keeps every
+per-word intermediate in registers, reads pool rows by index inside the
+kernel (no ``[NBLK, V, NW]`` pre-gather), and maps one thread to one word
+so warps read contiguous row segments.  Its UB chains round twice per term
+(``__fmul_rn``/``__fadd_rn``), exactly as the separate torch mul and add
+below, so K1 is bit-exact against ``scan_blocks_ref``.
+
+u32 words are carried as int32 bit patterns: ``torch.uint32`` has no
+``>>``, ``~`` or comparisons on the CPU.  ``int32 >>`` is arithmetic, so
+every shift is masked.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seekstorm_tpu.schema import BLOCK_SIZE
+
+NW = BLOCK_SIZE // 32          # words (32-doc buckets) per 64K-doc block
+T_TIERS = (2, 4, 8)            # slot-column counts K1 is compiled for
+
+# launches of K1 since the last reset (the count a run reads to show that
+# its main path went through the kernel)
+LAUNCHES = 0
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 bit patterns (SWAR bit trick in int64,
+    so no step overflows).  Returns int32."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def tcodes(tslot, treq, tneg) -> torch.Tensor:
+    """Packed per-(query, column) code: slot*4 | required*2 | negated, and
+    -4 for an unused column (slot -1, both flags 0)."""
+    code = tslot * 4 + 2 * treq.to(torch.int32) + tneg.to(torch.int32)
+    return torch.where(tslot >= 0, code, torch.full_like(tslot, -4))
+
+
+def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
+                    wshard, sid, *, with_counts: bool = True):
+    """Plain PyTorch phase-1 scan.
+
+    ppool i32[PR, NW] presence words / vpool f32[PR, NW] bucket maxima;
+    prow i32[NBLK, V] pool row per (block, batch slot), -1 when absent;
+    delw / filtw i32[NBLK, NW] deleted / disallowed words (filtw None for
+    no filter); tslot i32[Bq, T], treq / tneg bool[Bq, T]; wshard
+    f32[S, Bq, T] per-shard weights and sid i32[NBLK] the shard of each
+    block.  Returns (allub f32[Bq, NBLK*NW], cnt i32[Bq]; zeros unless
+    with_counts)."""
+    NBLK = prow.shape[0]
+    Bq, T = tslot.shape
+    NC = min(T, 3)
+    dev = ppool.device
+    ninf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    notdel = ~delw
+    if filtw is not None:
+        notdel = notdel & ~filtw
+    used = tslot >= 0
+    req_pos = treq & ~tneg & used
+    pos = used & ~tneg
+    neg = used & tneg
+    w_blk = wshard[sid.long()]                     # [NBLK, Bq, T]
+
+    pres, bval = [], []
+    andw = torch.full((Bq, NBLK, NW), -1, dtype=torch.int32, device=dev)
+    posw = torch.zeros((Bq, NBLK, NW), dtype=torch.int32, device=dev)
+    negw = torch.zeros((Bq, NBLK, NW), dtype=torch.int32, device=dev)
+    for t in range(T):
+        s_c = tslot[:, t].clamp(min=0).long()
+        rowid = prow[:, s_c].T                     # [Bq, NBLK]
+        okp = (used[:, t, None] & (rowid >= 0))[:, :, None]
+        rows = rowid.clamp(min=0).long()
+        p = torch.where(okp, ppool[rows], zero_i)  # [Bq, NBLK, NW]
+        score_ok = okp & ~tneg[:, t, None, None]
+        w_t = torch.where(score_ok, w_blk[:, :, t].T[:, :, None], zero_f)
+        v = torch.where(score_ok, vpool[rows], zero_f)
+        pres.append(p)
+        bval.append(w_t * v)
+        andw = torch.where(req_pos[:, t, None, None], andw & p, andw)
+        posw = posw | torch.where(pos[:, t, None, None], p, zero_i)
+        negw = negw | torch.where(neg[:, t, None, None], p, zero_i)
+    matched = andw & posw & ~negw & notdel[None]
+    if with_counts:
+        cnt = popcount32(matched).sum(dim=(1, 2), dtype=torch.int32)
+    else:
+        cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
+
+    best = torch.full((Bq, NBLK, NW), float("-inf"), device=dev)
+    for c in range(1, 1 << NC):
+        mm = okc = sc = None
+        for t in range(NC):
+            if (c >> t) & 1:
+                mm = pres[t] if mm is None else mm & pres[t]
+                sc = bval[t] if sc is None else sc + bval[t]
+            else:
+                mm = ~pres[t] if mm is None else mm & ~pres[t]
+                nr = ~req_pos[:, t]
+                okc = nr if okc is None else okc & nr
+        for t in range(NC, T):
+            sc = sc + bval[t]
+        live = mm != 0
+        if okc is not None:
+            live = live & okc[:, None, None]
+        best = torch.maximum(best, torch.where(live, sc, ninf))
+    allub = torch.where(matched != 0, best, ninf)
+    return allub.reshape(Bq, NBLK * NW), cnt
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype}{list(shape)}, got "
+                         f"{x.dtype}{list(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
+                   wshard, sid, *, with_counts: bool = True):
+    """K1 on CUDA tensors: same contract as scan_blocks_ref."""
+    global LAUNCHES
+    from .. import _build
+
+    dev = ppool.device
+    NBLK, V = prow.shape
+    Bq, T = tslot.shape
+    if T not in T_TIERS:
+        raise ValueError(f"K1 takes T in {T_TIERS}, got {T}")
+    PR = ppool.shape[0]
+    S = wshard.shape[0]
+    _check("ppool", ppool, torch.int32, (PR, NW), dev)
+    _check("vpool", vpool, torch.float32, (PR, NW), dev)
+    _check("prow", prow, torch.int32, (NBLK, V), dev)
+    _check("delw", delw, torch.int32, (NBLK, NW), dev)
+    if filtw is not None:
+        _check("filtw", filtw, torch.int32, (NBLK, NW), dev)
+    _check("wshard", wshard, torch.float32, (S, Bq, T), dev)
+    _check("sid", sid, torch.int32, (NBLK,), dev)
+    tcode = tcodes(tslot, treq, tneg).to(torch.int32).contiguous()
+    _check("tcode", tcode, torch.int32, (Bq, T), dev)
+
+    allub = torch.empty((Bq, NBLK * NW), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES += 1
+    err = lib.wand_scan_launch(
+        ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
+        delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
+        tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK, T,
+        int(with_counts), allub.data_ptr(), cnt.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"wand_scan_cuda launch failed (error {err})")
+    return allub, cnt
+
+
+def scan_blocks(ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard,
+                sid, *, with_counts: bool = True):
+    """Phase 1: the plain version for tensors on the CPU, K1 for CUDA
+    tensors (a CUDA failure raises; there is no fallback)."""
+    if ppool.device.type == "cpu":
+        return scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq,
+                               tneg, wshard, sid, with_counts=with_counts)
+    if ppool.device.type == "cuda":
+        return wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq,
+                              tneg, wshard, sid, with_counts=with_counts)
+    raise ValueError(f"no phase-1 scan for device {ppool.device}")

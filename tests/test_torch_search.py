@@ -1,0 +1,241 @@
+"""End-to-end lexical search of the torch port (seekstorm_tpu_torch) on the
+CPU against the JAX package.
+
+Two-block indexes (BLOCK_SIZE + 6000 docs) with one and two shards, deleted
+docs and an uncommitted realtime tail.  The port's pages must equal the
+reference's pages on its WAND route (SEEKSTORM_TPU_WAND=1) and on its dense
+route (SEEKSTORM_TPU_NO_WAND=1), compared with tests/test_wand.py's _Page
+(counts exact, scores within rtol 3e-5, membership per score cluster).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import seekstorm_tpu as st
+import seekstorm_tpu_torch as pt
+from seekstorm_tpu.schema import BLOCK_SIZE
+from test_wand import _Page, _queries
+
+ROOT = Path(__file__).resolve().parent.parent
+QUERIES = _queries() + ['"w001 w002" w003']
+
+
+def _docs(n, seed, vocab=250):
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i:03d}" for i in range(vocab)])
+    title = words[rng.integers(0, vocab, size=(n, 3))]
+    body = words[rng.integers(0, vocab, size=(n, 18))]
+    return [{"title": " ".join(a), "body": " ".join(b)}
+            for a, b in zip(title, body)]
+
+
+def _schema():
+    return [
+        st.SchemaField("title", st.FieldType.Text, indexed=True, boost=10.0),
+        st.SchemaField("body", st.FieldType.Text, indexed=True),
+    ]
+
+
+def _build(path, shards, n=BLOCK_SIZE + 6_000, tail=700):
+    idx = st.create_index(path, _schema(), shard_count=shards)
+    idx.index_documents(_docs(n, 7))
+    idx.commit()
+    idx.delete_documents(list(range(0, 50_000, 211)) + [n + 3, n + 11])
+    idx.index_documents(_docs(tail, 8))          # uncommitted tail
+    return idx
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
+def index(request, tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("ts") / "ix", request.param)
+
+
+def _requests(qtype, rtype, realtime=True, offset=0, length=10):
+    return [st.SearchRequest(query=q, offset=offset, length=length,
+                             result_type=rtype, realtime=realtime,
+                             query_type_default=qtype) for q in QUERIES]
+
+
+def _reference(idx, reqs, monkeypatch, route):
+    var = "SEEKSTORM_TPU_WAND" if route == "wand" else "SEEKSTORM_TPU_NO_WAND"
+    monkeypatch.setenv(var, "1")
+    try:
+        return [_Page(rs) for rs in st.search_batch(idx, reqs)]
+    finally:
+        monkeypatch.delenv(var)
+
+
+@pytest.mark.parametrize("route", ["wand", "dense"])
+@pytest.mark.parametrize("rtype", [st.ResultType.Topk,
+                                   st.ResultType.TopkCount])
+@pytest.mark.parametrize("qtype", [st.QueryType.Union,
+                                   st.QueryType.Intersection])
+def test_pages_match_reference(index, qtype, rtype, route, monkeypatch):
+    reqs = _requests(qtype, rtype)
+    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    assert sum(p.count > 0 for p in mine) > len(QUERIES) // 2 or \
+        rtype == st.ResultType.Topk
+    assert mine == _reference(index, reqs, monkeypatch, route)
+
+
+@pytest.mark.parametrize("realtime", [False, True])
+def test_deep_pages_match_reference(index, realtime, monkeypatch):
+    """need = offset + length > 16: the host rung ladder serves the page."""
+    reqs = _requests(st.QueryType.Union, st.ResultType.TopkCount,
+                     realtime=realtime, offset=20, length=30)
+    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    assert mine == _reference(index, reqs, monkeypatch, "wand")
+
+
+def test_exact_pages_match_search(index):
+    """exact_pages (the host exact evaluation that chip_smoke.py holds the
+    device pages against) gives the WAND path's committed pages."""
+    reqs = [r for r in _requests(st.QueryType.Union, st.ResultType.TopkCount,
+                                 realtime=False) if '"' not in r.query]
+    mine = pt.search_batch(index, reqs, device="cpu")
+    for rs, (count, gids, scores) in zip(
+            mine, pt.exact_pages(index, reqs, device="cpu")):
+        ref = pt.ResultSet(result_count_total=count, results=[
+            pt.ResultObject(doc_id=g, score=s) for g, s in zip(gids, scores)])
+        assert _Page(rs) == _Page(ref)
+    assert sum(rs.result_count_total > 0 for rs in mine) > len(reqs) // 2
+
+
+def test_single_search_and_empty_queries(index, monkeypatch):
+    req = st.SearchRequest(query="w001 w002", length=5)
+    assert _Page(pt.search(index, req, device="cpu")) == \
+        _reference(index, [req], monkeypatch, "wand")[0]
+    reqs = [st.SearchRequest(query="", length=5),
+            st.SearchRequest(query="zzzunknown", length=5),
+            st.SearchRequest(query="-w001", length=5)]
+    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    assert mine == _reference(index, reqs, monkeypatch, "wand")
+
+
+def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
+    """The port keys its device state on the committed state, not on
+    index._device_dirty, which the reference's search clears."""
+    idx = _build(tmp_path / "ix", 1, n=9_000, tail=0)
+    req = [st.SearchRequest(query="w001 w002", length=10,
+                            result_type=st.ResultType.TopkCount)]
+    before = pt.search_batch(idx, req, device="cpu")[0]
+    victims = [r.doc_id for r in before.results[:3]]
+    idx.delete_documents(victims)
+    _reference(idx, req, monkeypatch, "wand")    # clears _device_dirty
+    after = pt.search_batch(idx, req, device="cpu")[0]
+    assert after.result_count_total == before.result_count_total - 3
+    assert not set(victims) & {r.doc_id for r in after.results}
+    idx.index_documents(_docs(3_000, 9))
+    idx.commit()
+    _reference(idx, req, monkeypatch, "wand")
+    grown = pt.search_batch(idx, req, device="cpu")[0]
+    assert _Page(grown) == _reference(idx, req, monkeypatch, "wand")[0]
+    assert grown.result_count_total > after.result_count_total
+
+
+def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
+    """Host paths the port takes over unchanged: the frequent-word warmup
+    cache (filled by commit) and query rewriting (spelling/completion)."""
+    meta = st.IndexMeta(
+        frequent_words=st.FrequentwordType.English,
+        spelling_correction=st.SpellingCorrection(
+            max_dictionary_edit_distance=2, count_threshold=1),
+        query_completion=st.QueryCompletion(max_completion_entries=10_000))
+    schema = [st.SchemaField("t", st.FieldType.Text, stored=True,
+                             indexed=True, dictionary_source=True,
+                             completion_source=True)]
+    idx = st.create_index(tmp_path / "ix", schema, meta=meta)
+    words = [f"wordstem{i:03d}" for i in range(80)]
+    idx.index_documents([
+        {"t": " ".join(["the"] * (i % 3 + 1)
+                       + [words[(i + j) % 80] for j in range(4)])}
+        for i in range(600)])
+    idx.commit()
+    assert idx._warmup_cache
+    word = next(iter(idx.spell.words))
+    typo = word[:-1] + ("x" if word[-1] != "x" else "y")
+    reqs = [st.SearchRequest(query="the", realtime=False),
+            st.SearchRequest(query=typo, query_rewriting={
+                "SearchRewrite": {"correct": 2, "distance": 2}}),
+            st.SearchRequest(query=typo, query_rewriting={
+                "SearchSuggest": {"correct": 2, "distance": 2}}),
+            st.SearchRequest(query=typo, query_rewriting={
+                "SuggestOnly": {"correct": 2, "complete": 2}})]
+    for req in reqs:
+        mine = pt.search(idx, req, device="cpu")
+        monkeypatch.setenv("SEEKSTORM_TPU_WAND", "1")
+        ref = st.search(idx, req)
+        monkeypatch.delenv("SEEKSTORM_TPU_WAND")
+        assert _Page(mine) == _Page(ref)
+        assert mine.suggestions == ref.suggestions
+    assert pt.search(idx, reqs[1], device="cpu").result_count_total > 0
+
+
+def test_reference_index_methods_untouched():
+    assert st.Index.search.__code__.co_filename.endswith(
+        os.path.join("seekstorm_tpu", "search.py"))
+    assert st.search_batch is not pt.search_batch
+
+
+def test_cuda_without_card_raises(index):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.search_batch(index, [st.SearchRequest(query="w001")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.search(index, st.SearchRequest(query="w001"), device="cuda")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(search_mode=st.SearchMode.Vector),
+    dict(query_facets=[st.QueryFacet(field="title")]),
+    dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]),
+    dict(result_sort=[st.ResultSort(field="title")]),
+    dict(field_filter=["title"]),
+    dict(result_type=st.ResultType.Count),
+    dict(offset=1000, length=100),
+    dict(query=" ".join(f"w{i:03d}" for i in range(9))),
+], ids=["vector", "facets", "filter", "sort", "field_filter", "count",
+        "deep", "slots"])
+def test_out_of_scope_raises(index, kw):
+    req = st.SearchRequest(**{"query": "w001 w002", **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.search_batch(index, [req], device="cpu")
+
+
+_NO_JAX = r"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import seekstorm_tpu_torch as pt
+idx = pt.create_index(sys.argv[1], [
+    pt.SchemaField("title", pt.FieldType.Text, indexed=True, boost=10.0),
+    pt.SchemaField("body", pt.FieldType.Text, indexed=True)])
+idx.index_documents([{"title": f"t{i % 7} x", "body": f"b{i % 13} y"}
+                     for i in range(2000)])
+idx.commit()
+idx.index_documents([{"title": "t1 tail", "body": "b2"}])
+rs = pt.search_batch(idx, [pt.SearchRequest(query="t1 b2", length=5)],
+                     device="cpu")[0]
+assert rs.result_count_total > 0 and len(rs.results) == 5, rs
+assert "jax" not in sys.modules
+print("ok", rs.result_count_total)
+"""
+
+
+def test_port_runs_without_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    out = subprocess.run([sys.executable, "-c", _NO_JAX, str(tmp_path / "ix")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -8,23 +8,39 @@ Phases, each printing what it found:
   1. card:   nvidia-smi name and power limit, torch's device name, and
              whether the native host library loaded (ingesting the corpus
              below needs it);
-  2. build:  nvcc builds kernel K1 (csrc/wand_scan.cu) from the sources;
+  2. build:  nvcc builds kernels K1 (csrc/wand_scan.cu) and K2
+             (csrc/dense_scan.cu) from the sources, one process each;
   3. K1:     K1 against its plain PyTorch version on random pools at the
              serving shapes (Bq=2048, NBLK=16, V=4096, T in {2,4,8}, filter
              off and on): counts equal and UBs bitwise equal, with both
              times (CUDA events, median of 20);
   4. index:  1,048,576 docs of bench.make_corpus (seed 7, vocab 30,000,
              title boost 10, 1 shard), committed, plus 5,000 uncommitted;
-  5. serve:  bench.make_queries(2048, seed 100) as Topk and TopkCount with
+  5. serve:  the default route (WAND at 16 blocks):
+             bench.make_queries(2048, seed 100) as Topk and TopkCount with
              realtime=True through seekstorm_tpu_torch.search_batch on
-             "cuda"; K1 must have launched; the warm batch latency and a
-             cProfile of one warm batch (where the host's time goes);
-             256 queries must give the same pages on "cpu", and 64
-             queries with realtime=False the same pages as the host exact
-             evaluation.
+             "cuda"; K1 must have launched, and K2 too whenever a WAND
+             straggler fell back (at batch 2048 stragglers defer to the
+             dense path); the warm batch latency and a cProfile of one warm
+             batch (where the host's time goes); 256 queries must give the
+             same pages, ids in the same order, on "cpu" (with
+             SEEKSTORM_TPU_WAND_DEFER_DENSE=1 there, so its stragglers take
+             the dense path as well), and 64 queries with realtime=False
+             the same pages as the host exact evaluation;
+  6. K2:     K2 against its plain PyTorch version on every (block, query)
+             pair of the 2,048-query TopkCount batch's dense plan: scores
+             bitwise equal, counts equal, both times (CUDA events) on one
+             tile of 1,024 pairs;
+  7. dense:  the same batches with SEEKSTORM_TPU_NO_WAND=1 (the dense
+             path): K2 must have launched; pages equal to the WAND route's
+             (counts exact, scores within rtol 3e-5, membership per score
+             cluster); warm batch latency and the device's kernel time by
+             name (torch.profiler); 256 queries must give the same pages on
+             "cpu"; a batch of pages 1990-2009 and a batch of 10- to
+             12-term queries served, their first 32 equal on "cpu".
 
 The script imports the port (seekstorm_tpu_torch), bench.py and torch;
-jax is blocked.
+jax is blocked through every phase.
 
 Any failed check raises, so the exit code is not 0 and no result line is
 printed.  Without CUDA, or without the repository beside it, the script
@@ -98,10 +114,11 @@ def phase_build():
     from seekstorm_tpu_torch import _build
 
     t0 = time.perf_counter()
-    _build.load()
+    _build.load("wand_scan")
     secs = time.perf_counter() - t0
-    print(f"[build] K1 library {_build.library_path().name}: {secs:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS})")
+    names = ", ".join(p.name for p in _build.build().values())
+    print(f"[build] K1, K2 libraries {names}: {secs:.2f} s (nvcc, one "
+          f"process per source, {_build.BUILD_SECONDS})")
     for line in (_build.BUILD_LOG or "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] ptxas: {line.strip()}")
@@ -288,6 +305,7 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
 
     import bench
     from seekstorm_tpu_torch import METRICS
+    from seekstorm_tpu_torch.ops import dense_scan as ds
     from seekstorm_tpu_torch.ops import wand as W
     from seekstorm_tpu_torch.ops import wand_scan as ws
 
@@ -301,6 +319,7 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
 
     fb0 = METRICS.snapshot().get("wand_fallbacks_total", 0.0)
     ws.LAUNCHES = 0
+    ds.LAUNCHES = 0
     t0 = time.perf_counter()
     topk = st.search_batch(idx, reqs(st.ResultType.Topk), device=device)
     t1 = time.perf_counter()
@@ -308,12 +327,15 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
                             device=device)
     t2 = time.perf_counter()
     launches = ws.LAUNCHES
+    k2_launches = ds.LAUNCHES
     fallbacks = METRICS.snapshot().get("wand_fallbacks_total", 0.0) - fb0
     print(f"[serve] {n_queries} queries: Topk batch {t1 - t0:.3f} s (cold: "
           f"builds the term rows), TopkCount batch {t2 - t1:.3f} s; K1 "
-          f"launches {launches}; host exact fallbacks {fallbacks:.0f}")
-    check(launches > 0 or device != "cuda",
-          "the serve phase did not launch K1")
+          f"launches {launches}; WAND stragglers {fallbacks:.0f}, deferred "
+          f"to the dense path: K2 launches {k2_launches}")
+    check(launches > 0, "the serve phase did not launch K1")
+    check(k2_launches > 0 if fallbacks else k2_launches == 0,
+          "WAND stragglers at batch 2048 must run on K2, and only they")
     check(len(topk) == n_queries and len(topkc) == n_queries,
           "one result set per query")
     check(all(len(r.results) <= 10 and all(np.isfinite(x.score)
@@ -336,24 +358,23 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     print(f"[serve] warm TopkCount batch of {n_queries}: "
           f"{[round(x * 1e3, 1) for x in lat]} ms; device pools "
           f"(ppool+vpool+rpool+ipool) {state.pool_bytes()} bytes")
-    spent = {k: snap1.get(f"{k}_seconds_total", 0.0)
-             - snap0.get(f"{k}_seconds_total", 0.0)
-             for k in ("lex_device", "wand_rescore", "wand_exact_fallback")}
-    print(f"[serve] warm batches, seconds of {sum(lat):.3f} in all: device "
-          f"dispatch to fetch {spent['lex_device']:.3f}, host rung rescore "
-          f"{spent['wand_rescore']:.3f}, host exact evaluation "
-          f"{spent['wand_exact_fallback']:.3f}, other host work (parse, "
-          f"plan, tail merge, assembly) "
-          f"{sum(lat) - sum(spent.values()):.3f}")
+    _print_split("serve", lat, snap0, snap1)
     _profile(lambda: st.search_batch(idx, reqs(st.ResultType.TopkCount),
                                      device=device))
 
-    cpu = st.search_batch(idx, reqs(st.ResultType.TopkCount,
-                                    qs=queries[:n_cpu]), device="cpu")
+    # the CPU batch is under 512: defer its stragglers to the dense path
+    # too, as the card's batch of 2048 does, so both take one route
+    os.environ["SEEKSTORM_TPU_WAND_DEFER_DENSE"] = "1"
+    try:
+        cpu = st.search_batch(idx, reqs(st.ResultType.TopkCount,
+                                        qs=queries[:n_cpu]), device="cpu")
+    finally:
+        del os.environ["SEEKSTORM_TPU_WAND_DEFER_DENSE"]
     bad = [(i, why) for i, (a, b) in enumerate(zip(topkc[:n_cpu], cpu))
            for ok, why in [_pages_equal(a, b)] if not ok]
-    print(f"[serve] cuda vs cpu pages on {n_cpu} queries: "
-          f"{n_cpu - len(bad)} equal, first mismatches {bad[:5]}")
+    print(f"[serve] cuda vs cpu pages on {n_cpu} queries (stragglers on "
+          f"the dense path on both): {n_cpu - len(bad)} equal (ids and "
+          f"order), first mismatches {bad[:5]}")
     check(not bad, "cuda and cpu pages differ")
 
     rq = reqs(st.ResultType.TopkCount, realtime=False,
@@ -372,6 +393,234 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
           f"{n_exact} queries: {n_exact - len(bad)} equal, mismatches "
           f"{bad[:5]}")
     check(not bad, "device pages differ from the host exact evaluation")
+    return dict(k1_launches=launches, topk=topk, topkc=topkc,
+                queries=queries)
+
+
+def _print_split(tag, lat, snap0, snap1):
+    """Where warm batches' host-clock seconds went, by METRICS timer."""
+    spent = {k: snap1.get(f"{k}_seconds_total", 0.0)
+             - snap0.get(f"{k}_seconds_total", 0.0)
+             for k in ("lex_device", "lex_plan", "wand_rescore",
+                       "wand_exact_fallback")}
+    print(f"[{tag}] warm batches, seconds of {sum(lat):.3f} in all: device "
+          f"dispatch to fetch {spent['lex_device']:.3f} (WAND scan and "
+          f"dense scan), dense planning {spent['lex_plan']:.3f}, host rung "
+          f"rescore {spent['wand_rescore']:.3f}, host exact evaluation "
+          f"{spent['wand_exact_fallback']:.3f}, other host work (parse, "
+          f"WAND tables, tail merge, assembly) "
+          f"{sum(lat) - sum(spent.values()):.3f}")
+
+
+def _same_pages(a, b, rtol=PAGE_RTOL):
+    """tests/test_wand.py's _Page equality: counts equal, scores within
+    rtol position by position, doc membership equal in every cluster of
+    tied scores but the page's last (two arithmetic paths may split a tie
+    class cut by the page end differently)."""
+    if a.result_count_total != b.result_count_total:
+        return False, "count"
+    if len(a.results) != len(b.results):
+        return False, "length"
+
+    def close(x, y):
+        return abs(x - y) <= rtol * max(abs(x), abs(y), 1e-9)
+
+    def clusters(rs):
+        out = []
+        for r in rs.results:
+            if out and close(r.score, out[-1][0]):
+                out[-1][1].add(r.doc_id)
+            else:
+                out.append((r.score, {r.doc_id}))
+        return out
+
+    if not all(close(x.score, y.score) for x, y in zip(a.results, b.results)):
+        return False, "score"
+    ca, cb = clusters(a), clusters(b)
+    if len(ca) != len(cb) or any(x[1] != y[1] for x, y in
+                                 zip(ca[:-1], cb[:-1])):
+        return False, "ids"
+    return True, ""
+
+
+def phase_k2(torch, st, idx, queries):
+    """K2 against dense_scan_ref on every pair of the batch's dense plan."""
+    import numpy as np
+
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import lexical as lx
+
+    plans, stacked = st.dense_plans(
+        idx, [st.SearchRequest(query=q, result_type=st.ResultType.TopkCount,
+                               realtime=True,
+                               query_type_default=st.QueryType(t))
+              for q, t in queries], device="cuda")
+    tables = stacked.pair_tables(plans)
+    pairs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+             for x in tables[:8]]
+    P, T = pairs[3].shape
+    tile = lx.TILE_PAIRS
+    B = len(queries)
+    err, cnt_k, cnt_r, finite = 0.0, 0, 0, 0
+    for a in range(0, P, tile):
+        part = [x[a:a + tile] for x in pairs]
+        out_k, ck = ds.dense_scan_cuda(*stacked.arrays, *part, B)
+        out_r, cr = ds.dense_scan_ref(*stacked.arrays, *part, B)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(out_r)
+        check(torch.equal(fin, torch.isfinite(out_k)),
+              f"K2 match pattern differs in pairs {a}..{a + tile}")
+        if bool(fin.any()):
+            err = max(err, float((out_k[fin] - out_r[fin]).abs().max()))
+        check(torch.equal(out_k.view(torch.int32), out_r.view(torch.int32)),
+              f"K2 scores not bitwise equal in pairs {a}..{a + tile} "
+              f"(max abs err {err})")
+        check(torch.equal(ck, cr), f"K2 counts differ in pairs {a}..")
+        cnt_k += int(ck.sum())
+        cnt_r += int(cr.sum())
+        finite += int(fin.sum())
+        del out_k, out_r
+    part = [x[:tile] for x in pairs]
+    ms = _median_ms(torch, lambda: ds.dense_scan_cuda(*stacked.arrays,
+                                                      *part, B))
+    plain_ms = _median_ms(torch, lambda: ds.dense_scan_ref(*stacked.arrays,
+                                                           *part, B), n=10)
+    sc, _ = ds.dense_scan_cuda(*stacked.arrays, *part, B)
+    topk_ms = _median_ms(torch, lambda: lx.topk_block(sc, 16))
+    print(f"[K2] {P} pairs (T={T}) of the {B}-query TopkCount plan "
+          f"({len(plans[0].block_ids)} blocks): scores bitwise equal "
+          f"({finite} matched docs), counts equal ({cnt_k} matches); one "
+          f"tile of {tile} pairs: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"its top-16 (torch sorts) {topk_ms:.3f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, pairs=P, T=T)
+
+
+def _long_queries(n, rng):
+    """n queries of 10-12 mid-frequency terms, a few with + and -."""
+    out = []
+    for i in range(n):
+        terms = [f"w{int(t):05d}" for t in
+                 rng.integers(20, 3000, size=int(rng.integers(10, 13)))]
+        if i % 4 == 1:
+            terms[0] = "+" + terms[0]
+        if i % 4 == 2:
+            terms[-1] = "-" + terms[-1]
+        out.append(" ".join(terms))
+    return out
+
+
+def _device_kernels(torch, fn, top=6):
+    """Device time by kernel name over one call of fn (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e6
+    print(f"[dense] profiled warm batch: {wall:.3f} s wall (profiler on), "
+          f"device kernels {busy:.4f} s in all, device idle "
+          f"{100 * max(wall - busy, 0.0) / wall:.1f}% of the wall")
+    for name, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"[dense]   {us / 1e3:.3f} ms  x{n}  {name[:90]}")
+
+
+def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
+    import numpy as np
+
+    from seekstorm_tpu_torch import METRICS
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    queries = served["queries"]
+
+    def reqs(rtype, qs=queries, **kw):
+        return [st.SearchRequest(query=q, result_type=rtype, realtime=True,
+                                 query_type_default=st.QueryType(t),
+                                 **{"length": 10, **kw})
+                for q, t in qs]
+
+    os.environ["SEEKSTORM_TPU_NO_WAND"] = "1"
+    try:
+        ws.LAUNCHES = 0
+        ds.LAUNCHES = 0
+        t0 = time.perf_counter()
+        topk = st.search_batch(idx, reqs(st.ResultType.Topk), device="cuda")
+        t1 = time.perf_counter()
+        topkc = st.search_batch(idx, reqs(st.ResultType.TopkCount),
+                                device="cuda")
+        t2 = time.perf_counter()
+        launches, k1 = ds.LAUNCHES, ws.LAUNCHES
+        print(f"[dense] {len(queries)} queries, SEEKSTORM_TPU_NO_WAND=1: "
+              f"Topk batch {t1 - t0:.3f} s (cold: uploads the dense "
+              f"arrays), TopkCount batch {t2 - t1:.3f} s; K2 launches "
+              f"{launches}, K1 launches {k1}")
+        check(launches > 0 and k1 == 0, "the dense route did not run on K2")
+        for tag, mine, ref in (("Topk", topk, served["topk"]),
+                               ("TopkCount", topkc, served["topkc"])):
+            bad = [(i, why) for i, (a, b) in enumerate(zip(mine, ref))
+                   for ok, why in [_same_pages(a, b)] if not ok]
+            print(f"[dense] {tag} pages vs the WAND route's: "
+                  f"{len(mine) - len(bad)} of {len(mine)} equal, first "
+                  f"mismatches {bad[:5]}")
+            check(not bad, f"dense and WAND {tag} pages differ")
+
+        lat = []
+        snap0 = METRICS.snapshot()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st.search_batch(idx, reqs(st.ResultType.TopkCount),
+                            device="cuda")
+            lat.append(time.perf_counter() - t0)
+        snap1 = METRICS.snapshot()
+        print(f"[dense] warm TopkCount batch of {len(queries)}: "
+              f"{[round(x * 1e3, 1) for x in lat]} ms")
+        _print_split("dense", lat, snap0, snap1)
+        _device_kernels(torch, lambda: st.search_batch(
+            idx, reqs(st.ResultType.TopkCount), device="cuda"))
+
+        cpu = st.search_batch(idx, reqs(st.ResultType.TopkCount,
+                                        qs=queries[:n_cpu]), device="cpu")
+        bad = [(i, why) for i, (a, b) in enumerate(zip(topkc[:n_cpu], cpu))
+               for ok, why in [_pages_equal(a, b, rtol=0.0)] if not ok]
+        print(f"[dense] cuda vs cpu pages on {n_cpu} queries: "
+              f"{n_cpu - len(bad)} equal (ids, order and scores exactly), "
+              f"first mismatches {bad[:5]}")
+        check(not bad, "dense cuda and cpu pages differ")
+
+        longq = [(q, "Union") for q in
+                 _long_queries(n_long, np.random.default_rng(5))]
+        for tag, rq, n_page in (
+                ("pages 1990-2009", reqs(st.ResultType.TopkCount,
+                                         qs=queries[:n_deep], offset=1990,
+                                         length=20), 20),
+                ("10-12 terms", reqs(st.ResultType.TopkCount, qs=longq),
+                 10)):
+            ds.LAUNCHES = 0
+            t0 = time.perf_counter()
+            got = st.search_batch(idx, rq, device="cuda")
+            dt = time.perf_counter() - t0
+            full = sum(len(r.results) == n_page for r in got)
+            print(f"[dense] {len(rq)} queries, {tag}: {dt:.3f} s, "
+                  f"{full} full pages, K2 launches {ds.LAUNCHES}")
+            check(ds.LAUNCHES > 0 and full > 0
+                  and all(len(r.results) <= n_page
+                          and np.isfinite([x.score for x in r.results]).all()
+                          for r in got), f"{tag} batch served")
+            cpu = st.search_batch(idx, rq[:32], device="cpu")
+            bad = [i for i, (a, b) in enumerate(zip(got, cpu))
+                   if not _pages_equal(a, b, rtol=0.0)[0]]
+            print(f"[dense]   cuda vs cpu on 32: mismatches {bad[:5]}")
+            check(not bad, f"{tag}: cuda and cpu pages differ")
+    finally:
+        del os.environ["SEEKSTORM_TPU_NO_WAND"]
     return launches
 
 
@@ -397,7 +646,9 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(torch)
     idx = phase_index(st)
-    launches = phase_serve(torch, st, idx)
+    served = phase_serve(torch, st, idx)
+    k2 = phase_k2(torch, st, idx, served["queries"])
+    k2_launches = phase_dense(torch, st, idx, served)
     shutil.rmtree(WORK / "index", ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
 
@@ -407,10 +658,19 @@ def main() -> int:
         "route": "cuda",
         "source": "seekstorm_tpu_torch/csrc/wand_scan.cu",
         "replaces": "seekstorm_tpu/ops/wand_pallas.py:247",
-        "launches": launches,
+        "launches": served["k1_launches"],
         "max_abs_err": max(r["err"] for r in k1),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+    }, {
+        "name": "dense_scan_cuda",
+        "route": "cuda",
+        "source": "seekstorm_tpu_torch/csrc/dense_scan.cu",
+        "replaces": "seekstorm_tpu/ops/lexical.py:363",
+        "launches": k2_launches,
+        "max_abs_err": k2["err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

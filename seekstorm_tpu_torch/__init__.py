@@ -53,11 +53,11 @@ from seekstorm_tpu.search import (
 )
 
 from .ops.wand import native_library
-from .search import exact_pages, search, search_batch
+from .search import dense_plans, exact_pages, search, search_batch
 
 __all__ = [
     "Index", "create_index", "open_index", "METRICS", "native_library",
-    "exact_pages", "BLOCK_SIZE", "AccessType",
+    "dense_plans", "exact_pages", "BLOCK_SIZE", "AccessType",
     "ClusteringConfig", "ClusteringMode", "DocumentCompression", "FieldType",
     "FrequentwordType", "IndexMeta", "InferenceType", "LexicalSimilarity",
     "Precision", "Quantization", "QueryCompletion", "SchemaField",

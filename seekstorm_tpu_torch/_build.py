@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with plain ``nvcc`` into one shared
-library with a C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The build runs at first use into
-``build/kernels/`` at the repository root, keyed by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads the
+Each source ``csrc/<name>.cu`` is compiled with plain ``nvcc`` into a shared
+library of its own with a C interface, which is loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The sources build side by side,
+one ``nvcc`` each, all started together, at first use into ``build/kernels/``
+at the repository root.  Each library is keyed by a hash of its source and
+the flags, so an edited source rebuilds and an unchanged one loads the
 library already built.
 
 Pointers and the stream cross the boundary as ``ctypes.c_void_p``; every C
@@ -29,20 +30,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 # what the last build in this process took and what ptxas reported
-# (registers, shared memory, spills per kernel); None when loaded from
-# an earlier build
+# (registers, shared memory, spills per kernel); None when every library
+# was loaded from an earlier build
 BUILD_SECONDS: float | None = None
 BUILD_LOG: str | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# per source under csrc/: its C entry points and their argument types
 _SIGNATURES = {
-    # ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk, T,
-    # with_counts, allub, cnt, stream
-    "wand_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P, _P, _P],
+    "wand_scan": {
+        # ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk,
+        # T, with_counts, allub, cnt, stream
+        "wand_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _P, _P, _P],
+    },
+    "dense_scan": {
+        # docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off, s_len,
+        # s_bm, s_w, s_flag, P, T, out, cnt, stream
+        "dense_scan_launch": [_P] * 13 + [_I, _I, _P, _P, _P],
+    },
 }
 
 
@@ -56,44 +65,50 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libseekstorm_kernels_{h.hexdigest()[:16]}.so"
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the shared library (no-op when it exists)."""
+def build() -> dict[str, Path]:
+    """Compile every source that has no library yet, one nvcc each, all
+    started together.  Returns {name: library path}."""
     global BUILD_SECONDS, BUILD_LOG
-    out = library_path()
-    if out.exists():
-        return out
+    outs = {name: library_path(name) for name in _SIGNATURES}
+    todo = [name for name, out in outs.items() if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    procs = {}
+    for name in todo:
+        tmp = outs[name].with_name(f"{outs[name].name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = {name: p.communicate()[1] for name, (_, p) in procs.items()}
+    for name, (tmp, p) in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc {name}.cu failed ({p.returncode}):\n{logs[name]}")
+        os.replace(tmp, outs[name])
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = res.stderr
-    return out
+    BUILD_LOG = "".join(logs.values())
+    return outs
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _LIB
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``; the first call builds every
+    library not built yet."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+        if not _LIBS:
+            for src, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for fn_name, argtypes in _SIGNATURES[src].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIBS[src] = lib
+        return _LIBS[name]

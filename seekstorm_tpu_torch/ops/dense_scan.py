@@ -1,0 +1,182 @@
+"""Dense impact-path block scan: kernel K2 (csrc/dense_scan.cu) and its
+plain PyTorch version.
+
+Replaces the XLA program ``seekstorm_tpu/ops/lexical.py::_block_step_imp``
+(363-476), as ``lexical_scan_imp`` (486-565) and ``lexical_scan_qt``
+(592-667) run it, and the per-block match count of ``lexical_scan_imp``
+(530-531).
+
+It scores a (block, query) pair list (``plan.DensePlan``): for each pair and
+each of the block's 65,536 docs,
+
+    S = fma(wb, sat1, c),  c = fma chain of w_t * imp_t over the
+        CSR-remainder postings in ascending slot id, wb = the sum of w_t
+        over the bitmap slots with the doc's bit set
+
+which is how the reference's ``W @ D + (W_b @ E) * sat1`` rounds on the CPU
+(its matmul is a fused multiply-add chain over the slots, and the bitmap
+term fuses too).  Required slots count hits, negated slots flag them, and
+
+    matched = S > 0 & hits >= nreq & ~negated & ~deleted
+
+gives the masked score (-inf where unmatched) and ``cnt[q] +=
+popcount(matched)``.  K2 and ``dense_scan_ref`` are bitwise equal.
+
+What bounds K2 on the card is bytes: each pair reads its query's postings
+and writes 256 KB of masked scores (see the note in the CUDA source).
+
+Device layout: docids are u16 bit patterns in int16, bitmap and delete
+words u32 bit patterns in int32 (torch has no u32 shifts on the CPU).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from seekstorm_tpu.schema import BLOCK_SIZE
+
+from ..plan import FLAG_NEG, FLAG_REQ
+from .wand_scan import _check
+
+NWORDS = BLOCK_SIZE // 32      # u32 words per block bitmap
+MAX_SLOTS = 127                # K2 counts required hits in 7 bits
+
+# launches of K2 since the last reset (the count a run reads to show that
+# its dense path went through the kernel)
+LAUNCHES = 0
+
+_BIT = torch.arange(32, dtype=torch.int32)
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """int32 bit-pattern words [..., n] -> bool [..., n*32] (bit j of word i
+    is doc i*32 + j)."""
+    bits = (words[..., None] >> _BIT.to(words.device)) & 1
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * 32) != 0
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 fused multiply-add a*b + c (what __fmaf_rn
+    computes).  The product is exact in f64; the f64 sum is rounded to odd
+    (TwoSum gives its exact error), and a round-to-odd result at 53 bits
+    rounds to the nearest f32 as the exact sum would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    bits = s.view(torch.int64)
+    # inexact with an even last bit: step one ulp toward the exact value
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
+    """Plain PyTorch block scan over P pairs.
+
+    docid i16[Pc] (u16 bits) / imp f32[Pc] the CSR remainder; bitmaps
+    i32[NBM, NWORDS]; sat1 f32[NBLK*BLOCK_SIZE]; delw i32[NBLK, NWORDS]
+    deleted-doc words; p_blk / p_q / p_nreq i32[P] global block, batch row
+    and required-slot count of each pair; s_off i64 / s_len i32 / s_bm i32
+    / s_w f32 / s_flag i32 [P, T] per (pair, slot).  Returns (scores
+    f32[P, BLOCK_SIZE] with -inf where unmatched, cnt i32[n_queries])."""
+    dev = imp.device
+    P, T = s_len.shape
+    score = torch.zeros((P, BLOCK_SIZE), dtype=torch.float32, device=dev)
+    req = torch.zeros((P, BLOCK_SIZE), dtype=torch.int32, device=dev)
+    neg = torch.zeros((P, BLOCK_SIZE), dtype=torch.bool, device=dev)
+    wsum = None               # bitmap weights, allocated on first use
+    blk = p_blk.long()
+    rows = torch.arange(P, device=dev)
+    zero = torch.zeros((), device=dev)
+    for t in range(T):
+        w = s_w[:, t]
+        is_req = (s_flag[:, t] & FLAG_REQ) != 0
+        is_neg = (s_flag[:, t] & FLAG_NEG) != 0
+        ln = s_len[:, t].long()
+        tot = int(ln.sum())
+        if tot:
+            pid = torch.repeat_interleave(rows, ln)
+            first = torch.cumsum(ln, 0) - ln
+            pos = (s_off[:, t][pid]
+                   + torch.arange(tot, device=dev) - first[pid])
+            doc = docid[pos].long() & 0xFFFF
+            # (pair, doc) is unique within one slot's segment
+            score[pid, doc] = fma32(w[pid], imp[pos], score[pid, doc])
+            req[pid, doc] += is_req[pid].to(torch.int32)
+            neg[pid, doc] |= is_neg[pid]
+        rb = torch.nonzero(s_bm[:, t] >= 0).flatten()
+        if len(rb):
+            bits = unpack_words(bitmaps[s_bm[rb, t].long()])   # [Pb, BLOCK]
+            if wsum is None:
+                wsum = torch.zeros((P, BLOCK_SIZE), dtype=torch.float32,
+                                   device=dev)
+            wsum[rb] = wsum[rb] + torch.where(bits, w[rb, None], zero)
+            req[rb] += (bits & is_req[rb, None]).to(torch.int32)
+            neg[rb] |= bits & is_neg[rb, None]
+    if wsum is not None:
+        # fma(0, sat1, c) = c: only docs with a bitmap hit change
+        pi, di = torch.nonzero(wsum, as_tuple=True)
+        score[pi, di] = fma32(wsum[pi, di], sat1[blk[pi] * BLOCK_SIZE + di],
+                              score[pi, di])
+    deleted = unpack_words(delw[blk])
+    matched = (score > 0) & (req >= p_nreq[:, None]) & ~neg & ~deleted
+    out = torch.where(matched, score,
+                      torch.full((), float("-inf"), device=dev))
+    cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, p_q.long(), matched.sum(dim=1, dtype=torch.int32))
+    return out, cnt
+
+
+def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
+    """K2 on CUDA tensors: same contract as dense_scan_ref."""
+    global LAUNCHES
+    from .. import _build
+
+    dev = imp.device
+    P, T = s_len.shape
+    if T > MAX_SLOTS:
+        raise ValueError(f"K2 takes at most {MAX_SLOTS} slots, got {T}")
+    _check("docid", docid, torch.int16, docid.shape, dev)
+    _check("imp", imp, torch.float32, docid.shape, dev)
+    _check("bitmaps", bitmaps, torch.int32, (bitmaps.shape[0], NWORDS), dev)
+    NBLK = delw.shape[0]
+    _check("sat1", sat1, torch.float32, (NBLK * BLOCK_SIZE,), dev)
+    _check("delw", delw, torch.int32, (NBLK, NWORDS), dev)
+    for name, x in (("p_blk", p_blk), ("p_q", p_q), ("p_nreq", p_nreq)):
+        _check(name, x, torch.int32, (P,), dev)
+    _check("s_off", s_off, torch.int64, (P, T), dev)
+    for name, x in (("s_len", s_len), ("s_bm", s_bm), ("s_flag", s_flag)):
+        _check(name, x, torch.int32, (P, T), dev)
+    _check("s_w", s_w, torch.float32, (P, T), dev)
+
+    out = torch.empty((P, BLOCK_SIZE), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    lib = _build.load("dense_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES += 1
+    err = lib.dense_scan_launch(
+        docid.data_ptr(), imp.data_ptr(), bitmaps.data_ptr(),
+        sat1.data_ptr(), delw.data_ptr(), p_blk.data_ptr(), p_q.data_ptr(),
+        p_nreq.data_ptr(), s_off.data_ptr(), s_len.data_ptr(),
+        s_bm.data_ptr(), s_w.data_ptr(), s_flag.data_ptr(), P, T,
+        out.data_ptr(), cnt.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_scan_cuda launch failed (error {err})")
+    return out, cnt
+
+
+def dense_scan(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+               s_len, s_bm, s_w, s_flag, n_queries: int):
+    """The plain version for tensors on the CPU, K2 for CUDA tensors (a
+    CUDA failure raises; there is no fallback)."""
+    args = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+            s_len, s_bm, s_w, s_flag, n_queries)
+    if imp.device.type == "cpu":
+        return dense_scan_ref(*args)
+    if imp.device.type == "cuda":
+        return dense_scan_cuda(*args)
+    raise ValueError(f"no dense scan for device {imp.device}")

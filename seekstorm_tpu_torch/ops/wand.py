@@ -13,9 +13,17 @@ engine has four phases per batch:
      escalation, returned as one slim i32 buffer per query.
 
 Phases 2-4 are torch ops.  Queries the device ladder cannot finish go
-through the host rung ladder (native ``st_rescore``) and, when their UBs
-saturate, the host exact evaluation (``_exact_fallback``).  Every query
-gets an exact page and count on this path; there is no dense fallback.
+through the host rung ladder (native ``st_rescore``).  Queries whose UBs
+saturate every rung are stragglers: at batch >= 512 (or under
+``SEEKSTORM_TPU_WAND_DEFER_DENSE``) they come back unhandled for the dense
+path, as in the reference; otherwise the host exact evaluation
+(``_exact_fallback``) finishes them.
+
+``wand_auto`` is the reference's routing test without its backend check:
+indexes of ``WAND_MIN_BLOCKS`` blocks and up ride WAND unless the observed
+fallback rate closes the adaptive gate; ``SEEKSTORM_TPU_WAND`` and
+``SEEKSTORM_TPU_NO_WAND`` force either way.  The gate's and the dense
+planner's statistics live in the port's own ``RouteStats``.
 
 The host glue (slot rows, ladders, exact evaluation) restates the
 reference's numpy code, because the reference module cannot be imported
@@ -25,6 +33,7 @@ shifts or comparisons on the CPU).
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -49,6 +58,11 @@ MARGIN = 1.000001
 # past them the slot cache flushes and rebuilds from the live working set
 POOL_MB = 6144
 IMP_MB = 3072
+# blocks in the largest shard from which an index rides WAND by default
+# (16 blocks = 1M docs); below it the dense path serves the whole batch
+WAND_MIN_BLOCKS = 16
+# batch size from which stragglers defer to the dense path
+DEFER_MIN_BATCH = 512
 
 
 # ---------------------------------------------------------------------------
@@ -602,6 +616,63 @@ def native_library():
     return native_mod.load()
 
 
+class RouteStats:
+    """The port's adaptive routing counters for one index (the reference
+    keeps its own on index._wand_stats / _prune_stats; these are separate,
+    so a search of either package never steers the other's routing)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.wand = [0, 0]      # [exact fallbacks, queries], decaying
+        self.wand_skips = 0     # batches refused while the gate is closed
+        self.prune = [0, 0]     # [escalated, attempted] pruned plans
+
+    def prune_ok(self) -> bool:
+        """Pruned plans stay on until half of at least 8 escalated."""
+        with self.lock:
+            return self.prune[1] < 8 or self.prune[0] * 2 < self.prune[1]
+
+    def record_prune(self, escalated: bool) -> None:
+        with self.lock:
+            self.prune[1] += 1
+            self.prune[0] += int(escalated)
+
+    def record_wand(self, fallbacks: int, queries: int) -> None:
+        """The fallback-rate sample, halved past 2048 queries so a bad
+        warm sample does not latch (reference wand.py:2305-2320)."""
+        with self.lock:
+            self.wand[0] += fallbacks
+            self.wand[1] += queries
+            if self.wand[1] > 2048:
+                self.wand[0] //= 2
+                self.wand[1] //= 2
+
+
+def route_stats(index) -> RouteStats:
+    return index.__dict__.setdefault("_torch_route_stats", RouteStats())
+
+
+def wand_auto(index) -> bool:
+    """Whether a batch on `index` rides WAND (reference wand.py:93-121,
+    without its TPU-backend test).  Once more than half of a warm sample
+    of at least 256 queries fell back to exact evaluation (flat impact
+    maxima: the UBs cannot prune), the gate closes and lets every 64th
+    batch through as a probe."""
+    if os.environ.get("SEEKSTORM_TPU_NO_WAND"):
+        return False
+    if os.environ.get("SEEKSTORM_TPU_WAND"):
+        return True
+    if max(sh.lexical.n_blocks for sh in index.shards) < WAND_MIN_BLOCKS:
+        return False
+    st = route_stats(index)
+    with st.lock:
+        if st.wand[1] >= 256 and st.wand[0] * 2 > st.wand[1]:
+            st.wand_skips += 1
+            if st.wand_skips % 64 != 0:
+                return False
+    return True
+
+
 def query_ok(spec) -> bool:
     """Eligibility: 1..T_MAX slots.  Phrase specs are eligible; their
     positional verification runs downstream in _finalize_lexical."""
@@ -1042,14 +1113,17 @@ def plan_batch(state: WandState, slots, specs, idf_per_shard):
 
 
 def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
-              with_counts: bool, device):
+              with_counts: bool, device, count_only: bool = False):
     """Execute a batch of eligible (query_ok) queries on the WAND path.
 
     idf_per_shard: f32[S, V] per-shard idf per slot (realtime aware).
     Pages of need <= 16 finish on the device ladder; deeper pages and
-    device stragglers go through the host rung ladder, and queries whose
-    UBs saturate every rung through the host exact evaluation.
-    Returns (scores list, gids list, counts i64[B])."""
+    device stragglers go through the host rung ladder.  Queries whose UBs
+    saturate every rung come back unhandled at batch >= DEFER_MIN_BATCH
+    (SEEKSTORM_TPU_WAND_DEFER_DENSE=1/0 overrides) for the dense path, and
+    go through the host exact evaluation otherwise.  count_only
+    (ResultType.Count) returns phase 1's popcounts and no pages.
+    Returns (scores list, gids list, counts i64[B], handled bool[B])."""
     state = get_state(index, device)
     dev = state.device
     B = len(specs)
@@ -1063,7 +1137,7 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
             state, slots, specs, idf_per_shard)
         pools = state.pools
 
-    dev_rescore = max(need * 4, 64) <= P_PAGE
+    dev_rescore = not count_only and max(need * 4, 64) <= P_PAGE
     qargs = [torch.from_numpy(a).to(dev)
              for a in (slotmap, tslot, treq, tneg, wsh)]
     METRICS.inc("device_dispatch_total")
@@ -1094,6 +1168,10 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
                                buf_f[:B, A + 2 * KP - 1], 1))
         host_rungs.append((packed[:B, A: A + K_SEL], buf_f[:B, A + K_SEL],
                            F_LADDER[2]))
+    elif count_only:
+        # the phase-1 popcount is the answer: no pages, no ladder
+        counts[:] = cnt[:B]
+        return out_scores, out_gids, counts, np.ones(B, bool)
     else:
         pending = list(range(B))
         host_rungs = [(ids.astype(np.int64), vals[:, K_SEL], F)
@@ -1129,6 +1207,14 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         if pending:
             METRICS.inc("wand_escalations_total")
     METRICS.inc("wand_fallbacks_total", len(pending))
+    route_stats(index).record_wand(len(pending), B)
+    handled = np.ones(B, bool)
+    denv = os.environ.get("SEEKSTORM_TPU_WAND_DEFER_DENSE")
+    defer = denv not in ("", "0") if denv is not None \
+        else B >= DEFER_MIN_BATCH
+    if defer:
+        handled[pending] = False
+        return out_scores, out_gids, counts, handled
     for qi in pending:
         with METRICS.timer("wand_exact_fallback"):
             sc, gid, count = _exact_fallback(state, slot_rows, specs[qi],
@@ -1136,4 +1222,4 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         out_scores[qi] = sc
         out_gids[qi] = gid
         counts[qi] = count
-    return out_scores, out_gids, counts
+    return out_scores, out_gids, counts, handled

@@ -164,7 +164,7 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
 
     allub = torch.empty((Bq, NBLK * NW), dtype=torch.float32, device=dev)
     cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
-    lib = _build.load()
+    lib = _build.load("wand_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
     err = lib.wand_scan_launch(

@@ -1,18 +1,27 @@
 """Lexical search on a torch device.
 
 Port of the lexical entry points of ``seekstorm_tpu/search.py``
-(``search``/``search_batch`` and the bucket-WAND route of
-``_lexical_search_batch``).  Parsing, idf, the realtime tail merge, phrase
-verification and result assembly are the reference's host functions,
-imported unchanged; only the device dispatch is the port's
-(``ops/wand.run_batch``).
+(``search``/``search_batch`` and ``_lexical_search_batch``, impact mode).
+Parsing, idf, the realtime tail merge, phrase verification and result
+assembly are the reference's host functions, imported unchanged; the
+device dispatch is the port's.
 
-Every eligible query rides WAND whatever the index size (the reference
-routes indexes below 16 blocks to its dense kernels; both engines return
-exact results), and queries whose upper bounds saturate go to the host
-exact evaluation.
+A batch routes as the reference routes it:
 
-The device is explicit: ``device="cuda"`` without CUDA raises.
+  * WAND (``ops/wand.run_batch``) for queries of at most 8 slots when
+    ``wand_auto`` holds (indexes of 16 blocks and up, or
+    ``SEEKSTORM_TPU_WAND=1``; ``SEEKSTORM_TPU_NO_WAND=1`` turns it off) and
+    pages end at 1024 or less;
+  * the dense path (``plan.py``, ``parallel/mesh.StackedIndex``, kernel
+    K2) for the rest: smaller indexes, longer queries, deeper pages, and
+    the WAND stragglers deferred at batch >= 512.  Its plans prune blocks
+    by upper bound unless counts or phrases need full coverage, and a
+    pruned batch whose k-th score falls below an unscored bound re-runs
+    in full.
+
+``ResultType.Count`` takes WAND's phase-1 popcount on the WAND route and
+the dense path's counts elsewhere.  The device is explicit:
+``device="cuda"`` without CUDA raises.
 """
 
 from __future__ import annotations
@@ -29,11 +38,14 @@ from seekstorm_tpu.search import (ResultObject, ResultSet, ResultType,
                                   SearchMode, SearchRequest, _attach_docs,
                                   _build_specs, _empty_query_results,
                                   _finalize_lexical, _merge_tail,
-                                  _req_signature, _shard_idf)
+                                  _QuerySpec, _req_signature, _shard_idf)
+from seekstorm_tpu.utils import ceil_pow2
 
+from . import plan as plan_mod
 from .ops import wand as wand_mod
+from .parallel import mesh
 
-MAX_PAGE = 1024    # offset + length served by the WAND host ladder
+MAX_PAGE = 1024    # deepest offset + length the WAND route serves
 
 
 def resolve_device(device) -> torch.device:
@@ -133,6 +145,22 @@ def exact_pages(index: Index, requests: list[SearchRequest],
     return out
 
 
+def dense_plans(index: Index, requests: list[SearchRequest],
+                device="cuda"):
+    """The dense path's full-coverage plans of a batch (every candidate
+    block of every query, one DensePlan or None per shard) and the index's
+    StackedIndex on `device`.  ``stacked.pair_tables(plans)`` gives the
+    (block, query) pairs kernel K2 scans for this batch, a way to hold K2
+    against its plain version at a batch's real shapes."""
+    slots, specs = _build_specs(index, [r.query for r in requests],
+                                [r.query_type_default for r in requests])
+    plans = [plan_mod.plan_shard(index, sh, slots, specs,
+                                 requests[0].realtime, True,
+                                 plan_mod.PRUNE_BLOCKS)
+             for sh in index.shards]
+    return plans, mesh.get_stacked(index, resolve_device(device))
+
+
 def _unsupported(req0: SearchRequest) -> str | None:
     if req0.query_facets:
         return "query_facets (ROADMAP A.6 WAND facet histograms)"
@@ -142,8 +170,6 @@ def _unsupported(req0: SearchRequest) -> str | None:
         return "result_sort (ROADMAP A.6 WAND rank-by-key)"
     if req0.field_filter:
         return "field_filter (ROADMAP A.7 tf path)"
-    if req0.result_type == ResultType.Count:
-        return "ResultType.Count (ROADMAP A.6 WAND count-only)"
     return None
 
 
@@ -153,11 +179,6 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     what = _unsupported(req0)
     if what is not None:
         raise NotImplementedError(f"{what} is not ported yet")
-    need = max(r.offset + r.length for r in requests)
-    if need > MAX_PAGE:
-        raise NotImplementedError(
-            f"pages deeper than {MAX_PAGE} need the dense path, not ported "
-            "yet (ROADMAP A.5)")
     slots, specs = _build_specs(
         index, [r.query for r in requests],
         [r.query_type_default for r in requests])
@@ -194,29 +215,63 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                               if not slots[s2].virtual]
             _attach_docs(index, r, rs)
             results[i] = rs
-        elif not wand_mod.query_ok(spec):
-            raise NotImplementedError(
-                f"query {r.query!r} has {len(spec.slots)} term slots; more "
-                f"than {wand_mod.T_MAX} need the dense path, not ported yet "
-                "(ROADMAP A.5)")
         else:
             live.append(i)
     if not live:
         return [r or ResultSet() for r in results]
 
     live_specs = [specs[i] for i in live]
-    with_counts = req0.result_type == ResultType.TopkCount
+    with_counts = req0.result_type in (ResultType.Count,
+                                       ResultType.TopkCount)
+    has_phrase = any(s.phrases for s in live_specs)
+    # paging may differ within a group; k follows the deepest page
+    need = max(r.offset + r.length for r in requests)
+    k = ceil_pow2(max(need, 10), 16)
+    if has_phrase:
+        k = ceil_pow2(max(4 * need + 64, 128))
     B = len(live)
+    merged_scores = [np.zeros(0, np.float32) for _ in range(B)]
+    merged_ids = [np.zeros(0, np.int64) for _ in range(B)]
+    counts = np.zeros(B, dtype=np.int64)
     counts_exact = np.ones(B, dtype=bool)
     tail_phrase_counts = np.zeros(B, dtype=np.int64)
-    idf_ps = np.stack([_shard_idf(sh, slots, req0.realtime)
-                       for sh in index.shards])          # [S, V]
-    merged_scores, merged_ids, counts = wand_mod.run_batch(
-        index, slots, live_specs, idf_ps, max(need, 1), with_counts, device)
 
-    # WAND pages are deduped and (score desc, gid asc) ordered; a tail
-    # merge concatenates and voids that
-    canonical = np.ones(B, dtype=bool)
+    wanded = np.zeros(B, bool)
+    if need <= MAX_PAGE and wand_mod.wand_auto(index):
+        wrows = [i for i in range(B) if wand_mod.query_ok(live_specs[i])]
+        if wrows:
+            idf_ps = np.stack([_shard_idf(sh, slots, req0.realtime)
+                               for sh in index.shards])      # [S, V]
+            wsc, wgid, wcnt, whandled = wand_mod.run_batch(
+                index, slots, [live_specs[i] for i in wrows], idf_ps,
+                max(need, 1), with_counts, device,
+                count_only=req0.result_type == ResultType.Count)
+            for r, qi in enumerate(wrows):
+                if whandled[r]:
+                    merged_scores[qi] = wsc[r]
+                    merged_ids[qi] = wgid[r]
+                    counts[qi] = wcnt[r]
+                    wanded[qi] = True
+
+    rest_rows = [i for i in range(B) if not wanded[i]]
+    if rest_rows:
+        need_full = with_counts or has_phrase
+        ts, gid, cnt, all_full = _dense_rows(
+            index, slots, [live_specs[i] for i in rest_rows], req0.realtime,
+            need_full, need, k, with_counts, device)
+        if ts is not None:
+            for r, qi in enumerate(rest_rows):
+                valid = np.isfinite(ts[r])
+                merged_scores[qi] = ts[r][valid]
+                merged_ids[qi] = gid[r][valid]
+            if with_counts and all_full:
+                counts[rest_rows] += cnt
+            elif with_counts:
+                counts_exact[:] = False
+
+    # WAND pages are deduped and (score desc, gid asc) ordered; dense
+    # pages and a tail merge are not, and _finalize_lexical re-sorts them
+    canonical = wanded.copy()
     boosts = index.boosts_or_default().copy()
     for shard in index.shards:
         if req0.realtime and shard.tail_len() > 0:
@@ -228,4 +283,73 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                              slots, merged_scores, merged_ids, counts,
                              counts_exact, with_counts,
                              tail_phrase_counts=tail_phrase_counts,
-                             canonical=canonical)
+                             phrase_escalate_ok=True, canonical=canonical)
+
+
+def _compact_slots(slots, specs):
+    """The reference's slot-table compaction (search.py:1665-1687): when
+    the rows left for the dense path use under a quarter of the batch's
+    slots, plan them over a table of just those slots (same order)."""
+    used = sorted({s for sp in specs for s in sp.slots})
+    if len(used) >= len(slots) // 4:
+        return slots, specs
+    remap = {s: j for j, s in enumerate(used)}
+    return [slots[s] for s in used], [
+        _QuerySpec(
+            slots=[remap[s] for s in sp.slots],
+            weights={remap[s]: w for s, w in sp.weights.items()},
+            required={remap[s]: v for s, v in sp.required.items()},
+            negated={remap[s]: v for s, v in sp.negated.items()},
+            phrases=[[(remap[s], off) for s, off in grp]
+                     for grp in sp.phrases],
+            parsed=sp.parsed)
+        for sp in specs]
+
+
+def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
+                need: int, k: int, with_counts: bool, device):
+    """The dense path for `specs` (search.py:1646-1750, impact mode):
+    plan every shard, scan, and re-run in full when a pruned plan's k-th
+    score falls below a bound it left unscored.  Returns (ts f32[B, k],
+    gid i64[B, k], cnt i64[B], all_full), or Nones when no shard selected
+    a block."""
+    stats = wand_mod.route_stats(index)
+    cover_full = need_full or not stats.prune_ok()
+    # Topk batches on large shards plan like the reference's query-tiled
+    # kernel, which prunes as soon as candidates pass PRUNE_BLOCKS
+    mode = ("qt" if not cover_full and max(
+        sh.lexical.n_blocks for sh in index.shards) >= plan_mod.QT_MIN_BLOCKS
+        else "imp")
+    slots, specs = _compact_slots(slots, specs)
+
+    def plans_for(full: bool):
+        with METRICS.timer("lex_plan"):
+            return [plan_mod.plan_shard(index, sh, slots, specs, realtime,
+                                        full, plan_mod.PRUNE_BLOCKS,
+                                        mode=mode)
+                    for sh in index.shards]
+
+    plans = plans_for(cover_full)
+    if all(p is None for p in plans):
+        return None, None, None, True
+    stacked = mesh.get_stacked(index, device)
+    METRICS.inc("device_dispatch_total")
+    all_full = all(p is None or p.full for p in plans)
+    with METRICS.timer("lex_device"):
+        ts, gid, cnt = stacked.run(plans, k, with_counts and all_full)
+    if not all_full:
+        ub = np.zeros(len(specs), np.float32)
+        for p in plans:
+            if p is not None:
+                ub = np.maximum(ub, p.ub_unscored)
+        kth = ts[:, min(need, k) - 1]
+        escalate = bool(((kth < ub) | ~np.isfinite(kth)).any())
+        stats.record_prune(escalate)
+        if escalate:
+            METRICS.inc("plan_escalations_total")
+            METRICS.inc("device_dispatch_total")
+            plans = plans_for(True)
+            with METRICS.timer("lex_device"):
+                ts, gid, cnt = stacked.run(plans, k, with_counts)
+            all_full = True
+    return ts, gid, cnt, all_full

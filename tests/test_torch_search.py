@@ -2,12 +2,14 @@
 CPU against the JAX package.
 
 Two-block indexes (BLOCK_SIZE + 6000 docs) with one and two shards, deleted
-docs and an uncommitted realtime tail.  The port's pages must equal the
-reference's pages on its WAND route (SEEKSTORM_TPU_WAND=1) and on its dense
-route (SEEKSTORM_TPU_NO_WAND=1), compared with tests/test_wand.py's _Page
-(counts exact, scores within rtol 3e-5, membership per score cluster).
+docs and an uncommitted realtime tail.  The port and the reference take the
+same route, the WAND route (SEEKSTORM_TPU_WAND=1) or the dense route
+(SEEKSTORM_TPU_NO_WAND=1; the default below 16 blocks), and their pages
+must be equal under tests/test_wand.py's _Page (counts exact, scores within
+rtol 3e-5, membership per score cluster).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -24,6 +26,10 @@ from test_wand import _Page, _queries
 
 ROOT = Path(__file__).resolve().parent.parent
 QUERIES = _queries() + ['"w001 w002" w003']
+LONG = [" ".join(f"w{i:03d}" for i in range(3, 13)),
+        "+w001 " + " ".join(f"w{i:03d}" for i in range(20, 29)) + " -w050",
+        " ".join(f"w{i:03d}" for i in range(100, 111))]
+ROUTE_ENV = {"wand": "SEEKSTORM_TPU_WAND", "dense": "SEEKSTORM_TPU_NO_WAND"}
 
 
 def _docs(n, seed, vocab=250):
@@ -62,13 +68,51 @@ def _requests(qtype, rtype, realtime=True, offset=0, length=10):
                              query_type_default=qtype) for q in QUERIES]
 
 
-def _reference(idx, reqs, monkeypatch, route):
-    var = "SEEKSTORM_TPU_WAND" if route == "wand" else "SEEKSTORM_TPU_NO_WAND"
-    monkeypatch.setenv(var, "1")
+def _pages(search, idx, reqs, monkeypatch, route=None, **env):
+    """_Pages of `search` under the route's switch and extra env vars."""
+    if route is not None:
+        env[ROUTE_ENV[route]] = "1"
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     try:
-        return [_Page(rs) for rs in st.search_batch(idx, reqs)]
+        return [_Page(rs) for rs in search(idx, reqs)]
     finally:
-        monkeypatch.delenv(var)
+        for k in env:
+            monkeypatch.delenv(k)
+
+
+def _reference(idx, reqs, monkeypatch, route=None, **env):
+    return _pages(st.search_batch, idx, reqs, monkeypatch, route, **env)
+
+
+def _port(idx, reqs, monkeypatch, route=None, **env):
+    return _pages(lambda i, r: pt.search_batch(i, r, device="cpu"), idx,
+                  reqs, monkeypatch, route, **env)
+
+
+class _Calls:
+    """Counts the calls of a function it wraps (monkeypatched in)."""
+
+    def __init__(self, fn):
+        self.fn, self.n = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        return self.fn(*a, **kw)
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Counters on the port's WAND batch and dense executor."""
+    from seekstorm_tpu_torch.ops import wand as pw
+    from seekstorm_tpu_torch.parallel import mesh
+
+    wand = _Calls(pw.run_batch)
+    dense = _Calls(mesh.StackedIndex.run)
+    monkeypatch.setattr(pw, "run_batch", wand)
+    monkeypatch.setattr(mesh.StackedIndex, "run",
+                        lambda self, *a, **kw: dense(self, *a, **kw))
+    return wand, dense
 
 
 @pytest.mark.parametrize("route", ["wand", "dense"])
@@ -76,12 +120,15 @@ def _reference(idx, reqs, monkeypatch, route):
                                    st.ResultType.TopkCount])
 @pytest.mark.parametrize("qtype", [st.QueryType.Union,
                                    st.QueryType.Intersection])
-def test_pages_match_reference(index, qtype, rtype, route, monkeypatch):
+def test_pages_match_reference(index, qtype, rtype, route, monkeypatch,
+                               routes):
     reqs = _requests(qtype, rtype)
-    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    mine = _port(index, reqs, monkeypatch, route)
     assert sum(p.count > 0 for p in mine) > len(QUERIES) // 2 or \
         rtype == st.ResultType.Topk
     assert mine == _reference(index, reqs, monkeypatch, route)
+    wand, dense = routes
+    assert wand.n == (route == "wand") and (dense.n > 0) == (route == "dense")
 
 
 @pytest.mark.parametrize("realtime", [False, True])
@@ -89,8 +136,105 @@ def test_deep_pages_match_reference(index, realtime, monkeypatch):
     """need = offset + length > 16: the host rung ladder serves the page."""
     reqs = _requests(st.QueryType.Union, st.ResultType.TopkCount,
                      realtime=realtime, offset=20, length=30)
-    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    assert _port(index, reqs, monkeypatch, "wand") == \
+        _reference(index, reqs, monkeypatch, "wand")
+
+
+@pytest.mark.parametrize("min_blocks", [16, 1])
+def test_default_route_follows_index_size(index, min_blocks, monkeypatch,
+                                          routes):
+    """Below WAND_MIN_BLOCKS (16) blocks a batch rides the dense path, as
+    in the reference; from it on, WAND."""
+    from seekstorm_tpu_torch.ops import wand as pw
+
+    monkeypatch.setattr(pw, "WAND_MIN_BLOCKS", min_blocks)
+    reqs = _requests(st.QueryType.Union, st.ResultType.TopkCount)
+    assert _port(index, reqs, monkeypatch) == \
+        _reference(index, reqs, monkeypatch)
+    wand, dense = routes
+    assert (wand.n, dense.n > 0) == ((0, True) if min_blocks == 16
+                                     else (1, False))
+
+
+@pytest.mark.parametrize("route", ["wand", "dense"])
+@pytest.mark.parametrize("rtype", [st.ResultType.Topk,
+                                   st.ResultType.TopkCount])
+def test_long_queries_match_reference(index, rtype, route, monkeypatch,
+                                      routes):
+    """Queries of more than 8 slots ride the dense path on either route."""
+    reqs = [st.SearchRequest(query=q, length=10, result_type=rtype)
+            for q in QUERIES[:6] + LONG]
+    mine = _port(index, reqs, monkeypatch, route)
+    assert mine == _reference(index, reqs, monkeypatch, route)
+    assert all(len(p.ids) == 10 for p in mine[-len(LONG):])
+    assert routes[1].n > 0
+
+
+@pytest.mark.parametrize("rtype", [st.ResultType.Topk,
+                                   st.ResultType.TopkCount])
+def test_page_past_1024_matches_reference(index, rtype, monkeypatch):
+    reqs = [st.SearchRequest(query=q, offset=1990, length=20,
+                             result_type=rtype) for q in QUERIES + LONG]
+    mine = _port(index, reqs, monkeypatch, "wand")
     assert mine == _reference(index, reqs, monkeypatch, "wand")
+    assert sum(len(p.ids) == 20 for p in mine) > len(reqs) // 2
+
+
+@pytest.mark.parametrize("route", ["wand", "dense"])
+def test_count_matches_reference(index, route, monkeypatch):
+    """ResultType.Count: WAND's phase-1 popcount on the WAND route, the
+    dense path's counts on the dense route."""
+    reqs = _requests(st.QueryType.Intersection, st.ResultType.Count)
+    mine = _port(index, reqs, monkeypatch, route)
+    assert mine == _reference(index, reqs, monkeypatch, route)
+    full = _requests(st.QueryType.Intersection, st.ResultType.TopkCount)
+    assert [p.count for p in mine] == \
+        [p.count for p in _port(index, full, monkeypatch, route)]
+    assert sum(p.count > 0 for p in mine) > len(reqs) // 2
+
+
+@pytest.mark.parametrize("qtype", [st.QueryType.Union,
+                                   st.QueryType.Intersection])
+def test_stragglers_defer_to_dense(index, qtype, monkeypatch, routes):
+    """Under SEEKSTORM_TPU_WAND_DEFER_DENSE=1 (the default from batch 512)
+    UB-saturated WAND queries finish on the dense path."""
+    reqs = _requests(qtype, st.ResultType.TopkCount)
+    env = dict(SEEKSTORM_TPU_WAND_DEFER_DENSE="1")
+    before = pt.METRICS.snapshot().get("wand_fallbacks_total", 0.0)
+    mine = _port(index, reqs, monkeypatch, "wand", **env)
+    assert pt.METRICS.snapshot()["wand_fallbacks_total"] > before
+    wand, dense = routes
+    assert wand.n == 1 and dense.n == 1
+    assert mine == _reference(index, reqs, monkeypatch, "wand", **env)
+
+
+@pytest.mark.parametrize("mode", ["imp", "qt"])
+def test_pruned_plan_escalates(index, mode, monkeypatch):
+    """Plans pruned to one block per query (both packages' limits set to
+    1; QT_MIN_BLOCKS 1 for the query-tiled mode): a Topk batch whose k-th
+    score falls below an unscored block bound re-runs in full, and the
+    pages equal the reference's pruned dense route."""
+    from seekstorm_tpu_torch import plan as pp
+
+    sm = importlib.import_module("seekstorm_tpu.search")
+    for mod in (sm, pp):
+        monkeypatch.setattr(mod, "FULL_PLAN_BLOCKS", 1)
+        monkeypatch.setattr(mod, "PRUNE_BLOCKS", 1)
+        monkeypatch.setattr(mod, "QT_MIN_BLOCKS", 1 if mode == "qt" else 99)
+    # fresh adaptive-pruning samples in both packages
+    monkeypatch.delitem(index.__dict__, "_torch_route_stats", raising=False)
+    monkeypatch.setattr(index, "_prune_stats", [0, 0], raising=False)
+    # a phrase needs full coverage: none here
+    reqs = [r for r in _requests(st.QueryType.Union, st.ResultType.Topk)
+            if '"' not in r.query]
+    before = pt.METRICS.snapshot().get("plan_escalations_total", 0.0)
+    mine = _port(index, reqs, monkeypatch, "dense")
+    escalated = pt.METRICS.snapshot().get("plan_escalations_total", 0.0) \
+        - before
+    assert mine == _reference(index, reqs, monkeypatch, "dense",
+                              SEEKSTORM_TPU_JOIN="0")
+    # one shard of two blocks prunes; two shards of one block each cannot
+    assert (escalated > 0) == (index.shard_count == 1)
 
 
 def test_exact_pages_match_search(index):
@@ -119,24 +263,28 @@ def test_single_search_and_empty_queries(index, monkeypatch):
 
 
 def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
-    """The port keys its device state on the committed state, not on
-    index._device_dirty, which the reference's search clears."""
-    idx = _build(tmp_path / "ix", 1, n=9_000, tail=0)
-    req = [st.SearchRequest(query="w001 w002", length=10,
-                            result_type=st.ResultType.TopkCount)]
-    before = pt.search_batch(idx, req, device="cpu")[0]
-    victims = [r.doc_id for r in before.results[:3]]
-    idx.delete_documents(victims)
-    _reference(idx, req, monkeypatch, "wand")    # clears _device_dirty
-    after = pt.search_batch(idx, req, device="cpu")[0]
-    assert after.result_count_total == before.result_count_total - 3
-    assert not set(victims) & {r.doc_id for r in after.results}
-    idx.index_documents(_docs(3_000, 9))
-    idx.commit()
-    _reference(idx, req, monkeypatch, "wand")
-    grown = pt.search_batch(idx, req, device="cpu")[0]
-    assert _Page(grown) == _reference(idx, req, monkeypatch, "wand")[0]
-    assert grown.result_count_total > after.result_count_total
+    """The port keys its device state (WAND pools, dense arrays) on the
+    committed state, not on index._device_dirty, which the reference's
+    search clears.  Both routes, each on an index of its own."""
+    for route in ("wand", "dense"):
+        idx = _build(tmp_path / route, 1, n=9_000, tail=0)
+        req = [st.SearchRequest(query="w001 w002", length=10,
+                                result_type=st.ResultType.TopkCount)]
+        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        before = pt.search_batch(idx, req, device="cpu")[0]
+        victims = [r.doc_id for r in before.results[:3]]
+        idx.delete_documents(victims)
+        st.search_batch(idx, req)                # clears _device_dirty
+        after = pt.search_batch(idx, req, device="cpu")[0]
+        assert after.result_count_total == before.result_count_total - 3
+        assert not set(victims) & {r.doc_id for r in after.results}
+        idx.index_documents(_docs(3_000, 9))
+        idx.commit()
+        ref = st.search_batch(idx, req)[0]
+        grown = pt.search_batch(idx, req, device="cpu")[0]
+        assert _Page(grown) == _Page(ref), route
+        assert grown.result_count_total > after.result_count_total
+        monkeypatch.delenv(ROUTE_ENV[route])
 
 
 def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
@@ -192,19 +340,28 @@ def test_cuda_without_card_raises(index):
         pt.search(index, st.SearchRequest(query="w001"), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(search_mode=st.SearchMode.Vector),
-    dict(query_facets=[st.QueryFacet(field="title")]),
-    dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]),
-    dict(result_sort=[st.ResultSort(field="title")]),
-    dict(field_filter=["title"]),
-    dict(result_type=st.ResultType.Count),
-    dict(offset=1000, length=100),
-    dict(query=" ".join(f"w{i:03d}" for i in range(9))),
+@pytest.mark.parametrize("kw, served", [
+    (dict(search_mode=st.SearchMode.Vector), False),
+    (dict(query_facets=[st.QueryFacet(field="title")]), False),
+    (dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]), False),
+    (dict(result_sort=[st.ResultSort(field="title")]), False),
+    (dict(field_filter=["title"]), False),
+    (dict(result_type=st.ResultType.Count), True),
+    (dict(offset=1000, length=100), True),
+    (dict(query=" ".join(f"w{i:03d}" for i in range(9))), True),
 ], ids=["vector", "facets", "filter", "sort", "field_filter", "count",
         "deep", "slots"])
-def test_out_of_scope_raises(index, kw):
+def test_out_of_scope_raises(index, kw, served, monkeypatch):
+    """What the port does not serve yet raises NotImplementedError naming
+    its ROADMAP item.  Count, pages past 1024 and more than 8 slots raised
+    too until the dense path came; now the port serves them as the
+    reference does."""
     req = st.SearchRequest(**{"query": "w001 w002", **kw})
+    if served:
+        mine = _port(index, [req], monkeypatch)
+        assert mine == _reference(index, [req], monkeypatch)
+        assert mine[0].count > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.search_batch(index, [req], device="cpu")
 

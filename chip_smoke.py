@@ -12,8 +12,10 @@ Phases, each printing what it found:
              (csrc/dense_scan.cu) from the sources, one process each;
   3. K1:     K1 against its plain PyTorch version on random pools at the
              serving shapes (Bq=2048, NBLK=16, V=4096, T in {2,4,8}, filter
-             off and on): counts equal and UBs bitwise equal, with both
-             times (CUDA events, median of 20);
+             off and on): counts equal, UBs and the rung maxima (ub4, ub16,
+             g1) bitwise equal, with both times (CUDA events, median of
+             20), K1's bound (bytes once at 3.35 TB/s, or operations at the
+             f32 peak) and its share of it;
   4. index:  1,048,576 docs of bench.make_corpus (seed 7, vocab 30,000,
              title boost 10, 1 shard), committed, plus 5,000 uncommitted;
   5. serve:  the default route (WAND at 16 blocks):
@@ -21,16 +23,19 @@ Phases, each printing what it found:
              realtime=True through seekstorm_tpu_torch.search_batch on
              "cuda"; K1 must have launched, and K2 too whenever a WAND
              straggler fell back (at batch 2048 stragglers defer to the
-             dense path); the warm batch latency and a cProfile of one warm
-             batch (where the host's time goes); 256 queries must give the
+             dense path); K1 at the batch's own shapes against its plain
+             version (bitwise) with its time, bound and share; the warm
+             batch latency, a cProfile of one warm batch (where the host's
+             time goes) and the device's kernel time by name over one warm
+             batch (torch.profiler); 256 queries must give the
              same pages, ids in the same order, on "cpu" (with
              SEEKSTORM_TPU_WAND_DEFER_DENSE=1 there, so its stragglers take
              the dense path as well), and 64 queries with realtime=False
              the same pages as the host exact evaluation;
   6. K2:     K2 against its plain PyTorch version on every (block, query)
              pair of the 2,048-query TopkCount batch's dense plan: scores
-             bitwise equal, counts equal, both times (CUDA events) on one
-             tile of 1,024 pairs;
+             bitwise equal, counts equal, both times (CUDA events), bound
+             and share on one tile of 1,024 pairs;
   7. dense:  the same batches with SEEKSTORM_TPU_NO_WAND=1 (the dense
              path): K2 must have launched; pages equal to the WAND route's
              (counts exact, scores within rtol 3e-5, membership per score
@@ -40,7 +45,7 @@ Phases, each printing what it found:
              12-term queries served, their first 32 equal on "cpu".
 
 The script imports the port (seekstorm_tpu_torch), bench.py and torch;
-jax is blocked through every phase.
+jax and the JAX package (seekstorm_tpu) are blocked through every phase.
 
 Any failed check raises, so the exit code is not 0 and no result line is
 printed.  Without CUDA, or without the repository beside it, the script
@@ -67,14 +72,20 @@ N_TAIL = 5_000
 N_QUERIES = 2048
 K1_SHAPES = dict(Bq=2048, NBLK=16, V=4096)
 PAGE_RTOL = 3e-5
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense f32 rate outside the
+# tensor cores (the rates the kernels' bounds are taken against)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+NW = 2048                    # u32 words (32-doc buckets) per 64K-doc block
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """Refuses every jax import: the port must run without it."""
+    """Refuses jax and the JAX package: the port must run without both."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError(f"{name} is blocked: the port must not use jax")
+        if (name in ("jax", "seekstorm_tpu")
+                or name.startswith(("jax.", "jaxlib", "seekstorm_tpu."))):
+            raise ImportError(f"{name} is blocked: the port must not use it")
         return None
 
 
@@ -92,13 +103,6 @@ def phase_card(torch):
     print(card)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    if shutil.which("python") is None:
-        # native/Makefile runs `python` to generate its tables
-        shim = WORK / "bin"
-        shim.mkdir(parents=True, exist_ok=True)
-        if not (shim / "python").exists():
-            (shim / "python").symlink_to(sys.executable)
-        os.environ["PATH"] = f"{shim}{os.pathsep}{os.environ['PATH']}"
     from seekstorm_tpu_torch import native_library
 
     t0 = time.perf_counter()
@@ -177,19 +181,89 @@ def _k1_inputs(torch, rng, *, Bq, NBLK, V, T, S=1, with_filter,
             put(tneg), put(wsh), put(sid))
 
 
-def _median_ms(torch, fn, n=20):
-    fn()
+def _median_ms(torch, fn, n=20, rounds=5):
+    """Device ms per call of fn: CUDA events around n calls in a row (the
+    host queues them ahead of the card, so the wrappers' host work does
+    not count while the card is the slower side), the median of `rounds`
+    such windows, after 3 calls to warm up."""
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(n):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
+
+
+def k1_bound(torch, args, with_maxima=True):
+    """K1's least time on an H100 for these inputs, in ms, and what sets
+    it: each input byte it must read once (the presence row of every
+    (block, slot) the batch's columns name, the bucket-max row of every
+    one a positive column names, the delete and filter words, the tables)
+    and each output byte written once (allub, ub4, ub16, g1 unless
+    with_maxima is False, cnt), over the HBM rate; against the f32 operations of the UB chains (per query
+    and bucket: T products, then per presence class of the first
+    min(T, 3) columns its sums and a max) over the f32 peak."""
+    ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard, sid = args
+    NBLK, _ = prow.shape
+    Bq, T = tslot.shape
+    used = tslot >= 0
+
+    def rows(mask):
+        slots = torch.unique(tslot[mask]).long()
+        return int((prow[:, slots] >= 0).sum())
+
+    words = NBLK * NW
+    read = ((rows(used) + rows(used & ~tneg)) * NW * 4
+            + words * 4 * (1 if filtw is None else 2)
+            + sum(x.numel() * x.element_size()
+                  for x in (prow, tslot, treq, tneg, wshard, sid)))
+    write = (Bq * words * 4 * (1 + (1 / 4 + 1 / 16 + 1 / 128) * with_maxima)
+             + Bq * 4)
+    nc = min(T, 3)
+    ops = Bq * words * (T + ((1 << nc) - 1) * T)
+    t_bytes = (read + write) / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k1(torch, args, tag):
+    """K1 against its plain version on args: counts equal, allub and the
+    rung maxima bitwise equal.  Returns (max abs err, finite UBs, UBs)."""
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    got = ws.wand_scan_cuda(*args)
+    want = ws.scan_blocks_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]), f"K1 counts differ ({tag})")
+    fin = torch.isfinite(want[0])
+    check(torch.equal(fin, torch.isfinite(got[0])),
+          f"K1 -inf pattern differs ({tag})")
+    err = float((got[0][fin] - want[0][fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    for name, x, y in zip(("allub", "cnt", "ub4", "ub16", "g1"), got, want):
+        check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+              f"K1 {name} not bitwise equal ({tag}, max abs err of allub "
+              f"{err})")
+    return err, int(fin.sum()), fin.numel()
+
+
+def time_k1(torch, args):
+    """(K1 ms, plain ms, bound ms, bound_by) on args."""
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    ms = _median_ms(torch, lambda: ws.wand_scan_cuda(*args))
+    plain_ms = _median_ms(torch, lambda: ws.scan_blocks_ref(*args), n=2,
+                          rounds=3)
+    bound, by = k1_bound(torch, args)
+    return ms, plain_ms, bound, by
 
 
 def phase_k1(torch):
@@ -203,32 +277,21 @@ def phase_k1(torch):
         for with_filter in (False, True):
             args = _k1_inputs(torch, rng, T=T, with_filter=with_filter,
                               **K1_SHAPES)
-            ub_k, cnt_k = ws.wand_scan_cuda(*args)
-            ub_r, cnt_r = ws.scan_blocks_ref(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(cnt_k, cnt_r), f"K1 counts differ at T={T}")
-            same_bits = torch.equal(ub_k.view(torch.int32),
-                                    ub_r.view(torch.int32))
-            fin = torch.isfinite(ub_r)
-            check(torch.equal(fin, torch.isfinite(ub_k)),
-                  f"K1 -inf pattern differs at T={T}")
-            err = float((ub_k[fin] - ub_r[fin]).abs().max()) \
-                if bool(fin.any()) else 0.0
-            check(same_bits, f"K1 UBs not bitwise equal at T={T} "
-                             f"(max abs err {err})")
-            ms = _median_ms(torch, lambda: ws.wand_scan_cuda(*args))
-            plain_ms = _median_ms(torch, lambda: ws.scan_blocks_ref(*args))
-            print(f"[K1] T={T} filter={with_filter}: counts equal, UBs "
-                  f"bitwise equal ({int(fin.sum())} finite of "
-                  f"{fin.numel()}), K1 {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            tag = f"T={T} filter={with_filter}"
+            err, n_fin, n = check_k1(torch, args, tag)
+            ms, plain_ms, bound, by = time_k1(torch, args)
+            print(f"[K1] {tag}: counts equal, UBs, ub4, ub16 and g1 bitwise "
+                  f"equal ({n_fin} finite of {n}); K1 {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+                  f"{100 * bound / ms:.1f}% of bound")
             rows.append(dict(T=T, filter=with_filter, err=err, ms=ms,
-                             plain_ms=plain_ms))
-            del args, ub_k, ub_r
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+            del args
             torch.cuda.empty_cache()
     return rows
 
 
-def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL):
+def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index"):
     import numpy as np
 
     import bench
@@ -237,7 +300,6 @@ def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL):
     docs = bench.make_corpus(n_docs, 30_000, np.random.default_rng(7))
     tail = bench.make_corpus(n_tail, 30_000, np.random.default_rng(8))
     t1 = time.perf_counter()
-    path = WORK / "index"
     shutil.rmtree(path, ignore_errors=True)
     schema = [
         st.SchemaField("title", st.FieldType.Text, indexed=True, boost=10.0),
@@ -361,6 +423,23 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     _print_split("serve", lat, snap0, snap1)
     _profile(lambda: st.search_batch(idx, reqs(st.ResultType.TopkCount),
                                      device=device))
+    device_kernels(torch, "serve", lambda: st.search_batch(
+        idx, reqs(st.ResultType.TopkCount), device=device), top=16)
+
+    # K1 at this batch's own shapes (pools, rows and tables of the serve
+    # path); these launches come after the count above was read
+    args = st.wand_inputs(idx, reqs(st.ResultType.TopkCount), device)
+    err, n_fin, n = check_k1(torch, args, "serve batch")
+    ms, plain_ms, bound, by = time_k1(torch, args)
+    Bq, T = args[5].shape
+    print(f"[serve] K1 at the batch's shapes (Bq={Bq}, T={T}, "
+          f"NBLK={args[2].shape[0]}, V={args[2].shape[1]}): counts equal, "
+          f"UBs, ub4, ub16 and g1 bitwise equal ({n_fin} finite of {n}); "
+          f"K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+          f"({by}), {100 * bound / ms:.1f}% of bound")
+    k1_serve = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by)
+    del args
 
     # the CPU batch is under 512: defer its stragglers to the dense path
     # too, as the card's batch of 2048 does, so both take one route
@@ -393,7 +472,7 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
           f"{n_exact} queries: {n_exact - len(bad)} equal, mismatches "
           f"{bad[:5]}")
     check(not bad, "device pages differ from the host exact evaluation")
-    return dict(k1_launches=launches, topk=topk, topkc=topkc,
+    return dict(k1_launches=launches, k1=k1_serve, topk=topk, topkc=topkc,
                 queries=queries)
 
 
@@ -443,6 +522,34 @@ def _same_pages(a, b, rtol=PAGE_RTOL):
     return True, ""
 
 
+def k2_bound(torch, part, n_queries):
+    """K2's least time on an H100 for one tile of pairs, in ms, and what
+    sets it: the bytes it must move once (the distinct CSR-remainder
+    segments the pairs name, 2-byte docid and 4-byte impact a posting, the
+    distinct bitmap rows, sat1 and the delete words of each distinct block,
+    the pair tables; the masked scores written, 4 bytes a doc of every
+    pair, and the counts) over the HBM rate, against its f32 operations
+    (an fma a CSR posting, an add a bitmap slot and doc, the final fma a
+    doc) over the f32 peak."""
+    p_blk, _, _, s_off, s_len, s_bm = part[:6]
+    doc = 1 << 16
+    seg = s_len > 0
+    offs, first = torch.unique(s_off[seg], return_inverse=True)
+    seg_len = torch.zeros(len(offs), dtype=torch.int64, device=s_len.device)
+    seg_len.scatter_reduce_(0, first, s_len[seg].long(), "amax")
+    n_bm = len(torch.unique(s_bm[s_bm >= 0]))
+    n_blk = len(torch.unique(p_blk))
+    P = p_blk.shape[0]
+    read = (int(seg_len.sum()) * 6 + n_bm * NW * 4
+            + n_blk * (doc * 4 + NW * 4)
+            + sum(x.numel() * x.element_size() for x in part))
+    write = P * doc * 4 + n_queries * 4
+    ops = int(s_len.sum()) * 2 + int((s_bm >= 0).sum()) * doc + P * doc * 2
+    t_bytes = (read + write) / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_k2(torch, st, idx, queries):
     """K2 against dense_scan_ref on every pair of the batch's dense plan."""
     import numpy as np
@@ -484,15 +591,19 @@ def phase_k2(torch, st, idx, queries):
     ms = _median_ms(torch, lambda: ds.dense_scan_cuda(*stacked.arrays,
                                                       *part, B))
     plain_ms = _median_ms(torch, lambda: ds.dense_scan_ref(*stacked.arrays,
-                                                           *part, B), n=10)
+                                                           *part, B),
+                          n=2, rounds=3)
     sc, _ = ds.dense_scan_cuda(*stacked.arrays, *part, B)
     topk_ms = _median_ms(torch, lambda: lx.topk_block(sc, 16))
+    bound, by = k2_bound(torch, part, B)
     print(f"[K2] {P} pairs (T={T}) of the {B}-query TopkCount plan "
           f"({len(plans[0].block_ids)} blocks): scores bitwise equal "
           f"({finite} matched docs), counts equal ({cnt_k} matches); one "
           f"tile of {tile} pairs: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of bound, "
           f"its top-16 (torch sorts) {topk_ms:.3f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, pairs=P, T=T)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, pairs=P, T=T)
 
 
 def _long_queries(n, rng):
@@ -509,7 +620,7 @@ def _long_queries(n, rng):
     return out
 
 
-def _device_kernels(torch, fn, top=6):
+def device_kernels(torch, tag, fn, top=6):
     """Device time by kernel name over one call of fn (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -525,11 +636,11 @@ def _device_kernels(torch, fn, top=6):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy = sum(r[1] for r in rows) / 1e6
-    print(f"[dense] profiled warm batch: {wall:.3f} s wall (profiler on), "
-          f"device kernels {busy:.4f} s in all, device idle "
-          f"{100 * max(wall - busy, 0.0) / wall:.1f}% of the wall")
+    print(f"[{tag}] profiled warm batch: {wall:.3f} s wall (profiler on), "
+          f"device kernels {busy:.4f} s in all ({len(rows)} names), device "
+          f"idle {100 * max(wall - busy, 0.0) / wall:.1f}% of the wall")
     for name, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
-        print(f"[dense]   {us / 1e3:.3f} ms  x{n}  {name[:90]}")
+        print(f"[{tag}]   {us / 1e3:.3f} ms  x{n}  {name[:90]}")
 
 
 def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
@@ -583,7 +694,7 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
         print(f"[dense] warm TopkCount batch of {len(queries)}: "
               f"{[round(x * 1e3, 1) for x in lat]} ms")
         _print_split("dense", lat, snap0, snap1)
-        _device_kernels(torch, lambda: st.search_batch(
+        device_kernels(torch, "dense", lambda: st.search_batch(
             idx, reqs(st.ResultType.TopkCount), device="cuda"))
 
         cpu = st.search_batch(idx, reqs(st.ResultType.TopkCount,
@@ -650,18 +761,25 @@ def main() -> int:
     k2 = phase_k2(torch, st, idx, served["queries"])
     k2_launches = phase_dense(torch, st, idx, served)
     shutil.rmtree(WORK / "index", ignore_errors=True)
-    check("jax" not in sys.modules, "jax was imported")
+    check(not [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")],
+          "jax or the JAX package was imported")
 
-    main_row = next(r for r in k1 if r["T"] == 2 and not r["filter"])
+    # K1's times are those at the serve batch's own shapes; no single
+    # PyTorch call computes either kernel's function (library_ms null)
+    k1_main = served["k1"]
     print(json.dumps({"kernels": [{
         "name": "wand_scan_cuda",
         "route": "cuda",
         "source": "seekstorm_tpu_torch/csrc/wand_scan.cu",
         "replaces": "seekstorm_tpu/ops/wand_pallas.py:247",
         "launches": served["k1_launches"],
-        "max_abs_err": max(r["err"] for r in k1),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
+        "max_abs_err": max([k1_main["err"]] + [r["err"] for r in k1]),
+        "ms": k1_main["ms"],
+        "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"],
+        "bound_by": k1_main["bound_by"],
+        "library_ms": None,
     }, {
         "name": "dense_scan_cuda",
         "route": "cuda",
@@ -671,6 +789,9 @@ def main() -> int:
         "max_abs_err": k2["err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

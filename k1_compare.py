@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Time an earlier commit's kernel K1 against the current one on one GPU.
+
+    mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
+    python3 k1_compare.py build/parent
+
+Both kernels run in this process on the same inputs, in turns (earlier,
+current, current, earlier; each turn the median of 20 CUDA-event launches),
+and their UBs and counts must be bitwise equal:
+
+  * chip_smoke.py's random pools at T in {2, 4, 8}, filter off and on;
+  * the pools, rows and tables of chip_smoke.py's 2,048-query serve batch
+    (bench.make_queries, seed 100) at 1,048,576 docs.
+
+Each line gives both times, each kernel's bound (chip_smoke.k1_bound: the
+earlier K1 does not write the rung maxima) and the card's name and power
+limit.  Then the device's kernel time by name over one warm default-route
+2,048-query TopkCount batch (torch.profiler) of each tree: the current
+tree's in this process, the earlier tree's in a subprocess that imports
+that tree's package and loads the native library built here
+(SEEKSTORM_TPU_NATIVE_LIB).
+
+The earlier K1 is the one whose C entry point is wand_scan_launch(ppool,
+vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk, T, with_counts,
+allub, cnt, stream), as at commit 992e480.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def build_old(src: Path) -> ctypes.CDLL:
+    """The earlier K1 from its source, built as the current ones are."""
+    from seekstorm_tpu_torch import _build
+
+    out = _build.BUILD_DIR / "libwand_scan_earlier.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.wand_scan_launch.argtypes = [P, P, P, I, P, P, P, P, P, I, I, I, I,
+                                     P, P, P]
+    lib.wand_scan_launch.restype = I
+    return lib
+
+
+def old_k1(torch, lib, args):
+    """(allub, cnt) of the earlier K1 on chip_smoke's K1 arguments."""
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard, sid = args
+    NBLK, V = prow.shape
+    Bq, T = tslot.shape
+    dev = ppool.device
+    tcode = ws.tcodes(tslot, treq, tneg).to(torch.int32).contiguous()
+    allub = torch.empty((Bq, NBLK * ws.NW), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
+    err = lib.wand_scan_launch(
+        ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
+        delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
+        tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK, T, 1,
+        allub.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier K1 launch failed (error {err})")
+    return allub, cnt
+
+
+def compare(torch, lib, args, tag, card):
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    new = ws.wand_scan_cuda(*args)
+    old = old_k1(torch, lib, args)
+    torch.cuda.synchronize()
+    for name, a, b in (("allub", old[0], new[0]), ("cnt", old[1], new[1])):
+        cs.check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                 f"earlier and current K1 {name} differ ({tag})")
+    del new, old
+    turns = [cs._median_ms(torch, fn) for fn in (
+        lambda: old_k1(torch, lib, args), lambda: ws.wand_scan_cuda(*args),
+        lambda: ws.wand_scan_cuda(*args), lambda: old_k1(torch, lib, args))]
+    old_b, old_by = cs.k1_bound(torch, args, with_maxima=False)
+    new_b, new_by = cs.k1_bound(torch, args)
+    row = dict(tag=tag, earlier_ms=[turns[0], turns[3]],
+               current_ms=[turns[1], turns[2]], earlier_bound_ms=old_b,
+               earlier_bound_by=old_by, current_bound_ms=new_b,
+               current_bound_by=new_by, card=card)
+    print(f"[compare] {tag}: allub and counts bitwise equal; earlier "
+          f"{turns[0]:.3f} / {turns[3]:.3f} ms (bound {old_b:.3f}, "
+          f"{100 * old_b * 2 / (turns[0] + turns[3]):.1f}%), current "
+          f"{turns[1]:.3f} / {turns[2]:.3f} ms (bound {new_b:.3f}, "
+          f"{100 * new_b * 2 / (turns[1] + turns[2]):.1f}%)")
+    return row
+
+
+def serve_requests(st, queries):
+    return [st.SearchRequest(query=q, length=10, realtime=True,
+                             result_type=st.ResultType.TopkCount,
+                             query_type_default=st.QueryType(t))
+            for q, t in queries]
+
+
+def profile_tree(torch, tree: Path) -> int:
+    """One warm default-route batch of `tree`'s package, profiled."""
+    import numpy as np
+
+    import bench
+
+    sys.path.insert(0, str(tree))
+    import seekstorm_tpu_torch as st
+
+    print(f"[profile] package {Path(st.__file__).parent}")
+    idx = cs.phase_index(st, path=cs.WORK / "index_earlier")
+    reqs = serve_requests(st, bench.make_queries(cs.N_QUERIES,
+                                                 np.random.default_rng(100)))
+    for _ in range(2):
+        st.search_batch(idx, reqs, device="cuda")
+    cs.device_kernels(torch, "profile earlier", lambda: st.search_batch(
+        idx, reqs, device="cuda"), top=20)
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k1_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    if sys.argv[1] == "--profile":
+        return profile_tree(torch, Path(sys.argv[2]).resolve())
+    tree = Path(sys.argv[1]).resolve()
+    import numpy as np
+
+    import bench
+    import seekstorm_tpu_torch as st
+    from seekstorm_tpu_torch import _build
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    card = cs.phase_card(torch)
+    _build.load("wand_scan")
+    lib = build_old(tree / "seekstorm_tpu_torch" / "csrc" / "wand_scan.cu")
+    rows = []
+    rng = np.random.default_rng(1)
+    for T in ws.T_TIERS:
+        for with_filter in (False, True):
+            args = cs._k1_inputs(torch, rng, T=T, with_filter=with_filter,
+                                 **cs.K1_SHAPES)
+            rows.append(compare(torch, lib, args,
+                                f"T={T} filter={with_filter}", card))
+            del args
+            torch.cuda.empty_cache()
+
+    env = dict(os.environ, SEEKSTORM_TPU_NATIVE_LIB=str(
+        ROOT / "native" / "libseekstorm_native.so"))
+    out = subprocess.run([sys.executable, __file__, "--profile", str(tree)],
+                         env=env, capture_output=True, text=True,
+                         timeout=900)
+    print(out.stdout, end="")
+    cs.check(out.returncode == 0, f"earlier tree's profile failed: "
+                                  f"{out.stderr[-2000:]}")
+
+    idx = cs.phase_index(st)
+    reqs = serve_requests(st, bench.make_queries(cs.N_QUERIES,
+                                                 np.random.default_rng(100)))
+    for _ in range(2):
+        st.search_batch(idx, reqs, device="cuda")
+    cs.device_kernels(torch, "profile current", lambda: st.search_batch(
+        idx, reqs, device="cuda"), top=20)
+    rows.append(compare(torch, lib, st.wand_inputs(idx, reqs, "cuda"),
+                        "serve batch", card))
+    print(json.dumps({"k1_compare": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,14 @@
 """seekstorm_tpu_torch — the lexical serving path of seekstorm_tpu on
 PyTorch, with its device kernels written by hand for NVIDIA Hopper.
 
-The index, tokenizer, native C++ library, schema and request/result types
-are the host layer of ``seekstorm_tpu`` (numpy and C++, no jax),
-re-exported here.  Searches run on an explicit torch device:
+The package is self-contained: its index, tokenizer, schema, native C++
+bindings and request/result types are its own copies of the JAX package's
+host modules (same on-disk index), and it imports nothing of
+``seekstorm_tpu``.  An index and its searches run on an explicit torch
+device:
 
     import seekstorm_tpu_torch as st
-    idx = st.create_index(path, schema)
+    idx = st.create_index(path, schema, device="cuda")
     idx.index_documents(docs); idx.commit()
     st.search_batch(idx, [st.SearchRequest(query="a b")], device="cuda")
 
@@ -14,9 +16,10 @@ re-exported here.  Searches run on an explicit torch device:
 plain PyTorch versions of the kernels.
 """
 
-from seekstorm_tpu.index import Index, create_index, open_index
-from seekstorm_tpu.metrics import METRICS
-from seekstorm_tpu.schema import (
+from .index import Index, create_index, open_index
+from .metrics import METRICS
+from .native import load as native_library
+from .schema import (
     BLOCK_SIZE,
     AccessType,
     ClusteringConfig,
@@ -38,7 +41,7 @@ from seekstorm_tpu.schema import (
     VectorConfig,
     VectorSimilarity,
 )
-from seekstorm_tpu.search import (
+from .search import (
     FacetFilter,
     Highlight,
     QueryFacet,
@@ -50,14 +53,16 @@ from seekstorm_tpu.search import (
     ResultType,
     SearchMode,
     SearchRequest,
+    dense_plans,
+    exact_pages,
+    search,
+    search_batch,
+    wand_inputs,
 )
-
-from .ops.wand import native_library
-from .search import dense_plans, exact_pages, search, search_batch
 
 __all__ = [
     "Index", "create_index", "open_index", "METRICS", "native_library",
-    "dense_plans", "exact_pages", "BLOCK_SIZE", "AccessType",
+    "dense_plans", "exact_pages", "wand_inputs", "BLOCK_SIZE", "AccessType",
     "ClusteringConfig", "ClusteringMode", "DocumentCompression", "FieldType",
     "FrequentwordType", "IndexMeta", "InferenceType", "LexicalSimilarity",
     "Precision", "Quantization", "QueryCompletion", "SchemaField",

@@ -43,9 +43,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wand_scan": {
         # ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk,
-        # T, with_counts, allub, cnt, stream
+        # T, with_counts, allub, ub4, ub16, g1, cnt, stream
         "wand_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _P],
     },
     "dense_scan": {
         # docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off, s_len,

@@ -33,9 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from seekstorm_tpu.schema import BLOCK_SIZE
-
 from ..plan import FLAG_NEG, FLAG_REQ
+from ..schema import BLOCK_SIZE
 from .wand_scan import _check
 
 NWORDS = BLOCK_SIZE // 32      # u32 words per block bitmap

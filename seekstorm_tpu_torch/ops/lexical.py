@@ -18,8 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from seekstorm_tpu.schema import BLOCK_SIZE
-
+from ..schema import BLOCK_SIZE
 from .dense_scan import dense_scan
 
 CHUNK = 128                    # docs per bucket of the two-stage top-k

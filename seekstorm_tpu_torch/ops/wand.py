@@ -4,9 +4,10 @@ Port of ``seekstorm_tpu/ops/wand.py`` for a single device (D=1).  The
 engine has four phases per batch:
 
   1. phase-1 scan (``ops/wand_scan.py``, kernel K1 on CUDA): matched words,
-     exact counts by popcount and a per-bucket score upper bound (UB);
+     exact counts by popcount, a per-bucket score upper bound (UB) and its
+     maxima over 4, 16 and 128 buckets;
   2. ``_rung_topks``: exact top-(K_SEL+1) regions per query at 32-, 128-
-     and 512-doc granularity;
+     and 512-doc granularity, ranked on phase 1's maxima;
   3. ``_rescore_regions``: exact rescore of the selected buckets through a
      positional CSR read of the flat impact pool;
   4. ``_ladder_device``: the page, the WAND termination test and a rung-2
@@ -39,11 +40,11 @@ import threading
 import numpy as np
 import torch
 
-from seekstorm_tpu.metrics import METRICS
-from seekstorm_tpu.schema import BLOCK_SIZE
-from seekstorm_tpu.utils import ceil_pow2
-
-from .wand_scan import popcount32, scan_blocks
+from .. import native
+from ..metrics import METRICS
+from ..schema import BLOCK_SIZE
+from ..utils import ceil_pow2
+from .wand_scan import popcount32, rung_maxima, scan_blocks
 
 NW = BLOCK_SIZE // 32          # packed words per block == buckets per block
 BUCKET = 32                    # docs per bucket (one u32 word)
@@ -101,16 +102,15 @@ def _topk_lanes(x, K: int, gmax=None):
     return vals, ids
 
 
-def _rung_topks(allub, NBLK: int):
+def _rung_topks(allub, NBLK: int, maxima=None):
     """Phase 2: per coarsening factor F, the exact top-(K_SEL+1) regions
     (ub f32[Bq, K_SEL+1] desc with -inf padding, region id i32).  The
-    coarse rungs chain off the finer maxima, so allub is read once
-    (L1 = NBLK * NW, a multiple of 2048)."""
+    coarse rungs rank the maxima (ub4, ub16, g1) phase 1 returns with
+    allub (L1 = NBLK * NW, a multiple of 2048); without them they are
+    reduced from allub here.  Rung 1 reads allub only in its K_SEL+1
+    selected 128-bucket groups."""
     assert F_LADDER == (1, 4, 16)
-    Bq, L1 = allub.shape
-    ub4 = allub.reshape(Bq, L1 // 4, 4).amax(dim=2)
-    ub16 = ub4.reshape(Bq, L1 // 16, 4).amax(dim=2)
-    g1 = ub4.reshape(Bq, L1 // 128, 32).amax(dim=2)
+    ub4, ub16, g1 = rung_maxima(allub) if maxima is None else maxima
     return [_topk_lanes(allub, K_SEL + 1, gmax=g1),
             _topk_lanes(ub4, K_SEL + 1),
             _topk_lanes(ub16, K_SEL + 1)]
@@ -273,16 +273,21 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
     return torch.cat(parts, dim=1)
 
 
-def scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq, tneg,
-            wshard, *, with_counts: bool):
-    """Phase 1 over the resident pools: join the batch's slots to their
-    pool rows (prow [NBLK, V]) and run the scan (K1 on CUDA).  Returns
-    (allub f32[Bq, NBLK*NW], cnt i32[Bq])."""
-    prow = torch.where((slotmap >= 0)[:, None],
+def batch_prow(sp_prow, slotmap):
+    """The batch's slots joined to their pool rows: prow i32[NBLK, V],
+    -1 where a slot has no row in a block."""
+    return torch.where((slotmap >= 0)[:, None],
                        sp_prow[slotmap.clamp(min=0).long()],
                        -1).T.contiguous()
-    return scan_blocks(ppool, vpool, prow, delw, None, tslot, treq, tneg,
-                       wshard, sid, with_counts=with_counts)
+
+
+def scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq, tneg,
+            wshard, *, with_counts: bool):
+    """Phase 1 over the resident pools (K1 on CUDA).  Returns (allub
+    f32[Bq, NBLK*NW], cnt i32[Bq], ub4, ub16, g1) as scan_blocks does."""
+    return scan_blocks(ppool, vpool, batch_prow(sp_prow, slotmap), delw,
+                       None, tslot, treq, tneg, wshard, sid,
+                       with_counts=with_counts)
 
 
 def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
@@ -292,9 +297,10 @@ def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
 
     with_rescore=True returns the slim i32 buffer of _ladder_device;
     otherwise (cnt i32[Bq], rungs) for the host rung ladder."""
-    allub, cnt = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot,
-                         treq, tneg, wshard, with_counts=with_counts)
-    rungs = _rung_topks(allub, sp_prow.shape[1])
+    allub, cnt, *maxima = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap,
+                                  tslot, treq, tneg, wshard,
+                                  with_counts=with_counts)
+    rungs = _rung_topks(allub, sp_prow.shape[1], maxima)
     if not with_rescore:
         return cnt, rungs
 
@@ -584,9 +590,7 @@ class WandState:
 
 def _signature(index) -> tuple:
     """What a WandState was built from: per shard the committed level
-    object, committed doc count, block count and delete count.  Keyed on
-    the index's own state rather than index._device_dirty, which the
-    reference's executor clears when it rebuilds."""
+    object, committed doc count, block count and delete count."""
     return tuple((id(sh.lexical), sh.committed_doc_count,
                   sh.lexical.n_blocks, len(sh.deleted))
                  for sh in index.shards)
@@ -606,14 +610,6 @@ def get_state(index, device) -> WandState:
 
 # ---------------------------------------------------------------------------
 # host rescore + exact evaluation (numpy / native C++)
-
-
-def native_library():
-    """The native host library (ctypes, built from native/ on first use),
-    or None when it does not load."""
-    from seekstorm_tpu import native as native_mod
-
-    return native_mod.load()
 
 
 class RouteStats:
@@ -721,7 +717,7 @@ def _rescore_many_native(state: WandState, slot_rows, specs_sel,
     sentinels past kmax).  None when the native library is absent."""
     import ctypes as C
 
-    lib = native_library()
+    lib = native.load()
     if lib is None or not hasattr(lib, "st_rescore"):
         return None
     nq = len(specs_sel)
@@ -916,7 +912,7 @@ def _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N, need):
     bit-identical accumulation.  None when the native library is absent."""
     import ctypes as C
 
-    lib = native_library()
+    lib = native.load()
     if lib is None or not hasattr(lib, "st_exact_eval"):
         return None
     order = sorted(spec.slots)

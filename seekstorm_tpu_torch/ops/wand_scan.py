@@ -1,5 +1,5 @@
 """Phase-1 bucket-WAND scan: kernel K1 (csrc/wand_scan.cu) and its plain
-PyTorch version.
+PyTorch version, with phase 2's rung maxima in the epilogue.
 
 Replaces the TPU kernel ``seekstorm_tpu/ops/wand_pallas.py::scan_blocks``
 (body ``_kernel``, the ``pl.pallas_call`` at wand_pallas.py:247) and the XLA
@@ -10,15 +10,20 @@ the matched words ``AND(req) & OR(pos) & ~OR(neg) & ~deleted & ~filter``,
 the exact match count by popcount, and the bucket upper bound: the max over
 presence classes of the first ``min(T, 3)`` positive columns plus the
 residual ``sum w_t * bucketmax_t`` of the later columns, accumulated in
-ascending column order; ``-inf`` where nothing matched.
+ascending column order; ``-inf`` where nothing matched.  Beside the UBs it
+returns the maxima phase 2 ranks regions by (``rung_maxima``): over 4, 16
+and 128 consecutive buckets.
 
 What bounds it on the card is bytes: each (query, block, word) reads T
-presence and T bucket-max words and writes one f32 UB.  K1 keeps every
-per-word intermediate in registers, reads pool rows by index inside the
-kernel (no ``[NBLK, V, NW]`` pre-gather), and maps one thread to one word
-so warps read contiguous row segments.  Its UB chains round twice per term
-(``__fmul_rn``/``__fadd_rn``), exactly as the separate torch mul and add
-below, so K1 is bit-exact against ``scan_blocks_ref``.
+presence and up to T bucket-max words and writes one f32 UB and its share
+of the maxima.  K1 gives each thread 4 consecutive words (16-byte loads and
+stores), stages a query tile's pool rows in shared memory with cp.async
+while the previous query computes, keeps every per-word intermediate in
+registers, reads pool rows by index inside the kernel (no ``[NBLK, V, NW]``
+pre-gather), and reduces the maxima with warp shuffles.  Its UB chains
+round twice per term (``__fmul_rn``/``__fadd_rn``), exactly as the separate
+torch mul and add below, and a max is exact, so K1 is bit-exact against
+``scan_blocks_ref`` in all five outputs.
 
 u32 words are carried as int32 bit patterns: ``torch.uint32`` has no
 ``>>``, ``~`` or comparisons on the CPU.  ``int32 >>`` is arithmetic, so
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from seekstorm_tpu.schema import BLOCK_SIZE
+from ..schema import BLOCK_SIZE
 
 NW = BLOCK_SIZE // 32          # words (32-doc buckets) per 64K-doc block
 T_TIERS = (2, 4, 8)            # slot-column counts K1 is compiled for
@@ -56,6 +61,18 @@ def tcodes(tslot, treq, tneg) -> torch.Tensor:
     return torch.where(tslot >= 0, code, torch.full_like(tslot, -4))
 
 
+def rung_maxima(allub):
+    """Phase 2's rung maxima of allub f32[Bq, L1] (L1 a multiple of 128):
+    ub4 f32[Bq, L1/4] and ub16 f32[Bq, L1/16], the maxima over 4 and 16
+    consecutive buckets, and g1 f32[Bq, L1/128], over 128 (the rung-1 lane
+    groups of ops/wand._topk_lanes)."""
+    Bq, L1 = allub.shape
+    ub4 = allub.reshape(Bq, L1 // 4, 4).amax(dim=2)
+    ub16 = ub4.reshape(Bq, L1 // 16, 4).amax(dim=2)
+    g1 = ub4.reshape(Bq, L1 // 128, 32).amax(dim=2)
+    return ub4, ub16, g1
+
+
 def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
                     wshard, sid, *, with_counts: bool = True):
     """Plain PyTorch phase-1 scan.
@@ -65,8 +82,8 @@ def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
     delw / filtw i32[NBLK, NW] deleted / disallowed words (filtw None for
     no filter); tslot i32[Bq, T], treq / tneg bool[Bq, T]; wshard
     f32[S, Bq, T] per-shard weights and sid i32[NBLK] the shard of each
-    block.  Returns (allub f32[Bq, NBLK*NW], cnt i32[Bq]; zeros unless
-    with_counts)."""
+    block.  Returns (allub f32[Bq, NBLK*NW], cnt i32[Bq] (zeros unless
+    with_counts), ub4, ub16, g1) with the maxima of rung_maxima(allub)."""
     NBLK = prow.shape[0]
     Bq, T = tslot.shape
     NC = min(T, 3)
@@ -124,8 +141,8 @@ def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
         if okc is not None:
             live = live & okc[:, None, None]
         best = torch.maximum(best, torch.where(live, sc, ninf))
-    allub = torch.where(matched != 0, best, ninf)
-    return allub.reshape(Bq, NBLK * NW), cnt
+    allub = torch.where(matched != 0, best, ninf).reshape(Bq, NBLK * NW)
+    return (allub, cnt, *rung_maxima(allub))
 
 
 def _check(name, x, dtype, shape, device):
@@ -161,8 +178,17 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
     _check("sid", sid, torch.int32, (NBLK,), dev)
     tcode = tcodes(tslot, treq, tneg).to(torch.int32).contiguous()
     _check("tcode", tcode, torch.int32, (Bq, T), dev)
+    # K1 reads these 16 bytes at a time
+    for name, x in (("ppool", ppool), ("vpool", vpool), ("delw", delw),
+                    ("filtw", filtw)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
-    allub = torch.empty((Bq, NBLK * NW), dtype=torch.float32, device=dev)
+    L1 = NBLK * NW
+    allub = torch.empty((Bq, L1), dtype=torch.float32, device=dev)
+    ub4 = torch.empty((Bq, L1 // 4), dtype=torch.float32, device=dev)
+    ub16 = torch.empty((Bq, L1 // 16), dtype=torch.float32, device=dev)
+    g1 = torch.empty((Bq, L1 // 128), dtype=torch.float32, device=dev)
     cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
     lib = _build.load("wand_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -171,10 +197,11 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
         ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
         delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
         tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK, T,
-        int(with_counts), allub.data_ptr(), cnt.data_ptr(), stream)
+        int(with_counts), allub.data_ptr(), ub4.data_ptr(), ub16.data_ptr(),
+        g1.data_ptr(), cnt.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wand_scan_cuda launch failed (error {err})")
-    return allub, cnt
+    return allub, cnt, ub4, ub16, g1
 
 
 def scan_blocks(ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard,

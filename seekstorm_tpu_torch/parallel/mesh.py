@@ -18,11 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seekstorm_tpu.schema import BLOCK_SIZE
-
 from ..ops import lexical as lex_ops
 from ..ops.dense_scan import NWORDS
 from ..ops.wand import _signature
+from ..schema import BLOCK_SIZE
 
 
 class StackedIndex:

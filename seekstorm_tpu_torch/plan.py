@@ -24,8 +24,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from seekstorm_tpu.search import (FULL_PLAN_BLOCKS, PRUNE_BLOCKS,
-                                  QT_MIN_BLOCKS, _shard_idf)
+# the reference's plan limits (seekstorm_tpu/search.py:32-42): blocks under
+# which plans cover every candidate block, the per-query pruned budget, and
+# the shard size from which Topk batches plan like its query-tiled kernel
+FULL_PLAN_BLOCKS = 96
+PRUNE_BLOCKS = 16
+QT_MIN_BLOCKS = 32
 
 # per-(pair, slot) flags
 FLAG_REQ = 1                   # required positive slot: counts a hit
@@ -90,6 +94,8 @@ def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
     fbm = d.seg_bitmap[flat]
     fdo = d.seg_dev_offset[flat]
     fdl = d.seg_dev_len[flat]
+
+    from .search import _shard_idf
 
     idf = _shard_idf(shard, slots, realtime, hs=hs, found=found, ti_c=ti_c)
 

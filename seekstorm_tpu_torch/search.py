@@ -2,8 +2,9 @@
 
 Port of the lexical entry points of ``seekstorm_tpu/search.py``
 (``search``/``search_batch`` and ``_lexical_search_batch``, impact mode).
-Parsing, idf, the realtime tail merge, phrase verification and result
-assembly are the reference's host functions, imported unchanged; the
+The request/result types and the host functions (parsing, idf, the
+realtime tail merge, phrase verification and result assembly) are copies of
+the reference's, without the facet and sort branches (ROADMAP A.6); the
 device dispatch is the port's.
 
 A batch routes as the reference routes it:
@@ -27,25 +28,366 @@ the dense path's counts elsewhere.  The device is explicit:
 from __future__ import annotations
 
 import dataclasses
+import enum
 import time
+from dataclasses import dataclass, field as dfield
 
 import numpy as np
 import torch
 
-from seekstorm_tpu.index import Index
-from seekstorm_tpu.metrics import METRICS
-from seekstorm_tpu.search import (ResultObject, ResultSet, ResultType,
-                                  SearchMode, SearchRequest, _attach_docs,
-                                  _build_specs, _empty_query_results,
-                                  _finalize_lexical, _merge_tail,
-                                  _QuerySpec, _req_signature, _shard_idf)
-from seekstorm_tpu.utils import ceil_pow2
-
 from . import plan as plan_mod
+from .index import Index, Shard
+from .metrics import METRICS
+from .ngram import NGRAM_SEP
+from .oracle import score_query, topk_from_scores, verify_phrase
 from .ops import wand as wand_mod
 from .parallel import mesh
+from .rewrite import rewrite_query
+from .schema import BLOCK_SIZE
+from .tokenizer import ParsedQuery, parse_query
+from .utils import ceil_pow2, ngram_virtual_hash, term_hash
 
 MAX_PAGE = 1024    # deepest offset + length the WAND route serves
+
+
+# ---------------------------------------------------------------------------
+# request and result types (seekstorm_tpu/search.py:58-171)
+
+
+class QueryType(str, enum.Enum):
+    """(reference search.rs:59-69)"""
+
+    Union = "Union"
+    Intersection = "Intersection"
+    Phrase = "Phrase"
+    Not = "Not"
+
+
+class ResultType(str, enum.Enum):
+    """(reference search.rs:168-176)"""
+
+    Count = "Count"
+    Topk = "Topk"
+    TopkCount = "TopkCount"
+
+
+class SearchMode(str, enum.Enum):
+    Lexical = "Lexical"
+    Vector = "Vector"
+    Hybrid = "Hybrid"
+
+
+@dataclass
+class Ranges:
+    """Named numeric/geo ranges for a range facet (reference search.rs:388-420
+    Ranges enum + RangeType :220-228)."""
+
+    field: str
+    ranges: list                 # [(label, start)] — bucket i is [start_i, start_{i+1})
+    range_type: str = "CountWithinRange"  # | CountAboveRange | CountBelowRange
+    base: object = None          # Point ranges: (lat, lon) base for distance buckets
+    unit: str = "Kilometers"
+
+
+@dataclass
+class QueryFacet:
+    field: str
+    length: int = 10           # top-N values returned
+    ranges: Ranges | None = None
+
+
+@dataclass
+class FacetFilter:
+    field: str
+    values: list | None = None       # string/equality filter
+    range: tuple | None = None       # numeric [min, max] inclusive
+
+
+@dataclass
+class ResultSort:
+    field: str
+    order: str = "Descending"        # or "Ascending"
+    base: object = None              # geo base point for Point fields
+
+
+@dataclass
+class Highlight:
+    field: str
+    fragment_number: int = 1
+    fragment_size: int = 160
+    highlight_markup: bool = True
+
+
+@dataclass
+class SearchRequest:
+    """(reference SearchRequestObject index.rs:137-211)"""
+
+    query: str = ""
+    offset: int = 0
+    length: int = 10
+    result_type: ResultType = ResultType.TopkCount
+    realtime: bool = True
+    query_type_default: QueryType = QueryType.Union
+    field_filter: list[str] = dfield(default_factory=list)
+    fields: list[str] = dfield(default_factory=list)         # doc fields to return
+    highlights: list[Highlight] = dfield(default_factory=list)
+    query_facets: list[QueryFacet] = dfield(default_factory=list)
+    facet_filter: list[FacetFilter] = dfield(default_factory=list)
+    result_sort: list[ResultSort] = dfield(default_factory=list)
+    search_mode: SearchMode = SearchMode.Lexical
+    query_vector: list | None = None
+    top_n: int = 10                  # vector candidates per shard
+    ann_mode: str = "All"            # All | Nprobe | SimilarityThreshold | NprobeSimilarityThreshold
+    nprobe: int = 0                  # clusters to probe (Nprobe modes)
+    similarity_threshold: float | None = None
+    distance_fields: list = dfield(default_factory=list)
+    # 'SearchOnly' | {'SearchSuggest'|'SearchRewrite'|'SuggestOnly': {...}}
+    query_rewriting: object = "SearchOnly"
+
+
+@dataclass
+class ResultObject:
+    doc_id: int
+    score: float
+    doc: dict | None = None
+
+
+@dataclass
+class ResultSet:
+    results: list[ResultObject] = dfield(default_factory=list)
+    result_count: int = 0
+    result_count_total: int = 0
+    count_exact: bool = True
+    facets: dict = dfield(default_factory=dict)
+    suggestions: list = dfield(default_factory=list)
+    query_terms: list = dfield(default_factory=list)
+    time_us: float = 0.0
+    # vector-search work counters (reference observed_vector_count /
+    # observed_cluster_count, search.rs:200-204): candidate vectors
+    # scanned and clusters visited for this query, summed over shards
+    observed_vector_count: int = 0
+    observed_cluster_count: int = 0
+
+
+# ---------------------------------------------------------------------------
+# per-batch lexical planning (seekstorm_tpu/search.py:177-436)
+
+
+@dataclass
+class _Slot:
+    hash: int
+    term: str
+    dir_idx: list  # per shard: directory index or -1
+    # n-gram constituent scoring (Bm25f, reference add_result.rs:868-915):
+    # idf_hash redirects this slot's df/idf to a constituent term; tf_hash
+    # is set on slots whose tail postings join against a constituent's tfs
+    # (committed levels carry the join pre-materialized, lexindex.py).
+    idf_hash: int | None = None
+    tf_hash: int | None = None
+    virtual: bool = False   # weight-only companion slot of an n-gram
+
+
+@dataclass
+class _QuerySpec:
+    slots: list[int]            # slot ids used by this query (non-negated + negated)
+    weights: dict               # slot -> 1.0 (scoring, non-negated) — idf applied per shard
+    required: dict              # slot -> bool
+    negated: dict               # slot -> bool
+    phrases: list[list]         # phrase groups: [(slot_id, token_offset)], in order
+    parsed: ParsedQuery
+
+
+def _build_specs(
+    index: Index, queries: list[str], default_types: list[QueryType]
+) -> tuple[list[_Slot], list[_QuerySpec]]:
+    from .ngram import segment_phrase
+
+    flags = index.meta.ngram_indexing
+    frequent = getattr(index, "_frequent_words", frozenset())
+    expand = getattr(index, "_expand_ngrams", False)
+
+    slot_of: dict[int, int] = {}
+    slots: list[_Slot] = []
+    specs: list[_QuerySpec] = []
+
+    def get_slot(term: str) -> int:
+        h = term_hash(term)
+        if h not in slot_of:
+            slot_of[h] = len(slots)
+            if expand and NGRAM_SEP in term:
+                parts = term.split(NGRAM_SEP)
+                slots.append(_Slot(h, term, [],
+                                   idf_hash=term_hash(parts[0]),
+                                   tf_hash=term_hash(parts[0])))
+            else:
+                slots.append(_Slot(h, term, []))
+        return slot_of[h]
+
+    def get_virtual_slots(term: str, h: int) -> list[int]:
+        """Weight-only companion slots for constituents 2..k of an n-gram
+        (Bm25f constituent scoring; see lexindex._expand_ngram_segments)."""
+        parts = term.split(NGRAM_SEP)
+        out = []
+        for j in range(2, len(parts) + 1):
+            vh = ngram_virtual_hash(h, j)
+            if vh not in slot_of:
+                slot_of[vh] = len(slots)
+                slots.append(_Slot(vh, term, [],
+                                   idf_hash=term_hash(parts[j - 1]),
+                                   tf_hash=term_hash(parts[j - 1]),
+                                   virtual=True))
+            out.append(slot_of[vh])
+        return out
+
+    for q, default_type in zip(queries, default_types):
+        pq = parse_query(q, index.analyzer)
+        weights: dict[int, float] = {}
+        required: dict[int, bool] = {}
+        negated: dict[int, bool] = {}
+        phrase_groups: list[list] = []
+
+        phrase_term_idx = {i for ph in pq.phrases for i in ph}
+        implicit_phrase = (
+            default_type == QueryType.Phrase
+            and not pq.phrases
+            and sum(1 for t in pq.terms if not t.negated) > 1
+        )
+
+        def add_term(term: str, req: bool, neg: bool):
+            s_ = get_slot(term)
+            if s_ in negated and negated[s_] and not neg:
+                negated[s_] = False  # positive occurrence wins
+            if s_ not in negated:
+                negated[s_] = neg
+            required[s_] = required.get(s_, False) or (req and not neg)
+            if not negated[s_]:
+                weights[s_] = 1.0
+                if expand and NGRAM_SEP in term:
+                    for vs in get_virtual_slots(term, slots[s_].hash):
+                        weights[vs] = 1.0
+                        negated.setdefault(vs, False)
+            return s_
+
+        def add_phrase(tokens: list[str], neg: bool):
+            # n-gram segment rewriting (reference NGRAM_SEARCH.md:60-80)
+            if flags and frequent:
+                segments = segment_phrase(tokens, frequent, flags)
+            else:
+                segments = [(t, i, 1) for i, t in enumerate(tokens)]
+            group = []
+            for term, off, _ln in segments:
+                s_ = add_term(term, True, neg)
+                group.append((s_, off))
+            if len(group) >= 1 and not neg:
+                phrase_groups.append(group)
+
+        for i, t in enumerate(pq.terms):
+            if i in phrase_term_idx or implicit_phrase:
+                continue
+            neg = t.negated or default_type == QueryType.Not
+            req = t.required or default_type in (
+                QueryType.Intersection, QueryType.Phrase
+            )
+            add_term(t.term, req, neg)
+
+        for ph in pq.phrases:
+            tokens = [pq.terms[i].term for i in ph]
+            add_phrase(tokens, pq.terms[ph[0]].negated)
+        if implicit_phrase:
+            tokens = [t.term for t in pq.terms if not t.negated]
+            add_phrase(tokens, False)
+            for t in pq.terms:
+                if t.negated:
+                    add_term(t.term, False, True)
+
+        # single-segment phrases are exact by construction (the n-gram or
+        # single term IS the phrase) — no position verification needed
+        phrase_groups = [g for g in phrase_groups if len(g) > 1]
+
+        specs.append(
+            _QuerySpec(
+                slots=sorted(
+                    set(list(weights) + [s for s, n in negated.items() if n])
+                ),
+                weights=weights,
+                required=required,
+                negated=negated,
+                phrases=phrase_groups,
+                parsed=pq,
+            )
+        )
+    return slots, specs
+
+
+def _shard_idf(shard: Shard, slots: list[_Slot], realtime: bool,
+               hs: np.ndarray | None = None,
+               found: np.ndarray | None = None,
+               ti_c: np.ndarray | None = None) -> np.ndarray:
+    """Per-shard per-slot BM25 idf, realtime-df aware — the single source of
+    truth for the dense planner (_plan_shard) and the WAND path (ops/wand.py).
+
+    hs/found/ti_c are _plan_shard's already-computed directory lookups for
+    the slots' own hashes; recomputed when absent."""
+    lex = shard.lexical
+    d = lex.directory
+    if d is None or len(d.hash) == 0:
+        # shard with no committed terms (all docs hashed elsewhere):
+        # every slot is absent, idf contribution zero
+        return np.zeros(len(slots), np.float32)
+    T = len(d.hash)
+    if hs is None:
+        hs = np.array([sl.hash for sl in slots], dtype=np.uint64)
+        ti_all = np.searchsorted(d.hash, hs)
+        found = ti_all < T
+        ti_c = np.minimum(ti_all, max(T - 1, 0))
+        found &= (d.hash[ti_c] == hs) if T else False
+
+    # idf df: n-gram slots redirect to their constituent's df (reference
+    # posting_count_ngram_N, search.rs:3235-3260)
+    df = np.where(found, d.df[ti_c], 0)
+    idf_hs = np.array(
+        [sl.idf_hash if sl.idf_hash is not None else sl.hash
+         for sl in slots], dtype=np.uint64)
+    if not np.array_equal(idf_hs, hs):
+        ci_all = np.searchsorted(d.hash, idf_hs)
+        cfound = (ci_all < T)
+        ci_c = np.minimum(ci_all, max(T - 1, 0))
+        cfound &= (d.hash[ci_c] == idf_hs) if T else False
+        df = np.where(cfound, d.df[ci_c], df)
+
+    # doc counts / dfs incl. realtime tail for idf
+    n_docs = lex.doc_count
+    df_total = df.copy()
+    if realtime:
+        l0 = shard.level0
+        start = shard.partial_on_disk
+        tail = l0.doc_count - start
+        n_docs += tail
+        if tail > 0:
+            acc = getattr(l0, "acc", None)
+            # per-slot tail-df lookups only when an uncommitted tail
+            # exists — on a fully committed index this loop is ~225
+            # native calls per batch of pure overhead
+            for v, sl in enumerate(slots):
+                h = sl.idf_hash if sl.idf_hash is not None else sl.hash
+                if acc is not None:
+                    hit = acc.term_postings(h)
+                    if hit is not None:
+                        df_total[v] += int(np.sum(hit[0] >= start))
+                else:
+                    tp = l0.terms.get(h)
+                    if tp is not None:
+                        df_total[v] += int(np.sum(
+                            np.asarray(tp.docids) >= start))
+    return np.where(
+        df_total > 0,
+        np.log1p((n_docs - df_total + 0.5) / (df_total + 0.5)),
+        0.0,
+    ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
 
 
 def resolve_device(device) -> torch.device:
@@ -94,11 +436,9 @@ def search_batch(index: Index, requests: list[SearchRequest],
             f"{req0.search_mode.value} search is not ported yet "
             "(ROADMAP A.8 vector)")
 
-    # query rewriting (QAC / spelling): host code of the reference
+    # query rewriting (QAC / spelling, rewrite.py)
     outcomes = None
     if any(r.query_rewriting not in (None, "SearchOnly") for r in requests):
-        from seekstorm_tpu.rewrite import rewrite_query
-
         outcomes = [rewrite_query(index, r.query, r.query_rewriting,
                                   index.analyzer) for r in requests]
         if all(isinstance(r.query_rewriting, dict)
@@ -121,6 +461,26 @@ def search_batch(index: Index, requests: list[SearchRequest],
         if outcomes is not None:
             r.suggestions = outcomes[i].suggestions
     return out
+
+
+def _req_signature(r: SearchRequest) -> tuple:
+    """Batch-compatibility key: everything except the query text/vector
+    and paging (one device launch per distinct signature)."""
+    return (
+        r.result_type, r.realtime,
+        tuple(r.field_filter), tuple(r.fields),
+        tuple((h.field, h.fragment_number, h.fragment_size,
+               h.highlight_markup) for h in r.highlights),
+        tuple((qf.field, qf.length, repr(qf.ranges))
+              for qf in r.query_facets),
+        tuple((f.field, tuple(f.values) if f.values else None,
+               tuple(f.range) if f.range else None)
+              for f in r.facet_filter),
+        tuple((s.field, s.order, repr(s.base)) for s in r.result_sort),
+        r.search_mode, r.ann_mode, r.nprobe, r.similarity_threshold,
+        r.top_n, tuple(map(repr, r.distance_fields)),
+        repr(r.query_rewriting),
+    )
 
 
 def exact_pages(index: Index, requests: list[SearchRequest],
@@ -159,6 +519,30 @@ def dense_plans(index: Index, requests: list[SearchRequest],
                                  plan_mod.PRUNE_BLOCKS)
              for sh in index.shards]
     return plans, mesh.get_stacked(index, resolve_device(device))
+
+
+def wand_inputs(index: Index, requests: list[SearchRequest],
+                device="cuda") -> tuple:
+    """Kernel K1's arguments for the WAND-eligible queries of a batch, as
+    its dispatch passes them to ``ops/wand_scan.scan_blocks``: the resident
+    pools with the batch's term rows, its slots joined to pool rows, and
+    its per-query tables on `device`.  A way to hold K1 against its plain
+    version, and to time it, at a batch's real shapes."""
+    slots, specs = _build_specs(index, [r.query for r in requests],
+                                [r.query_type_default for r in requests])
+    idf = np.stack([_shard_idf(sh, slots, requests[0].realtime)
+                    for sh in index.shards])
+    state = wand_mod.get_state(index, resolve_device(device))
+    with state.lock:
+        slotmap, tslot, treq, tneg, wsh, _ = wand_mod.plan_batch(
+            state, slots, [sp for sp in specs if wand_mod.query_ok(sp)],
+            idf)
+        ppool, vpool, _, _, sp_prow, _, delw, sid = state.pools
+    slotmap, tslot, treq, tneg, wsh = [
+        torch.from_numpy(a).to(state.device)
+        for a in (slotmap, tslot, treq, tneg, wsh)]
+    return (ppool, vpool, wand_mod.batch_prow(sp_prow, slotmap), delw, None,
+            tslot, treq, tneg, wsh, sid)
 
 
 def _unsupported(req0: SearchRequest) -> str | None:
@@ -276,7 +660,7 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     for shard in index.shards:
         if req0.realtime and shard.tail_len() > 0:
             _merge_tail(index, shard, slots, live_specs, boosts,
-                        merged_scores, merged_ids, counts, with_counts, req0,
+                        merged_scores, merged_ids, counts, with_counts,
                         tail_phrase_counts=tail_phrase_counts)
             canonical[:] = False
     return _finalize_lexical(index, requests, results, live, live_specs,
@@ -353,3 +737,332 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
                 ts, gid, cnt = stacked.run(plans, k, with_counts)
             all_full = True
     return ts, gid, cnt, all_full
+
+
+# ---------------------------------------------------------------------------
+# host assembly (seekstorm_tpu/search.py:1173-1340, 1882-2336)
+
+
+def _empty_query_results(index: Index, req: SearchRequest) -> ResultSet:
+    """Empty-query browse path (reference search.rs:1413 -> iterator.rs):
+    every live doc, committed and tail, by ascending doc id.  The
+    reference's facet filter, facet counts and sort keys here are ROADMAP
+    A.6; the port raises for such requests before it comes here."""
+    rs = ResultSet()
+    index.ensure_loaded()
+    gids = []
+    for shard in index.shards:
+        n = shard.doc_count
+        local = np.arange(n, dtype=np.int64)
+        mask = np.ones(n, dtype=bool)
+        if shard.deleted:
+            dl = np.fromiter(shard.deleted, dtype=np.int64)
+            dl = dl[dl < n]
+            mask[dl] = False
+        gids.append(local[mask] * index.shard_count + shard.shard_id)
+    all_gids = np.sort(np.concatenate(gids)) if gids \
+        else np.zeros(0, np.int64)
+    rs.result_count_total = int(len(all_gids))
+    page = all_gids[req.offset : req.offset + req.length]
+    rs.results = [ResultObject(doc_id=int(g), score=0.0) for g in page]
+    rs.result_count = len(rs.results)
+    _attach_docs(index, req, rs)
+    return rs
+
+
+def _slot_global_docids(index, slots, s) -> np.ndarray:
+    """All committed global doc ids holding slot s (host posting lists)."""
+    h = slots[s].hash
+    out = []
+    for shard in index.shards:
+        lex = shard.lexical
+        d = lex.directory
+        ti = d.lookup(h)
+        if ti < 0 or lex.pl_docid is None:
+            continue
+        for e in range(int(d.seg_start[ti]), int(d.seg_start[ti + 1])):
+            a = int(d.seg_offset[e])
+            ln = int(d.seg_len[e])
+            ids = (lex.pl_docid[a : a + ln].astype(np.int64)
+                   + int(d.seg_block[e]) * BLOCK_SIZE)
+            out.append(ids * index.shard_count + shard.shard_id)
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def _phrase_exact_committed(index, slots, spec) -> np.ndarray:
+    """Sorted global ids of committed docs matching the WHOLE query's
+    phrase + required/negated/deleted constraints —
+    exact phrase counting with no candidate cliff (reference gets this
+    from per-doc position streams, add_result.rs:38-92)."""
+    from .phrase import phrase_docs_global
+
+    cand = phrase_docs_global(index, slots, spec)
+    cand = np.sort(cand)
+    phrase_slots = {s for ph in spec.phrases for s, _ in ph}
+    for s, r in spec.required.items():
+        if not r or spec.negated.get(s) or s in phrase_slots:
+            continue
+        if len(cand) == 0:
+            break
+        cand = cand[np.isin(cand, _slot_global_docids(index, slots, s))]
+    for s, n_ in spec.negated.items():
+        if not n_ or len(cand) == 0:
+            continue
+        cand = cand[~np.isin(cand, _slot_global_docids(index, slots, s))]
+    S = index.shard_count
+    for shard in index.shards:
+        if shard.deleted and len(cand):
+            dl = np.fromiter(shard.deleted, dtype=np.int64)
+            cand = cand[~np.isin(cand, dl * S + shard.shard_id)]
+    return cand
+
+
+def _score_gids(index, slots, spec, gids, realtime) -> np.ndarray:
+    """Exact imp-mode BM25F scores of arbitrary committed global ids from
+    the host CSR (idf x stored impact, accumulated in ascending slot id,
+    the same arithmetic as the device scorer)."""
+    S = index.shard_count
+    out = np.zeros(len(gids), np.float32)
+    if not len(gids):
+        return out
+    sid = (gids % S).astype(np.int64)
+    loc = (gids // S).astype(np.int64)
+    idf_by_shard = [_shard_idf(sh, slots, realtime) for sh in index.shards]
+    for t in sorted(spec.weights):
+        if spec.negated.get(t):
+            continue
+        h = slots[t].hash
+        for shard in index.shards:
+            rows = np.flatnonzero(sid == shard.shard_id)
+            if not len(rows):
+                continue
+            idf_t = np.float32(idf_by_shard[shard.shard_id][t])
+            lex = shard.lexical
+            d = lex.directory
+            if d is None or lex.pl_docid is None:
+                continue
+            ti = d.lookup(h)
+            if ti < 0:
+                continue
+            blocks = loc[rows] >> 16
+            docids = (loc[rows] & 0xFFFF).astype(lex.pl_docid.dtype)
+            for e in range(int(d.seg_start[ti]), int(d.seg_start[ti + 1])):
+                bl = int(d.seg_block[e])
+                a = int(d.seg_offset[e])
+                ln = int(d.seg_len[e])
+                if ln <= 0:
+                    continue
+                m = np.flatnonzero(blocks == bl)
+                if not len(m):
+                    continue
+                pl = lex.pl_docid[a: a + ln]
+                pos = np.searchsorted(pl, docids[m])
+                pos = np.clip(pos, 0, ln - 1)
+                hit = pl[pos] == docids[m]
+                out[rows[m[hit]]] += idf_t * \
+                    lex.pl_impact[a: a + ln][pos[hit]].astype(np.float32)
+    return out
+
+
+def _finalize_lexical(index, requests, results, live, live_specs, slots,
+                      merged_scores, merged_ids, counts, counts_exact,
+                      with_counts, tail_phrase_counts=None,
+                      phrase_escalate_ok=True, canonical=None):
+    """Phrase verification and final assembly (the reference's facet
+    histograms and sort keys here are ROADMAP A.6; the port raises for
+    such requests before it comes here)."""
+    for bi, qi in enumerate(live):
+        spec = live_specs[bi]
+        scores, gids = merged_scores[bi], merged_ids[bi]
+        if canonical is None or not canonical[bi]:
+            # dedupe defensively (re-runs can concatenate duplicates)
+            _, first = np.unique(gids, return_index=True)
+            keepmask = np.zeros(len(gids), dtype=bool)
+            keepmask[first] = True
+            scores, gids = scores[keepmask], gids[keepmask]
+            order = np.lexsort((gids, -scores))
+            scores, gids = scores[order], gids[order]
+        if spec.phrases:
+            pd = None
+            if with_counts:
+                # exact committed phrase-match set (host posting
+                # intersection + vectorized position join, phrase.py);
+                # retrieved results check membership, tail docs verify
+                # per doc
+                pd = _phrase_exact_committed(index, slots, spec)
+                if len(gids):
+                    S_ = index.shard_count
+                    sid = (gids % S_).astype(np.int64)
+                    loc = (gids // S_).astype(np.int64)
+                    committed = np.array(
+                        [index.shards[x].committed_doc_count for x in sid])
+                    is_tail = loc >= committed
+                    keep = np.isin(gids, pd)
+                    for row in np.flatnonzero(is_tail):
+                        keep[row] = _phrase_ok(index, slots, spec,
+                                               int(gids[row]))
+                    scores, gids = scores[keep], gids[keep]
+                counts[bi] = len(pd) + (
+                    int(tail_phrase_counts[bi])
+                    if tail_phrase_counts is not None else 0)
+                counts_exact[bi] = True
+            elif len(gids):
+                # Topk-only: the device candidates already satisfy the
+                # boolean/filter constraints — verify positional
+                # adjacency per retrieved candidate, in score order,
+                # stopping once the requested page is filled (instead of
+                # walking the full posting intersection)
+                want = requests[qi].offset + requests[qi].length
+                kept: list[int] = []
+                for row in range(len(gids)):
+                    if _phrase_ok(index, slots, spec, int(gids[row])):
+                        kept.append(row)
+                        if len(kept) >= want:
+                            break
+                scores, gids = scores[kept], gids[kept]
+            # candidate-cliff escalation (reference parity: phrase checks
+            # run on EVERY intersected doc, add_result.rs:38-92, so a
+            # phrase match can never silently drop off a page): when the
+            # verified page is short, rebuild it from the exact committed
+            # phrase set, scored from the host CSR; verified realtime
+            # tail rows keep their oracle scores.
+            want = requests[qi].offset + requests[qi].length
+            if (phrase_escalate_ok
+                    and len(gids) < want
+                    and not any(slots[s].virtual for s in spec.slots)):
+                if pd is None:
+                    pd = _phrase_exact_committed(index, slots, spec)
+                S_ = index.shard_count
+                if len(gids):
+                    committed = np.array(
+                        [index.shards[int(g % S_)].committed_doc_count
+                         for g in gids])
+                    is_tail = (gids // S_) >= committed
+                    t_sc, t_g = scores[is_tail], gids[is_tail]
+                else:
+                    t_sc = np.zeros(0, np.float32)
+                    t_g = np.zeros(0, np.int64)
+                if len(pd) + len(t_g) > len(gids):
+                    sc_pd = _score_gids(index, slots, spec, pd,
+                                        requests[qi].realtime)
+                    allsc = np.concatenate([sc_pd, t_sc])
+                    allg = np.concatenate([pd, t_g])
+                    order3 = np.lexsort((allg, -allsc))
+                    scores, gids = (allsc[order3].astype(np.float32),
+                                    allg[order3])
+        rs = ResultSet()
+        rs.query_terms = [slots[s].term for s in spec.weights
+                          if not slots[s].virtual]
+        rs.result_count_total = int(counts[bi]) if with_counts else 0
+        rs.count_exact = bool(counts_exact[bi])
+        page = slice(requests[qi].offset, requests[qi].offset + requests[qi].length)
+        # .tolist() yields native Python scalars in one C pass —
+        # per-element int()/float() numpy-scalar unwrap was ~30% of
+        # the assembly cost at large batch
+        rs.results = [
+            ResultObject(doc_id=g, score=s)
+            for s, g in zip(scores[page].tolist(), gids[page].tolist())
+        ]
+        rs.result_count = len(rs.results)
+        _attach_docs(index, requests[qi], rs)
+        results[qi] = rs
+
+    return [r or ResultSet() for r in results]
+
+
+def _merge_tail(
+    index: Index, shard: Shard, slots, specs, boosts,
+    merged_scores, merged_ids, counts, with_counts,
+    tail_phrase_counts=None,
+) -> None:
+    """Score the uncommitted level-0 tail with the numpy oracle and merge
+    (the reference's tail facet counting, filtering and sort keys are
+    ROADMAP A.6)."""
+    hashes = [
+        (term_hash(sl.term), sl.tf_hash) if sl.tf_hash is not None
+        else sl.hash
+        for sl in slots
+    ]
+    postings, tail_dfs, n_tail = index.tail_postings(shard, hashes, boosts)
+    if n_tail <= 0:
+        return
+    lex = shard.lexical
+    d = lex.directory
+    tail_deleted = np.zeros(n_tail, dtype=bool)
+    base = shard.tail_start
+    for sid in shard.deleted:
+        if base <= sid < base + n_tail:
+            tail_deleted[sid - base] = True
+
+    n_docs = lex.doc_count + n_tail
+    for qi, spec in enumerate(specs):
+        term_ps, dfs, reqs, negs = [], [], [], []
+        for s in spec.slots:
+            sl = slots[s]
+            ti = d.lookup(sl.idf_hash if sl.idf_hash is not None else sl.hash)
+            df_c = int(d.df[ti]) if ti >= 0 else 0
+            term_ps.append(postings[s])
+            dfs.append(df_c + tail_dfs[s])
+            reqs.append(bool(spec.required.get(s)) and not spec.negated.get(s))
+            negs.append(bool(spec.negated.get(s)))
+        sc, matched = score_query(
+            n_docs, n_tail, term_ps, dfs, reqs, negs, tail_deleted
+        )
+        if with_counts:
+            if spec.phrases and tail_phrase_counts is not None:
+                # exact: phrase-verify every AND-matched tail doc (the
+                # tail is <= 64K docs; its phrase candidates are few)
+                for li in np.flatnonzero(matched):
+                    g = (int(li) + base) * index.shard_count + shard.shard_id
+                    if _phrase_ok(index, slots, spec, g):
+                        tail_phrase_counts[qi] += 1
+            else:
+                counts[qi] += int(matched.sum())
+        s2, ids = topk_from_scores(sc, min(n_tail, 1024))
+        gids = (ids + base) * index.shard_count + shard.shard_id
+        merged_scores[qi] = np.concatenate([merged_scores[qi], s2])
+        merged_ids[qi] = np.concatenate([merged_ids[qi], gids])
+
+
+def _phrase_ok(index: Index, slots, spec: _QuerySpec, global_id: int) -> bool:
+    shard = index.shards[global_id % index.shard_count]
+    local = global_id // index.shard_count
+    for ph in spec.phrases:
+        pos_by_term = []
+        offsets = []
+        for s, off in ph:
+            h = slots[s].hash
+            if local < shard.committed_doc_count:
+                p = shard.lexical.get_positions(h, local)
+            else:
+                p = index.tail_positions(shard, h, local - shard.tail_start)
+            if p is None:
+                return False
+            pos_by_term.append(p)
+            offsets.append(off)
+        if not verify_phrase(pos_by_term, offsets):
+            return False
+    return True
+
+
+def _attach_docs(index: Index, req: SearchRequest, rs: ResultSet) -> None:
+    if not req.fields and not req.highlights:
+        return
+    from .highlighter import highlight_doc
+
+    for r in rs.results:
+        doc = index.get_document(r.doc_id)
+        if doc is None:
+            continue
+        if req.fields:
+            doc = {k: v for k, v in doc.items() if k in req.fields}
+        if req.highlights:
+            doc = highlight_doc(index, req, doc)
+        r.doc = doc
+
+
+# bind as Index methods, on the index's own device unless told otherwise
+Index.search = lambda self, request, device=None: search(
+    self, request, self.device if device is None else device)
+Index.search_batch = lambda self, requests, device=None: search_batch(
+    self, requests, self.device if device is None else device)

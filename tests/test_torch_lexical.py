@@ -1,7 +1,8 @@
 """Dense impact path of the torch port (seekstorm_tpu_torch/plan.py,
 ops/dense_scan.py, ops/lexical.py, parallel/mesh.py) against the JAX
 reference (search._plan_shard, parallel.mesh.StackedIndex,
-ops.lexical._topk_block) on the CPU.
+ops.lexical._topk_block) on the CPU, each package on its own index built
+from the same documents, deletes and commits.
 
   * planner: selected blocks, per-query selection, full, ub_unscored, W,
     Mreq, nreq equal to _plan_shard's, full and pruned, in the reference's
@@ -35,6 +36,7 @@ from test_torch_search import QUERIES, _build
 from test_wand import _Page
 
 sm = importlib.import_module("seekstorm_tpu.search")
+ps = importlib.import_module("seekstorm_tpu_torch.search")
 ref_lex = importlib.import_module("seekstorm_tpu.ops.lexical")
 
 LONG = [" ".join(f"w{i:03d}" for i in range(3, 13)),
@@ -55,8 +57,10 @@ def pruned(monkeypatch):
         monkeypatch.setattr(mod, "PRUNE_BLOCKS", 1)
 
 
-def _specs(idx, qtype=st.QueryType.Union):
-    return sm._build_specs(idx, QS, [qtype] * len(QS))
+def _specs(mod, idx, qtype=st.QueryType.Union):
+    """The batch's slots and specs by `mod`'s own parser (the reference's
+    search module or the port's)."""
+    return mod._build_specs(idx, QS, [qtype] * len(QS))
 
 
 @pytest.mark.parametrize("qtype", [st.QueryType.Union,
@@ -64,13 +68,14 @@ def _specs(idx, qtype=st.QueryType.Union):
 @pytest.mark.parametrize("need_full", [True, False], ids=["full", "prune"])
 @pytest.mark.parametrize("mode", ["imp", "qt"])
 def test_plan_matches_reference(index, mode, need_full, qtype, pruned):
-    slots, specs = _specs(index, qtype)
+    slots, specs = _specs(sm, index.ref, qtype)
+    pslots, pspecs = _specs(ps, index.port, qtype)
     seen_pruned = False
-    for sh in index.shards:
-        ref = sm._plan_shard(index, sh, slots, specs, True, need_full, 1,
-                             mode=mode)
-        mine = pp.plan_shard(index, sh, slots, specs, True, need_full, 1,
-                             mode=mode)
+    for rsh, sh in zip(index.ref.shards, index.port.shards):
+        ref = sm._plan_shard(index.ref, rsh, slots, specs, True, need_full,
+                             1, mode=mode)
+        mine = pp.plan_shard(index.port, sh, pslots, pspecs, True,
+                             need_full, 1, mode=mode)
         assert (ref is None) == (mine is None)
         if ref is None:
             continue
@@ -101,10 +106,10 @@ def test_plan_matches_reference(index, mode, need_full, qtype, pruned):
 def test_pairs_name_each_slot_segment(index):
     """Each pair lists its query's slots in ascending slot id with the
     slot's segment in that block (CSR remainder and bitmap row)."""
-    slots, specs = _specs(index)
+    slots, specs = _specs(ps, index.port)
     n_bitmap = 0
-    for sh in index.shards:
-        p = pp.plan_shard(index, sh, slots, specs, True, True, 16)
+    for sh in index.port.shards:
+        p = pp.plan_shard(index.port, sh, slots, specs, True, True, 16)
         d = sh.lexical.directory
         for i, (b, q) in enumerate(zip(p.p_block, p.p_query)):
             spec = specs[q]
@@ -148,15 +153,17 @@ def _as_page(scores, gids, count):
 @pytest.mark.parametrize("qtype", [st.QueryType.Union,
                                    st.QueryType.Intersection])
 def test_executor_matches_reference(index, qtype, with_counts, k):
-    slots, specs = _specs(index, qtype)
-    ref_plans = [sm._plan_shard(index, sh, slots, specs, True, True, 16)
-                 for sh in index.shards]
-    my_plans = [pp.plan_shard(index, sh, slots, specs, True, True, 16)
-                for sh in index.shards]
-    ts, gid, cnt, _ = RefStacked(index).run(
-        ref_plans, index.boosts_or_default(), k, with_counts)
-    mts, mgid, mcnt = pm.get_stacked(index, "cpu").run(my_plans, k,
-                                                      with_counts)
+    slots, specs = _specs(sm, index.ref, qtype)
+    pslots, pspecs = _specs(ps, index.port, qtype)
+    ref_plans = [sm._plan_shard(index.ref, sh, slots, specs, True, True, 16)
+                 for sh in index.ref.shards]
+    my_plans = [pp.plan_shard(index.port, sh, pslots, pspecs, True, True,
+                              16)
+                for sh in index.port.shards]
+    ts, gid, cnt, _ = RefStacked(index.ref).run(
+        ref_plans, index.ref.boosts_or_default(), k, with_counts)
+    mts, mgid, mcnt = pm.get_stacked(index.port, "cpu").run(my_plans, k,
+                                                           with_counts)
     assert mts.shape == (len(QS), k) and mgid.dtype == np.int64
     if with_counts:
         np.testing.assert_array_equal(mcnt, cnt)
@@ -172,15 +179,15 @@ def test_dense_plans_give_the_batch_pairs(index):
     """seekstorm_tpu_torch.dense_plans: a batch's full plans, as the
     planner makes them, and the StackedIndex whose pair tables K2 scans;
     the plain scan over those tables counts what the reference counts."""
-    reqs = [st.SearchRequest(query=q, result_type=st.ResultType.TopkCount,
-                             realtime=True,
-                             query_type_default=st.QueryType.Union)
+    reqs = [stt.SearchRequest(query=q, result_type=stt.ResultType.TopkCount,
+                              realtime=True,
+                              query_type_default=stt.QueryType.Union)
             for q in QS]
-    plans, stacked = stt.dense_plans(index, reqs, device="cpu")
-    assert stacked is pm.get_stacked(index, "cpu")
-    slots, specs = _specs(index)
-    for p, sh in zip(plans, index.shards):
-        want = pp.plan_shard(index, sh, slots, specs, True, True,
+    plans, stacked = stt.dense_plans(index.port, reqs, device="cpu")
+    assert stacked is pm.get_stacked(index.port, "cpu")
+    slots, specs = _specs(ps, index.port)
+    for p, sh in zip(plans, index.port.shards):
+        want = pp.plan_shard(index.port, sh, slots, specs, True, True,
                              pp.PRUNE_BLOCKS)
         assert p.full
         np.testing.assert_array_equal(p.p_block, want.p_block)
@@ -189,10 +196,12 @@ def test_dense_plans_give_the_batch_pairs(index):
     pairs = [torch.from_numpy(np.ascontiguousarray(x))
              for x in stacked.pair_tables(plans)[:8]]
     _, cnt = ds.dense_scan_ref(*stacked.arrays, *pairs, len(QS))
-    ref_plans = [sm._plan_shard(index, sh, slots, specs, True, True, 16)
-                 for sh in index.shards]
-    _, _, rcnt, _ = RefStacked(index).run(
-        ref_plans, index.boosts_or_default(), 16, True)
+    rslots, rspecs = _specs(sm, index.ref)
+    ref_plans = [sm._plan_shard(index.ref, sh, rslots, rspecs, True, True,
+                                16)
+                 for sh in index.ref.shards]
+    _, _, rcnt, _ = RefStacked(index.ref).run(
+        ref_plans, index.ref.boosts_or_default(), 16, True)
     np.testing.assert_array_equal(cnt.numpy(), rcnt)
     assert (rcnt > 0).sum() > len(QS) // 2
 

@@ -2,13 +2,17 @@
 CPU against the JAX package.
 
 Two-block indexes (BLOCK_SIZE + 6000 docs) with one and two shards, deleted
-docs and an uncommitted realtime tail.  The port and the reference take the
+docs and an uncommitted realtime tail, built twice from the same documents,
+deletes and commits: a reference index (seekstorm_tpu) and a port index
+(seekstorm_tpu_torch, on the CPU).  The port and the reference take the
 same route, the WAND route (SEEKSTORM_TPU_WAND=1) or the dense route
 (SEEKSTORM_TPU_NO_WAND=1; the default below 16 blocks), and their pages
 must be equal under tests/test_wand.py's _Page (counts exact, scores within
 rtol 3e-5, membership per score cluster).
 """
 
+import dataclasses
+import enum
 import importlib
 import os
 import subprocess
@@ -41,20 +45,43 @@ def _docs(n, seed, vocab=250):
             for a, b in zip(title, body)]
 
 
-def _schema():
+def _schema(pkg):
     return [
-        st.SchemaField("title", st.FieldType.Text, indexed=True, boost=10.0),
-        st.SchemaField("body", st.FieldType.Text, indexed=True),
+        pkg.SchemaField("title", pkg.FieldType.Text, indexed=True,
+                        boost=10.0),
+        pkg.SchemaField("body", pkg.FieldType.Text, indexed=True),
     ]
 
 
+@dataclasses.dataclass
+class _Pair:
+    """One index per package from the same documents, deletes and commits:
+    `ref` (seekstorm_tpu) and `port` (seekstorm_tpu_torch, on the CPU)."""
+
+    ref: object
+    port: object
+
+    @property
+    def shard_count(self):
+        return self.ref.shard_count
+
+
+def _create(pkg, path, schema, **kw):
+    if pkg is pt:
+        kw["device"] = "cpu"
+    return pkg.create_index(path / pkg.__name__, schema, **kw)
+
+
 def _build(path, shards, n=BLOCK_SIZE + 6_000, tail=700):
-    idx = st.create_index(path, _schema(), shard_count=shards)
-    idx.index_documents(_docs(n, 7))
-    idx.commit()
-    idx.delete_documents(list(range(0, 50_000, 211)) + [n + 3, n + 11])
-    idx.index_documents(_docs(tail, 8))          # uncommitted tail
-    return idx
+    out = []
+    for pkg in (st, pt):
+        idx = _create(pkg, path, _schema(pkg), shard_count=shards)
+        idx.index_documents(_docs(n, 7))
+        idx.commit()
+        idx.delete_documents(list(range(0, 50_000, 211)) + [n + 3, n + 11])
+        idx.index_documents(_docs(tail, 8))          # uncommitted tail
+        out.append(idx)
+    return _Pair(*out)
 
 
 @pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
@@ -66,6 +93,20 @@ def _requests(qtype, rtype, realtime=True, offset=0, length=10):
     return [st.SearchRequest(query=q, offset=offset, length=length,
                              result_type=rtype, realtime=realtime,
                              query_type_default=qtype) for q in QUERIES]
+
+
+def _to_port(x):
+    """A request (or one of its fields) as the port's own types: the same
+    values, enums by value."""
+    if isinstance(x, enum.Enum):
+        return getattr(pt, type(x).__name__)(x.value)
+    if isinstance(x, list):
+        return [_to_port(y) for y in x]
+    if dataclasses.is_dataclass(x):
+        return getattr(pt, type(x).__name__)(**{
+            f.name: _to_port(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
 
 
 def _pages(search, idx, reqs, monkeypatch, route=None, **env):
@@ -82,12 +123,12 @@ def _pages(search, idx, reqs, monkeypatch, route=None, **env):
 
 
 def _reference(idx, reqs, monkeypatch, route=None, **env):
-    return _pages(st.search_batch, idx, reqs, monkeypatch, route, **env)
+    return _pages(st.search_batch, idx.ref, reqs, monkeypatch, route, **env)
 
 
 def _port(idx, reqs, monkeypatch, route=None, **env):
-    return _pages(lambda i, r: pt.search_batch(i, r, device="cpu"), idx,
-                  reqs, monkeypatch, route, **env)
+    return _pages(lambda i, r: pt.search_batch(i, r, device="cpu"), idx.port,
+                  _to_port(reqs), monkeypatch, route, **env)
 
 
 class _Calls:
@@ -222,8 +263,9 @@ def test_pruned_plan_escalates(index, mode, monkeypatch):
         monkeypatch.setattr(mod, "PRUNE_BLOCKS", 1)
         monkeypatch.setattr(mod, "QT_MIN_BLOCKS", 1 if mode == "qt" else 99)
     # fresh adaptive-pruning samples in both packages
-    monkeypatch.delitem(index.__dict__, "_torch_route_stats", raising=False)
-    monkeypatch.setattr(index, "_prune_stats", [0, 0], raising=False)
+    monkeypatch.delitem(index.port.__dict__, "_torch_route_stats",
+                        raising=False)
+    monkeypatch.setattr(index.ref, "_prune_stats", [0, 0], raising=False)
     # a phrase needs full coverage: none here
     reqs = [r for r in _requests(st.QueryType.Union, st.ResultType.Topk)
             if '"' not in r.query]
@@ -240,11 +282,13 @@ def test_pruned_plan_escalates(index, mode, monkeypatch):
 def test_exact_pages_match_search(index):
     """exact_pages (the host exact evaluation that chip_smoke.py holds the
     device pages against) gives the WAND path's committed pages."""
-    reqs = [r for r in _requests(st.QueryType.Union, st.ResultType.TopkCount,
-                                 realtime=False) if '"' not in r.query]
-    mine = pt.search_batch(index, reqs, device="cpu")
+    reqs = _to_port([r for r in _requests(st.QueryType.Union,
+                                          st.ResultType.TopkCount,
+                                          realtime=False)
+                     if '"' not in r.query])
+    mine = pt.search_batch(index.port, reqs, device="cpu")
     for rs, (count, gids, scores) in zip(
-            mine, pt.exact_pages(index, reqs, device="cpu")):
+            mine, pt.exact_pages(index.port, reqs, device="cpu")):
         ref = pt.ResultSet(result_count_total=count, results=[
             pt.ResultObject(doc_id=g, score=s) for g, s in zip(gids, scores)])
         assert _Page(rs) == _Page(ref)
@@ -253,60 +297,76 @@ def test_exact_pages_match_search(index):
 
 def test_single_search_and_empty_queries(index, monkeypatch):
     req = st.SearchRequest(query="w001 w002", length=5)
-    assert _Page(pt.search(index, req, device="cpu")) == \
+    assert _Page(pt.search(index.port, _to_port(req), device="cpu")) == \
         _reference(index, [req], monkeypatch, "wand")[0]
     reqs = [st.SearchRequest(query="", length=5),
             st.SearchRequest(query="zzzunknown", length=5),
             st.SearchRequest(query="-w001", length=5)]
-    mine = [_Page(rs) for rs in pt.search_batch(index, reqs, device="cpu")]
+    mine = [_Page(rs) for rs in pt.search_batch(index.port, _to_port(reqs),
+                                                device="cpu")]
     assert mine == _reference(index, reqs, monkeypatch, "wand")
 
 
 def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
     """The port keys its device state (WAND pools, dense arrays) on the
-    committed state, not on index._device_dirty, which the reference's
-    search clears.  Both routes, each on an index of its own."""
+    committed state: a delete or a commit after a search is seen by the
+    next one.  Both routes, each on an index pair of its own."""
     for route in ("wand", "dense"):
         idx = _build(tmp_path / route, 1, n=9_000, tail=0)
-        req = [st.SearchRequest(query="w001 w002", length=10,
-                                result_type=st.ResultType.TopkCount)]
+        req = [pt.SearchRequest(query="w001 w002", length=10,
+                                result_type=pt.ResultType.TopkCount)]
         monkeypatch.setenv(ROUTE_ENV[route], "1")
-        before = pt.search_batch(idx, req, device="cpu")[0]
+        before = pt.search_batch(idx.port, req, device="cpu")[0]
         victims = [r.doc_id for r in before.results[:3]]
-        idx.delete_documents(victims)
-        st.search_batch(idx, req)                # clears _device_dirty
-        after = pt.search_batch(idx, req, device="cpu")[0]
+        for i in (idx.ref, idx.port):
+            i.delete_documents(victims)
+        after = pt.search_batch(idx.port, req, device="cpu")[0]
         assert after.result_count_total == before.result_count_total - 3
         assert not set(victims) & {r.doc_id for r in after.results}
-        idx.index_documents(_docs(3_000, 9))
-        idx.commit()
-        ref = st.search_batch(idx, req)[0]
-        grown = pt.search_batch(idx, req, device="cpu")[0]
+        for i in (idx.ref, idx.port):
+            i.index_documents(_docs(3_000, 9))
+            i.commit()
+        ref = st.search_batch(idx.ref, [st.SearchRequest(
+            query="w001 w002", length=10,
+            result_type=st.ResultType.TopkCount)])[0]
+        grown = pt.search_batch(idx.port, req, device="cpu")[0]
         assert _Page(grown) == _Page(ref), route
         assert grown.result_count_total > after.result_count_total
         monkeypatch.delenv(ROUTE_ENV[route])
 
 
 def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
-    """Host paths the port takes over unchanged: the frequent-word warmup
-    cache (filled by commit) and query rewriting (spelling/completion)."""
-    meta = st.IndexMeta(
-        frequent_words=st.FrequentwordType.English,
-        spelling_correction=st.SpellingCorrection(
-            max_dictionary_edit_distance=2, count_threshold=1),
-        query_completion=st.QueryCompletion(max_completion_entries=10_000))
-    schema = [st.SchemaField("t", st.FieldType.Text, stored=True,
-                             indexed=True, dictionary_source=True,
-                             completion_source=True)]
-    idx = st.create_index(tmp_path / "ix", schema, meta=meta)
+    """Host paths the port copies: the frequent-word warmup cache (filled
+    by commit, through the port's search_batch on the port's side) and
+    query rewriting (spelling/completion)."""
     words = [f"wordstem{i:03d}" for i in range(80)]
-    idx.index_documents([
-        {"t": " ".join(["the"] * (i % 3 + 1)
-                       + [words[(i + j) % 80] for j in range(4)])}
-        for i in range(600)])
-    idx.commit()
-    assert idx._warmup_cache
-    word = next(iter(idx.spell.words))
+    docs = [{"t": " ".join(["the"] * (i % 3 + 1)
+                           + [words[(i + j) % 80] for j in range(4)])}
+            for i in range(600)]
+    both = []
+    for pkg in (st, pt):
+        meta = pkg.IndexMeta(
+            frequent_words=pkg.FrequentwordType.English,
+            spelling_correction=pkg.SpellingCorrection(
+                max_dictionary_edit_distance=2, count_threshold=1),
+            query_completion=pkg.QueryCompletion(
+                max_completion_entries=10_000))
+        schema = [pkg.SchemaField("t", pkg.FieldType.Text, stored=True,
+                                  indexed=True, dictionary_source=True,
+                                  completion_source=True)]
+        i = _create(pkg, tmp_path, schema, meta=meta)
+        i.index_documents(docs)
+        i.commit()
+        both.append(i)
+    idx = _Pair(*both)
+    assert idx.port._warmup_cache
+    assert idx.port._warmup_cache.keys() == idx.ref._warmup_cache.keys()
+    for h, (sc, gid, total) in idx.port._warmup_cache.items():
+        rsc, rgid, rtotal = idx.ref._warmup_cache[h][:3]
+        assert total == rtotal
+        np.testing.assert_array_equal(gid, rgid)
+        np.testing.assert_allclose(sc, rsc, rtol=3e-5)
+    word = next(iter(idx.ref.spell.words))
     typo = word[:-1] + ("x" if word[-1] != "x" else "y")
     reqs = [st.SearchRequest(query="the", realtime=False),
             st.SearchRequest(query=typo, query_rewriting={
@@ -316,28 +376,36 @@ def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
             st.SearchRequest(query=typo, query_rewriting={
                 "SuggestOnly": {"correct": 2, "complete": 2}})]
     for req in reqs:
-        mine = pt.search(idx, req, device="cpu")
+        mine = pt.search(idx.port, _to_port(req), device="cpu")
         monkeypatch.setenv("SEEKSTORM_TPU_WAND", "1")
-        ref = st.search(idx, req)
+        ref = st.search(idx.ref, req)
         monkeypatch.delenv("SEEKSTORM_TPU_WAND")
         assert _Page(mine) == _Page(ref)
         assert mine.suggestions == ref.suggestions
-    assert pt.search(idx, reqs[1], device="cpu").result_count_total > 0
+    assert pt.search(idx.port, _to_port(reqs[1]),
+                     device="cpu").result_count_total > 0
 
 
 def test_reference_index_methods_untouched():
+    """Each package binds Index.search/search_batch to its own functions,
+    on its own Index class."""
+    assert st.Index is not pt.Index
     assert st.Index.search.__code__.co_filename.endswith(
         os.path.join("seekstorm_tpu", "search.py"))
+    assert pt.Index.search_batch.__code__.co_filename.endswith(
+        os.path.join("seekstorm_tpu_torch", "search.py"))
     assert st.search_batch is not pt.search_batch
 
 
-def test_cuda_without_card_raises(index):
+def test_cuda_without_card_raises(index, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the check is for hosts without it")
     with pytest.raises(RuntimeError, match="CUDA"):
-        pt.search_batch(index, [st.SearchRequest(query="w001")])
+        pt.search_batch(index.port, [pt.SearchRequest(query="w001")])
     with pytest.raises(RuntimeError, match="CUDA"):
-        pt.search(index, st.SearchRequest(query="w001"), device="cuda")
+        pt.search(index.port, pt.SearchRequest(query="w001"), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.create_index(tmp_path / "ix", _schema(pt))
 
 
 @pytest.mark.parametrize("kw, served", [
@@ -363,36 +431,52 @@ def test_out_of_scope_raises(index, kw, served, monkeypatch):
         assert mine[0].count > 0
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.search_batch(index, [req], device="cpu")
+        pt.search_batch(index.port, [_to_port(req)], device="cpu")
 
 
-_NO_JAX = r"""
+# refuses jax and the JAX package (seekstorm_tpu, not seekstorm_tpu_torch)
+BLOCK_JAX = r"""
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if (name in ("jax", "seekstorm_tpu")
+                or name.startswith(("jax.", "jaxlib", "seekstorm_tpu."))):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
+"""
+
+_NO_JAX = BLOCK_JAX + r"""
 import seekstorm_tpu_torch as pt
 idx = pt.create_index(sys.argv[1], [
     pt.SchemaField("title", pt.FieldType.Text, indexed=True, boost=10.0),
-    pt.SchemaField("body", pt.FieldType.Text, indexed=True)])
+    pt.SchemaField("body", pt.FieldType.Text, indexed=True)], device="cpu")
 idx.index_documents([{"title": f"t{i % 7} x", "body": f"b{i % 13} y"}
                      for i in range(2000)])
 idx.commit()
 idx.index_documents([{"title": "t1 tail", "body": "b2"}])
-rs = pt.search_batch(idx, [pt.SearchRequest(query="t1 b2", length=5)],
-                     device="cpu")[0]
+req = [pt.SearchRequest(query="t1 b2", length=5)]
+rs = pt.search_batch(idx, req, device="cpu")[0]
 assert rs.result_count_total > 0 and len(rs.results) == 5, rs
-assert "jax" not in sys.modules
+reopened = pt.open_index(sys.argv[1], device="cpu")
+again = reopened.search_batch(req)[0]
+assert again.result_count_total == rs.result_count_total - 1, again
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")]
 print("ok", rs.result_count_total)
 """
 
 
-def test_port_runs_without_jax(tmp_path):
+def _run_blocked(script, *args):
+    """Run `script` in a fresh interpreter at the repository root."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
-    out = subprocess.run([sys.executable, "-c", _NO_JAX, str(tmp_path / "ix")],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=300)
+    return subprocess.run([sys.executable, "-c", script, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Index, commit, reopen and search with jax and seekstorm_tpu
+    blocked; no module of either is loaded at the end."""
+    out = _run_blocked(_NO_JAX, str(tmp_path / "ix"))
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")

@@ -1,6 +1,6 @@
 """WAND device layer of the torch port (seekstorm_tpu_torch/ops/wand.py)
 against the JAX reference (seekstorm_tpu/ops/wand.py) on a real two-shard
-index with deletes.
+index with deletes, built by each package from the same documents.
 
   * pools: the port's WandState equals the reference's after ensure_slots
     on the same terms, bit for bit;
@@ -21,11 +21,14 @@ import torch
 
 import bench
 import seekstorm_tpu as st
+import seekstorm_tpu_torch as pt
 from seekstorm_tpu.schema import BLOCK_SIZE
-from seekstorm_tpu.search import _build_specs, _shard_idf
+from seekstorm_tpu.search import _build_specs
 from seekstorm_tpu_torch.ops import wand as pw
+from test_torch_search import _Pair, _create
 
 wand_mod = importlib.import_module("seekstorm_tpu.ops.wand")
+ps = importlib.import_module("seekstorm_tpu_torch.search")
 
 RTOL = 3e-7
 
@@ -33,18 +36,24 @@ RTOL = 3e-7
 @pytest.fixture(scope="module")
 def index(tmp_path_factory):
     """bench.py's bursty zipf corpus (varied bucket maxima, so most pages
-    terminate on the device ladder and some escalate)."""
-    schema = [
-        st.SchemaField("title", st.FieldType.Text, indexed=True, boost=10.0),
-        st.SchemaField("body", st.FieldType.Text, indexed=True),
-    ]
-    idx = st.create_index(tmp_path_factory.mktemp("tw") / "ix", schema,
-                          shard_count=2)
-    idx.index_documents(bench.make_corpus(BLOCK_SIZE + 6_000, 3_000,
-                                          np.random.default_rng(7)))
-    idx.commit()
-    idx.delete_documents(list(range(0, 40_000, 97)))
-    return idx
+    terminate on the device ladder and some escalate), a reference and a
+    port index."""
+    path = tmp_path_factory.mktemp("tw")
+    docs = bench.make_corpus(BLOCK_SIZE + 6_000, 3_000,
+                             np.random.default_rng(7))
+    both = []
+    for pkg in (st, pt):
+        schema = [
+            pkg.SchemaField("title", pkg.FieldType.Text, indexed=True,
+                            boost=10.0),
+            pkg.SchemaField("body", pkg.FieldType.Text, indexed=True),
+        ]
+        idx = _create(pkg, path, schema, shard_count=2)
+        idx.index_documents(docs)
+        idx.commit()
+        idx.delete_documents(list(range(0, 40_000, 97)))
+        both.append(idx)
+    return _Pair(*both)
 
 
 QUERIES = [q for q, _ in bench.make_queries(40, np.random.default_rng(1))] + [
@@ -56,15 +65,16 @@ QUERIES = [q for q, _ in bench.make_queries(40, np.random.default_rng(1))] + [
 def batch(index):
     """The port's batch tables for QUERIES, and the reference WandState
     built on the same terms."""
-    slots, specs = _build_specs(index, QUERIES,
-                                [st.QueryType.Union] * len(QUERIES))
-    idf = np.stack([_shard_idf(sh, slots, False) for sh in index.shards])
-    state = pw.WandState(index, "cpu")
+    slots, specs = ps._build_specs(index.port, QUERIES,
+                                   [pt.QueryType.Union] * len(QUERIES))
+    idf = np.stack([ps._shard_idf(sh, slots, False)
+                    for sh in index.port.shards])
+    state = pw.WandState(index.port, "cpu")
     with state.lock:
         slotmap, tslot, treq, tneg, wsh, _ = pw.plan_batch(
             state, slots, specs, idf)
     used = sorted({s for sp in specs for s in sp.slots})
-    jstate = wand_mod.WandState(index, None)
+    jstate = wand_mod.WandState(index.ref, None)
     jstate.ensure_slots([slots[s].hash for s in used])
     return dict(state=state, jstate=jstate, slotmap=slotmap, tslot=tslot,
                 treq=treq, tneg=tneg, wsh=wsh)
@@ -119,12 +129,12 @@ def test_pools_match_reference(index, batch):
 
 def test_pools_grow_like_reference(index):
     """Two rounds of ensure_slots: the second grows every pool."""
-    slots, _ = _build_specs(index, [" ".join(f"w{i:05d}" for i in range(
+    slots, _ = _build_specs(index.ref, [" ".join(f"w{i:05d}" for i in range(
         40 * r, 40 * r + 40)) for r in range(3)],
         [st.QueryType.Union] * 3)
     hashes = [s.hash for s in slots]
-    state = pw.WandState(index, "cpu")
-    jstate = wand_mod.WandState(index, None)
+    state = pw.WandState(index.port, "cpu")
+    jstate = wand_mod.WandState(index.ref, None)
     for part in (hashes[:5], hashes):
         state.ensure_slots(part)
         jstate.ensure_slots(part)
@@ -151,9 +161,9 @@ def test_rung_topks_match_reference(index, batch, source):
     if source == "index":
         state = batch["state"]
         NBLK = state.nblk
-        allub, _ = pw.scan_ub(state.ppool, state.vpool, state.sp_prow,
-                              state.delw_dev, state.sid_dev, *_tq(batch),
-                              with_counts=False)
+        allub = pw.scan_ub(state.ppool, state.vpool, state.sp_prow,
+                           state.delw_dev, state.sid_dev, *_tq(batch),
+                           with_counts=False)[0]
     else:
         rng = np.random.default_rng(4)
         NBLK = 3

@@ -7,11 +7,14 @@ random synthetic pools with
 
   * the Pallas kernel wand_pallas.scan_blocks in interpret mode, and
   * the XLA step of wand.wand_scan (PALLAS=0), through phase 2's rung
-    tables.
+    tables ranked on the scan's own rung maxima.
 
 Counts must be exact.  UBs must have the same -inf pattern and agree
 within rtol 3e-7, the reference's own bound between its two
-implementations (XLA may contract a mul+add into an fma).
+implementations (XLA may contract a mul+add into an fma).  The rung maxima
+the scan returns beside the UBs (ub4, ub16, g1) are maxima, so they must
+equal the maxima of its own UBs bit for bit, and phase 2 ranked on them
+must equal phase 2 reducing the UBs itself.
 """
 
 import importlib
@@ -82,6 +85,7 @@ def _t(x):
 
 
 def _port_scan(d, with_counts=True):
+    """(allub, cnt, ub4, ub16, g1) of the port's phase 1 on d."""
     prow = d["sp_prow"].T.copy()            # identity slotmap
     return ws.scan_blocks(
         _t(d["ppool"]), _t(d["vpool"]), _t(prow), _t(d["delw"]),
@@ -104,7 +108,7 @@ CASES = [(2, False), (2, True), (4, False), (4, True), (8, False), (8, True)]
 @pytest.mark.parametrize("T,with_filter", CASES)
 def test_plain_scan_matches_pallas_interpret(T, with_filter):
     d = _synth(np.random.default_rng(3 + T), T=T, with_filter=with_filter)
-    allub, cnt = _port_scan(d)
+    allub, cnt, *_ = _port_scan(d)
     V = d["sp_prow"].shape[0]
     Bq = d["tslot"].shape[0]
     w_blk = np.transpose(d["wsh"][d["sid"]], (0, 2, 1))
@@ -126,8 +130,8 @@ def test_plain_scan_matches_xla_step(T):
     through phase 2: counts exact, rung UBs within rtol, and the selected
     regions equal wherever the UBs are untied."""
     d = _synth(np.random.default_rng(5 + T), T=T)
-    allub, cnt = _port_scan(d)
-    rungs = pw._rung_topks(allub, d["sp_prow"].shape[1])
+    allub, cnt, *maxima = _port_scan(d)
+    rungs = pw._rung_topks(allub, d["sp_prow"].shape[1], maxima)
     V = d["sp_prow"].shape[0]
     Bq = d["tslot"].shape[0]
     S = d["wsh"].shape[0]
@@ -160,10 +164,51 @@ def test_plain_scan_matches_xla_step(T):
 
 def test_counts_off_gives_zeros_and_same_ub():
     d = _synth(np.random.default_rng(2), T=4)
-    ub1, cnt1 = _port_scan(d, with_counts=True)
-    ub0, cnt0 = _port_scan(d, with_counts=False)
+    ub1, cnt1, *m1 = _port_scan(d, with_counts=True)
+    ub0, cnt0, *m0 = _port_scan(d, with_counts=False)
     assert int(cnt0.abs().sum()) == 0 and int(cnt1.sum()) > 0
-    assert torch.equal(ub0.view(torch.int32), ub1.view(torch.int32))
+    for a, b in zip([ub0, *m0], [ub1, *m1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("T,with_filter", CASES)
+def test_scan_maxima_are_amax_of_allub(T, with_filter):
+    """ub4 / ub16 / g1: the maxima of allub over 4, 16 and 128 consecutive
+    buckets of a query's row, bit for bit (numpy, independent of
+    rung_maxima)."""
+    d = _synth(np.random.default_rng(11 + T), T=T, with_filter=with_filter)
+    allub, _, ub4, ub16, g1 = [x.numpy() for x in _port_scan(d)]
+    Bq, L1 = allub.shape
+    assert np.isfinite(allub).any() and np.isneginf(allub).any()
+    for got, width in ((ub4, 4), (ub16, 16), (g1, 128)):
+        want = allub.reshape(Bq, L1 // width, width).max(axis=2)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_rung_topks_take_scan_maxima(T):
+    """Phase 2 ranked on the scan's maxima equals phase 2 reducing allub
+    itself, values and region ids bit for bit, and matches the reference's
+    rung tables on the same UBs."""
+    d = _synth(np.random.default_rng(17 + T), T=T)
+    allub, _, *maxima = _port_scan(d)
+    NBLK = d["sp_prow"].shape[1]
+    given = pw._rung_topks(allub, NBLK, maxima)
+    reduced = pw._rung_topks(allub, NBLK)
+    ref = wand_mod._rung_topks(jnp.asarray(allub.numpy()), NBLK)
+    for (gv, gi), (rv, ri), (jv, ji) in zip(given, reduced, ref):
+        assert torch.equal(gv.view(torch.int32), rv.view(torch.int32))
+        assert torch.equal(gi, ri)
+        np.testing.assert_array_equal(_bits(gv), _bits(jv))
+        untied = np.isfinite(np.asarray(jv))
+        untied[:, 1:] &= np.asarray(jv)[:, 1:] != np.asarray(jv)[:, :-1]
+        np.testing.assert_array_equal(gi.numpy()[untied],
+                                      np.asarray(ji)[untied])
 
 
 def test_popcount32_matches_numpy():
@@ -180,6 +225,24 @@ def test_tcodes_pack_slot_flags():
     treq = torch.tensor([[True, True], [False, False]])
     tneg = torch.tensor([[False, True], [True, False]])
     assert ws.tcodes(tslot, treq, tneg).tolist() == [[14, -4], [1, 20]]
+
+
+def test_k1_wrapper_checks_inputs_before_launch():
+    """wand_scan_cuda refuses a T it has no kernel for, a wrong shape and
+    a pool that is not 16-byte aligned before it builds or launches."""
+    d = _synth(np.random.default_rng(1))
+    args = dict(ppool=_t(d["ppool"]), vpool=_t(d["vpool"]),
+                prow=_t(d["sp_prow"].T.copy()), delw=_t(d["delw"]),
+                filtw=None, tslot=_t(d["tslot"]), treq=_t(d["treq"]),
+                tneg=_t(d["tneg"]), wshard=_t(d["wsh"]), sid=_t(d["sid"]))
+    PR = args["ppool"].shape[0]
+    moved = torch.zeros(PR * NW + 1, dtype=torch.float32)[1:].view(PR, NW)
+    bad = [("T in", dict(tslot=args["tslot"][:, :1].contiguous())),
+           ("vpool", dict(vpool=args["vpool"][:, :NW // 2].contiguous())),
+           ("vpool must be 16-byte aligned", dict(vpool=moved))]
+    for what, change in bad:
+        with pytest.raises(ValueError, match=what):
+            ws.wand_scan_cuda(**{**args, **change})
 
 
 def test_scan_refuses_other_devices():

@@ -32,12 +32,20 @@ Phases, each printing what it found:
              SEEKSTORM_TPU_WAND_DEFER_DENSE=1 there, so its stragglers take
              the dense path as well), and 64 queries with realtime=False
              the same pages as the host exact evaluation;
-  6. K2:     K2 against its plain PyTorch version on every (block, query)
-             pair of the 2,048-query TopkCount batch's dense plan: scores
-             bitwise equal, counts equal, both times (CUDA events), bound
-             and share on one tile of 1,024 pairs;
+  6. K2:     K2 against its plain PyTorch versions on every (block,
+             query) pair of the 2,048-query TopkCount batch's dense plan:
+             the unfused mode (masked scores) tile by tile, scores bitwise
+             equal and counts equal; the fused mode (the per-pair top-kk
+             in the kernel) at kk=10 and 128 in one launch at each split
+             (CTAs a pair), values bitwise equal, docs equal at every
+             finite entry, -inf pattern and counts equal; at 1,024 pairs,
+             the whole plan and the serve batch's straggler pairs (kk=16):
+             the fused time at each split and at the wrapper's default,
+             the yardstick (unfused K2 + topk_block(16), tile by tile),
+             the plain time, the fused bound and its share;
   7. dense:  the same batches with SEEKSTORM_TPU_NO_WAND=1 (the dense
-             path): K2 must have launched; pages equal to the WAND route's
+             path): K2 must have launched, once for the TopkCount batch
+             (fused mode); pages equal to the WAND route's
              (counts exact, scores within rtol 3e-5, membership per score
              cluster); warm batch latency and the device's kernel time by
              name (torch.profiler); 256 queries must give the same pages on
@@ -229,9 +237,7 @@ def k1_bound(torch, args, with_maxima=True):
              + Bq * 4)
     nc = min(T, 3)
     ops = Bq * words * (T + ((1 << nc) - 1) * T)
-    t_bytes = (read + write) / HBM_BYTES_S * 1e3
-    t_ops = ops / F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(read + write, ops)
 
 
 def check_k1(torch, args, tag):
@@ -423,8 +429,9 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     _print_split("serve", lat, snap0, snap1)
     _profile(lambda: st.search_batch(idx, reqs(st.ResultType.TopkCount),
                                      device=device))
-    device_kernels(torch, "serve", lambda: st.search_batch(
-        idx, reqs(st.ResultType.TopkCount), device=device), top=16)
+    with _recording_scans() as stragglers:
+        device_kernels(torch, "serve", lambda: st.search_batch(
+            idx, reqs(st.ResultType.TopkCount), device=device), top=16)
 
     # K1 at this batch's own shapes (pools, rows and tables of the serve
     # path); these launches come after the count above was read
@@ -473,7 +480,27 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
           f"{bad[:5]}")
     check(not bad, "device pages differ from the host exact evaluation")
     return dict(k1_launches=launches, k1=k1_serve, topk=topk, topkc=topkc,
-                queries=queries)
+                queries=queries, stragglers=stragglers)
+
+
+class _recording_scans:
+    """Within the block, keeps the (arrays, pairs, k, n_queries) of every
+    dense scan the batch makes (ops/lexical.scan_pairs), as a list."""
+
+    def __enter__(self):
+        from seekstorm_tpu_torch.ops import lexical as lx
+
+        self.lx, self.orig, self.calls = lx, lx.scan_pairs, []
+
+        def rec(arrays, pairs, k, n_queries):
+            self.calls.append((arrays, pairs, k, n_queries))
+            return self.orig(arrays, pairs, k, n_queries)
+
+        lx.scan_pairs = rec
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.lx.scan_pairs = self.orig
 
 
 def _print_split(tag, lat, snap0, snap1):
@@ -523,35 +550,96 @@ def _same_pages(a, b, rtol=PAGE_RTOL):
 
 
 def k2_bound(torch, part, n_queries):
-    """K2's least time on an H100 for one tile of pairs, in ms, and what
-    sets it: the bytes it must move once (the distinct CSR-remainder
-    segments the pairs name, 2-byte docid and 4-byte impact a posting, the
-    distinct bitmap rows, sat1 and the delete words of each distinct block,
-    the pair tables; the masked scores written, 4 bytes a doc of every
-    pair, and the counts) over the HBM rate, against its f32 operations
-    (an fma a CSR posting, an add a bitmap slot and doc, the final fma a
-    doc) over the f32 peak."""
+    """K2's unfused mode's least time on an H100 for these pairs, in ms,
+    and what sets it: the bytes it must move once (the distinct
+    CSR-remainder segments the pairs name, 2-byte docid and 4-byte impact
+    a posting, the distinct bitmap rows, sat1 and the delete words of each
+    distinct block, the pair tables; the masked scores written, 4 bytes a
+    doc of every pair, and the counts) over the HBM rate, against its f32
+    operations (an fma a CSR posting, an add a bitmap slot and doc, the
+    final fma a doc) over the f32 peak."""
     p_blk, _, _, s_off, s_len, s_bm = part[:6]
     doc = 1 << 16
-    seg = s_len > 0
-    offs, first = torch.unique(s_off[seg], return_inverse=True)
-    seg_len = torch.zeros(len(offs), dtype=torch.int64, device=s_len.device)
-    seg_len.scatter_reduce_(0, first, s_len[seg].long(), "amax")
     n_bm = len(torch.unique(s_bm[s_bm >= 0]))
     n_blk = len(torch.unique(p_blk))
     P = p_blk.shape[0]
-    read = (int(seg_len.sum()) * 6 + n_bm * NW * 4
+    read = (_segment_postings(torch, s_off, s_len) * 6 + n_bm * NW * 4
             + n_blk * (doc * 4 + NW * 4)
             + sum(x.numel() * x.element_size() for x in part))
     write = P * doc * 4 + n_queries * 4
     ops = int(s_len.sum()) * 2 + int((s_bm >= 0).sum()) * doc + P * doc * 2
-    t_bytes = (read + write) / HBM_BYTES_S * 1e3
+    return _bound(read + write, ops)
+
+
+def _segment_postings(torch, s_off, s_len):
+    """Postings in the distinct CSR segments the pairs name."""
+    seg = s_len > 0
+    offs, first = torch.unique(s_off[seg], return_inverse=True)
+    seg_len = torch.zeros(len(offs), dtype=torch.int64, device=s_len.device)
+    seg_len.scatter_reduce_(0, first, s_len[seg].long(), "amax")
+    return int(seg_len.sum())
+
+
+def _bound(n_bytes, ops):
+    """The least time in ms for n_bytes moved once and ops f32 operations,
+    and which of the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_k2(torch, st, idx, queries):
-    """K2 against dense_scan_ref on every pair of the batch's dense plan."""
+def k2_fused_bound(torch, arrays, part, n_queries, kk):
+    """K2's fused mode's least time on an H100 for these pairs, in ms, and
+    what sets it.  Bytes moved once: the distinct CSR segments (6 bytes a
+    posting), the distinct bitmap rows, the delete words of each distinct
+    block, sat1 of each distinct block that some pair's bitmap slot needs,
+    the pair tables; written, kk values and docs (4 + 8 bytes) a pair and
+    the counts.  Operations: an fma a CSR posting, an add a set bit of a
+    pair's bitmap slots, and one operation a doc of every pair (the match
+    test and the key, the selection counted in it)."""
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+
+    bitmaps = arrays[2]
+    p_blk, _, _, s_off, s_len, s_bm = part[:6]
+    doc = 1 << 16
+    rows = torch.unique(s_bm[s_bm >= 0])
+    bits = torch.zeros(bitmaps.shape[0], dtype=torch.int64,
+                       device=bitmaps.device)
+    for a in range(0, len(rows), 256):
+        r = rows[a:a + 256].long()
+        bits[r] = ds.unpack_words(bitmaps[r]).sum(dim=1)
+    set_bits = int(bits[s_bm[s_bm >= 0].long()].sum())
+    n_blk = len(torch.unique(p_blk))
+    n_blk_bm = len(torch.unique(p_blk[(s_bm >= 0).any(dim=1)]))
+    P = p_blk.shape[0]
+    read = (_segment_postings(torch, s_off, s_len) * 6 + len(rows) * NW * 4
+            + n_blk * NW * 4 + n_blk_bm * doc * 4
+            + sum(x.numel() * x.element_size() for x in part))
+    write = P * kk * 12 + n_queries * 4
+    ops = int(s_len.sum()) * 2 + set_bits + P * doc
+    return _bound(read + write, ops)
+
+
+def _check_fused(torch, got, want, tag):
+    """K2's fused outputs against the plain version's: the -inf pattern
+    equal, finite values bitwise equal, docs equal at every finite entry
+    (-1 past the last match in both), counts equal."""
+    (v, d, c), (vr, dr, cr) = got, want
+    fin = torch.isfinite(vr)
+    check(torch.equal(fin, torch.isfinite(v)), f"K2 -inf pattern ({tag})")
+    err = float((v[fin] - vr[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(torch.equal(v[fin].view(torch.int32), vr[fin].view(torch.int32)),
+          f"K2 fused values not bitwise equal ({tag}, max abs err {err})")
+    check(torch.equal(d[fin], dr[fin]), f"K2 fused docs differ ({tag})")
+    check(bool((d[~fin] == -1).all()) and bool((dr[~fin] == -1).all()),
+          f"K2 fill docs ({tag})")
+    check(torch.equal(c, cr), f"K2 fused counts differ ({tag})")
+    return err, int(fin.sum())
+
+
+def phase_k2(torch, st, idx, queries, stragglers):
+    """K2 against its plain versions on every pair of the batch's dense
+    plan, in both modes; times and bounds at three shapes."""
     import numpy as np
 
     from seekstorm_tpu_torch.ops import dense_scan as ds
@@ -565,45 +653,109 @@ def phase_k2(torch, st, idx, queries):
     tables = stacked.pair_tables(plans)
     pairs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
              for x in tables[:8]]
+    arrays = stacked.arrays
     P, T = pairs[3].shape
-    tile = lx.TILE_PAIRS
+    tile = ds.TILE_PAIRS
     B = len(queries)
-    err, cnt_k, cnt_r, finite = 0.0, 0, 0, 0
+
+    # unfused mode, tile by tile, bitwise
+    err_u, cnt_k, finite = 0.0, 0, 0
     for a in range(0, P, tile):
         part = [x[a:a + tile] for x in pairs]
-        out_k, ck = ds.dense_scan_cuda(*stacked.arrays, *part, B)
-        out_r, cr = ds.dense_scan_ref(*stacked.arrays, *part, B)
+        out_k, ck = ds.dense_scan_cuda(*arrays, *part, B)
+        out_r, cr = ds.dense_scan_ref(*arrays, *part, B)
         torch.cuda.synchronize()
         fin = torch.isfinite(out_r)
         check(torch.equal(fin, torch.isfinite(out_k)),
               f"K2 match pattern differs in pairs {a}..{a + tile}")
         if bool(fin.any()):
-            err = max(err, float((out_k[fin] - out_r[fin]).abs().max()))
+            err_u = max(err_u, float((out_k[fin] - out_r[fin]).abs().max()))
         check(torch.equal(out_k.view(torch.int32), out_r.view(torch.int32)),
               f"K2 scores not bitwise equal in pairs {a}..{a + tile} "
-              f"(max abs err {err})")
+              f"(max abs err {err_u})")
         check(torch.equal(ck, cr), f"K2 counts differ in pairs {a}..")
         cnt_k += int(ck.sum())
-        cnt_r += int(cr.sum())
         finite += int(fin.sum())
         del out_k, out_r
-    part = [x[:tile] for x in pairs]
-    ms = _median_ms(torch, lambda: ds.dense_scan_cuda(*stacked.arrays,
-                                                      *part, B))
-    plain_ms = _median_ms(torch, lambda: ds.dense_scan_ref(*stacked.arrays,
-                                                           *part, B),
-                          n=2, rounds=3)
-    sc, _ = ds.dense_scan_cuda(*stacked.arrays, *part, B)
-    topk_ms = _median_ms(torch, lambda: lx.topk_block(sc, 16))
-    bound, by = k2_bound(torch, part, B)
-    print(f"[K2] {P} pairs (T={T}) of the {B}-query TopkCount plan "
-          f"({len(plans[0].block_ids)} blocks): scores bitwise equal "
-          f"({finite} matched docs), counts equal ({cnt_k} matches); one "
-          f"tile of {tile} pairs: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of bound, "
-          f"its top-16 (torch sorts) {topk_ms:.3f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, pairs=P, T=T)
+    print(f"[K2] unfused mode, {P} pairs (T={T}) of the {B}-query TopkCount "
+          f"plan ({len(plans[0].block_ids)} blocks), tiles of {tile}: "
+          f"scores bitwise equal ({finite} matched docs), counts equal "
+          f"({cnt_k} matches)")
+
+    # fused mode, one launch for every pair, at each split
+    err = 0.0
+    for kk in (10, 128):
+        want = ds.dense_topk_ref(*arrays, *pairs, B, kk)
+        for split in ds.SPLITS:
+            got = ds.dense_topk_cuda(*arrays, *pairs, B, kk, split=split)
+            torch.cuda.synchronize()
+            e, n_fin = _check_fused(torch, got, want,
+                                    f"kk={kk} split={split}")
+            err = max(err, e)
+        del want, got
+        print(f"[K2] fused mode, kk={kk}, all {P} pairs in one launch at "
+              f"splits {ds.SPLITS}: values bitwise equal, docs equal "
+              f"({n_fin} finite entries), -inf pattern and counts equal")
+
+    # times: 1,024 pairs, the whole plan, the serve batch's stragglers
+    shapes = [("1,024 pairs", arrays, [x[:tile] for x in pairs], B),
+              (f"all {P} pairs", arrays, pairs, B)]
+    for arr, spairs, _, n_q in stragglers[:1]:
+        shapes.append((f"stragglers ({spairs[0].shape[0]} pairs)", arr,
+                       spairs, n_q))
+    kk = 16
+    rows = {}
+    for name, arr, part, n_q in shapes:
+        n_p = part[0].shape[0]
+        if n_p:
+            for split in ds.SPLITS:  # one CTA a pair, or a cluster
+                got = ds.dense_topk_cuda(*arr, *part, n_q, kk, split=split)
+                _check_fused(torch, got, ds.dense_topk_ref(*arr, *part, n_q,
+                                                           kk),
+                             f"{name} split={split}")
+
+        def yardstick(arr=arr, part=part, n_q=n_q, with_topk=True):
+            for a in range(0, part[0].shape[0], tile):
+                sc, _ = ds.dense_scan_cuda(*arr, *[x[a:a + tile]
+                                                   for x in part], n_q)
+                if with_topk:
+                    ds.topk_block(sc, kk)
+
+        by_split = {
+            split: _median_ms(torch, lambda s=split: ds.dense_topk_cuda(
+                *arr, *part, n_q, kk, split=s))
+            for split in ds.SPLITS}
+        ms = _median_ms(torch, lambda: ds.dense_topk_cuda(*arr, *part, n_q,
+                                                          kk))
+        yard = _median_ms(torch, yardstick, n=5)
+        unfused = _median_ms(torch, lambda: yardstick(with_topk=False), n=5)
+        plain = _median_ms(torch, lambda: ds.dense_topk_ref(*arr, *part,
+                                                            n_q, kk),
+                           n=1, rounds=3)
+        bound, by = k2_fused_bound(torch, arr, part, n_q, kk)
+        ubound, _ = k2_bound(torch, part, n_q)
+        print(f"[K2] {name}, kk={kk}: fused K2 {ms:.4f} ms (splits "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in by_split.items())
+              + f"), unfused K2 + topk_block(16) {yard:.4f} ms (unfused "
+              f"K2 alone {unfused:.4f} ms), plain "
+              f"{plain:.3f} ms; fused bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of bound (the unfused mode's "
+              f"bound {ubound:.4f} ms)")
+        rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by=by)
+    # the torch top-k the fused mode replaces, alone on one tile's scores
+    sc, _ = ds.dense_scan_cuda(*arrays, *[x[:tile] for x in pairs], B)
+    topk_ms = _median_ms(torch, lambda: ds.topk_block(sc, kk))
+    n_p = sc.shape[0]
+    topk_bound, topk_by = _bound(sc.numel() * 4 + n_p * kk * 12,
+                                 sc.numel())
+    print(f"[K2] topk_block({kk}) of {n_p} pairs' masked scores: "
+          f"{topk_ms:.4f} ms, bound {topk_bound:.4f} ms ({topk_by}: each "
+          f"score read once, values and docs written), "
+          f"{100 * topk_bound / topk_ms:.1f}% of bound")
+    del sc
+    full = rows[f"all {P} pairs"]
+    return dict(err=max(err, err_u), pairs=P, T=T, **full)
 
 
 def _long_queries(n, rng):
@@ -665,15 +817,20 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
         t0 = time.perf_counter()
         topk = st.search_batch(idx, reqs(st.ResultType.Topk), device="cuda")
         t1 = time.perf_counter()
+        topk_launches = ds.LAUNCHES
+        ds.LAUNCHES = 0
         topkc = st.search_batch(idx, reqs(st.ResultType.TopkCount),
                                 device="cuda")
         t2 = time.perf_counter()
         launches, k1 = ds.LAUNCHES, ws.LAUNCHES
         print(f"[dense] {len(queries)} queries, SEEKSTORM_TPU_NO_WAND=1: "
               f"Topk batch {t1 - t0:.3f} s (cold: uploads the dense "
-              f"arrays), TopkCount batch {t2 - t1:.3f} s; K2 launches "
-              f"{launches}, K1 launches {k1}")
-        check(launches > 0 and k1 == 0, "the dense route did not run on K2")
+              f"arrays), K2 launches {topk_launches}; TopkCount batch "
+              f"{t2 - t1:.3f} s, K2 launches {launches} (fused, kk=16); "
+              f"K1 launches {k1}")
+        check(topk_launches > 0 and k1 == 0,
+              "the dense route did not run on K2")
+        check(launches == 1, "a kk <= 128 dense batch is one K2 launch")
         for tag, mine, ref in (("Topk", topk, served["topk"]),
                                ("TopkCount", topkc, served["topkc"])):
             bad = [(i, why) for i, (a, b) in enumerate(zip(mine, ref))
@@ -720,7 +877,8 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
             dt = time.perf_counter() - t0
             full = sum(len(r.results) == n_page for r in got)
             print(f"[dense] {len(rq)} queries, {tag}: {dt:.3f} s, "
-                  f"{full} full pages, K2 launches {ds.LAUNCHES}")
+                  f"{full} full pages, K2 launches {ds.LAUNCHES} "
+                  f"({'unfused' if tag.startswith('pages') else 'fused'})")
             check(ds.LAUNCHES > 0 and full > 0
                   and all(len(r.results) <= n_page
                           and np.isfinite([x.score for x in r.results]).all()
@@ -758,7 +916,8 @@ def main() -> int:
     k1 = phase_k1(torch)
     idx = phase_index(st)
     served = phase_serve(torch, st, idx)
-    k2 = phase_k2(torch, st, idx, served["queries"])
+    k2 = phase_k2(torch, st, idx, served["queries"],
+                  served["stragglers"])
     k2_launches = phase_dense(torch, st, idx, served)
     shutil.rmtree(WORK / "index", ignore_errors=True)
     check(not [m for m in sys.modules
@@ -784,7 +943,8 @@ def main() -> int:
         "name": "dense_scan_cuda",
         "route": "cuda",
         "source": "seekstorm_tpu_torch/csrc/dense_scan.cu",
-        "replaces": "seekstorm_tpu/ops/lexical.py:363",
+        "replaces": "seekstorm_tpu/ops/lexical.py:363, "
+                    "seekstorm_tpu/ops/lexical.py:327",
         "launches": k2_launches,
         "max_abs_err": k2["err"],
         "ms": k2["ms"],

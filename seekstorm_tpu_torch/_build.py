@@ -51,6 +51,8 @@ _SIGNATURES = {
         # docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off, s_len,
         # s_bm, s_w, s_flag, P, T, out, cnt, stream
         "dense_scan_launch": [_P] * 13 + [_I, _I, _P, _P, _P],
+        # the same inputs, P, T, kk, split, vals, docs, cnt, stream
+        "dense_topk_launch": [_P] * 13 + [_I] * 4 + [_P] * 4,
     },
 }
 

@@ -1,10 +1,10 @@
 """Dense impact-path block scan: kernel K2 (csrc/dense_scan.cu) and its
-plain PyTorch version.
+plain PyTorch versions.
 
 Replaces the XLA program ``seekstorm_tpu/ops/lexical.py::_block_step_imp``
 (363-476), as ``lexical_scan_imp`` (486-565) and ``lexical_scan_qt``
-(592-667) run it, and the per-block match count of ``lexical_scan_imp``
-(530-531).
+(592-667) run it, the per-block match count of ``lexical_scan_imp``
+(530-531) and the per-block top-k ``_topk_block`` (327-360).
 
 It scores a (block, query) pair list (``plan.DensePlan``): for each pair and
 each of the block's 65,536 docs,
@@ -19,11 +19,17 @@ term fuses too).  Required slots count hits, negated slots flag them, and
 
     matched = S > 0 & hits >= nreq & ~negated & ~deleted
 
-gives the masked score (-inf where unmatched) and ``cnt[q] +=
-popcount(matched)``.  K2 and ``dense_scan_ref`` are bitwise equal.
+gives ``cnt[q] += popcount(matched)`` and, by mode:
 
-What bounds K2 on the card is bytes: each pair reads its query's postings
-and writes 256 KB of masked scores (see the note in the CUDA source).
+  * fused (``dense_topk``, kk <= KMAX): each pair's exact top-kk matched
+    docs by (score desc, doc asc), -inf with doc -1 past the last match;
+    no per-doc score leaves the kernel;
+  * unfused (``dense_scan``): the masked score of every doc (-inf where
+    unmatched), whose top-k the caller takes (``topk_block``); for kk >
+    KMAX, deep pages.
+
+Both modes are one kernel source; K2 and the plain versions are bitwise
+equal.
 
 Device layout: docids are u16 bit patterns in int16, bitmap and delete
 words u32 bit patterns in int32 (torch has no u32 shifts on the CPU).
@@ -39,9 +45,19 @@ from .wand_scan import _check
 
 NWORDS = BLOCK_SIZE // 32      # u32 words per block bitmap
 MAX_SLOTS = 127                # K2 counts required hits in 7 bits
+KMAX = 128                     # the fused mode's largest kk
+SPLITS = (1, 2, 4, 8)          # CTAs (one cluster) a pair, fused mode
+# a launch of fewer pairs than SPLIT_BELOW_SMS times the card's SMs gives
+# each pair a cluster of SMALL_SPLIT CTAs; a larger one, one CTA a pair
+SPLIT_BELOW_SMS = 2
+SMALL_SPLIT = 4
+# pairs a tile of masked scores: 256 MB (256 KB a pair)
+TILE_PAIRS = 1024
+CHUNK = 128                    # docs per bucket of the two-stage top-k
+TOPK_BUCKETS = BLOCK_SIZE // CHUNK
 
-# launches of K2 since the last reset (the count a run reads to show that
-# its dense path went through the kernel)
+# launches of K2, in either mode, since the last reset (the count a run
+# reads to show that its dense path went through the kernel)
 LAUNCHES = 0
 
 _BIT = torch.arange(32, dtype=torch.int32)
@@ -129,12 +145,10 @@ def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     return out, cnt
 
 
-def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
-                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
-    """K2 on CUDA tensors: same contract as dense_scan_ref."""
-    global LAUNCHES
-    from .. import _build
-
+def _check_inputs(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                  s_off, s_len, s_bm, s_w, s_flag):
+    """Raises ValueError unless the inputs are what K2 takes: CUDA tensors
+    of one device, of K2's dtypes and shapes, contiguous, T <= MAX_SLOTS."""
     dev = imp.device
     P, T = s_len.shape
     if T > MAX_SLOTS:
@@ -151,18 +165,32 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     for name, x in (("s_len", s_len), ("s_bm", s_bm), ("s_flag", s_flag)):
         _check(name, x, torch.int32, (P, T), dev)
     _check("s_w", s_w, torch.float32, (P, T), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA tensors, got {dev}")
+    return dev, P, T
 
+
+def _pointers(*xs):
+    return [x.data_ptr() for x in xs]
+
+
+def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
+    """K2's unfused mode on CUDA tensors: same contract as
+    dense_scan_ref."""
+    global LAUNCHES
+    from .. import _build
+
+    ins = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+           s_len, s_bm, s_w, s_flag)
+    dev, P, T = _check_inputs(*ins)
     out = torch.empty((P, BLOCK_SIZE), dtype=torch.float32, device=dev)
     cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
-    err = lib.dense_scan_launch(
-        docid.data_ptr(), imp.data_ptr(), bitmaps.data_ptr(),
-        sat1.data_ptr(), delw.data_ptr(), p_blk.data_ptr(), p_q.data_ptr(),
-        p_nreq.data_ptr(), s_off.data_ptr(), s_len.data_ptr(),
-        s_bm.data_ptr(), s_w.data_ptr(), s_flag.data_ptr(), P, T,
-        out.data_ptr(), cnt.data_ptr(), stream)
+    err = lib.dense_scan_launch(*_pointers(*ins), P, T, out.data_ptr(),
+                                cnt.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dense_scan_cuda launch failed (error {err})")
     return out, cnt
@@ -170,12 +198,126 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
 
 def dense_scan(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
                s_len, s_bm, s_w, s_flag, n_queries: int):
-    """The plain version for tensors on the CPU, K2 for CUDA tensors (a
-    CUDA failure raises; there is no fallback)."""
+    """Unfused mode: the plain version for tensors on the CPU, K2 for CUDA
+    tensors (a CUDA failure raises; there is no fallback)."""
     args = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
             s_len, s_bm, s_w, s_flag, n_queries)
     if imp.device.type == "cpu":
         return dense_scan_ref(*args)
     if imp.device.type == "cuda":
         return dense_scan_cuda(*args)
+    raise ValueError(f"no dense scan for device {imp.device}")
+
+
+def _sort_desc(x):
+    return torch.sort(x, dim=1, descending=True, stable=True)
+
+
+def topk_block(rank: torch.Tensor, k: int):
+    """Exact top-k of each row of rank f32[P, BLOCK_SIZE] by (score desc,
+    doc asc): (values f32[P, k], docs i64[P, k]), k <= BLOCK_SIZE.
+
+    For k <= 128, the reference's two stages: the top-k 128-doc buckets by
+    (bucket max desc, bucket asc), then the top-k of their docs in
+    ascending doc order.  It is exact because a doc outside those buckets
+    is beaten or tied-and-preceded by each selected bucket's best doc.
+    Every sort is stable: ``torch.topk`` does not keep the lower index on
+    ties."""
+    P = rank.shape[0]
+    if k > CHUNK:
+        vals, docs = _sort_desc(rank)
+        return vals[:, :k], docs[:, :k]
+    xb = rank.view(P, TOPK_BUCKETS, CHUNK)
+    bti = _sort_desc(xb.amax(dim=2))[1][:, :k]
+    bti = bti.sort(dim=1)[0]                          # doc-ordered buckets
+    cand = torch.gather(xb, 1, bti[:, :, None].expand(P, k, CHUNK))
+    vals, ci = _sort_desc(cand.reshape(P, k * CHUNK))
+    vals, ci = vals[:, :k], ci[:, :k]
+    docs = torch.gather(bti, 1, ci // CHUNK) * CHUNK + ci % CHUNK
+    return vals, docs
+
+
+def _check_kk(kk: int):
+    if not 1 <= kk <= KMAX:
+        raise ValueError(f"K2's fused mode takes 1 <= kk <= {KMAX}, got {kk}")
+
+
+def topk_tiles(scan, docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+               s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+    """Each pair's top-kk by (score desc, doc asc) from the masked scores of
+    `scan` (dense_scan or dense_scan_ref), TILE_PAIRS pairs at a time, each
+    tile reduced by topk_block.  Returns (vals f32[P, kk], docs i64[P, kk],
+    cnt i32[n_queries]); an entry past a pair's last match is -inf with
+    doc -1."""
+    dev = imp.device
+    P = p_blk.shape[0]
+    pairs = (p_blk, p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag)
+    vals = torch.empty((P, kk), dtype=torch.float32, device=dev)
+    docs = torch.empty((P, kk), dtype=torch.int64, device=dev)
+    cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    for a in range(0, P, TILE_PAIRS):
+        b = a + TILE_PAIRS
+        scores, c = scan(docid, imp, bitmaps, sat1, delw,
+                         *[x[a:b] for x in pairs], n_queries)
+        cnt += c
+        v, d = topk_block(scores, kk)
+        vals[a:b] = v
+        docs[a:b] = torch.where(torch.isfinite(v), d, -1)
+        del scores
+    return vals, docs, cnt
+
+
+def dense_topk_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+    """Plain PyTorch version of K2's fused mode: topk_tiles of
+    dense_scan_ref, kk <= KMAX."""
+    _check_kk(kk)
+    return topk_tiles(dense_scan_ref, docid, imp, bitmaps, sat1, delw, p_blk,
+                      p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag,
+                      n_queries, kk)
+
+
+def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
+                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int,
+                    split: int | None = None):
+    """K2's fused mode on CUDA tensors, one launch for all pairs: same
+    contract as dense_topk_ref.  split: CTAs a pair (a cluster), one of
+    SPLITS; by default SMALL_SPLIT below SPLIT_BELOW_SMS pairs an SM,
+    else 1."""
+    global LAUNCHES
+    from .. import _build
+
+    _check_kk(kk)
+    if split is not None and split not in SPLITS:
+        raise ValueError(f"split must be one of {SPLITS}, got {split}")
+    ins = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+           s_len, s_bm, s_w, s_flag)
+    dev, P, T = _check_inputs(*ins)
+    if split is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        split = SMALL_SPLIT if P < SPLIT_BELOW_SMS * sms else 1
+    vals = torch.empty((P, kk), dtype=torch.float32, device=dev)
+    docs = torch.empty((P, kk), dtype=torch.int64, device=dev)
+    cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    lib = _build.load("dense_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES += 1
+    err = lib.dense_topk_launch(*_pointers(*ins), P, T, kk, split,
+                                vals.data_ptr(), docs.data_ptr(),
+                                cnt.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_topk_cuda launch failed (error {err})")
+    return vals, docs, cnt
+
+
+def dense_topk(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+               s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+    """Fused mode: the plain version for tensors on the CPU, K2 for CUDA
+    tensors (a CUDA failure raises; there is no fallback)."""
+    args = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
+            s_len, s_bm, s_w, s_flag, n_queries, kk)
+    if imp.device.type == "cpu":
+        return dense_topk_ref(*args)
+    if imp.device.type == "cuda":
+        return dense_topk_cuda(*args)
     raise ValueError(f"no dense scan for device {imp.device}")

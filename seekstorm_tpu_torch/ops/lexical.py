@@ -3,15 +3,15 @@
 Port of ``seekstorm_tpu/ops/lexical.py``: ``lexical_scan_imp`` (486-565),
 ``_topk_block`` (327-360) and ``lexical_scan_qt`` (592-667).  The reference
 steps over blocks (or block x query tiles) and keeps a running top-k per
-query.  Here kernel K2 (``ops/dense_scan.py``) scores the pairs in tiles,
-each tile is reduced to an exact per-pair top-k, and the pairs of a
-(shard, query) merge in ascending block order, which is what the
-reference's running ``lax.top_k`` merge yields: (score desc, doc asc)
-inside a block, earlier blocks first on ties.
+query.  Here kernel K2 (``ops/dense_scan.py``) scores the pairs and reduces
+each to its exact top-k, and the pairs of a (shard, query) merge in
+ascending block order, which is what the reference's running ``lax.top_k``
+merge yields: (score desc, doc asc) inside a block, earlier blocks first on
+ties.
 
-Every top-k is a stable sort: ``torch.topk`` does not keep the lower index
-on ties.  The reference's bf16 ``fast_mode`` is not ported (the port is
-exact f32); facets and sort keys stay with the reference (ROADMAP A.6).
+Every top-k here is a stable sort: ``torch.topk`` does not keep the lower
+index on ties.  The reference's bf16 ``fast_mode`` is not ported (the port
+is exact f32); facets and sort keys stay with the reference (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -19,61 +19,23 @@ from __future__ import annotations
 import torch
 
 from ..schema import BLOCK_SIZE
-from .dense_scan import dense_scan
-
-CHUNK = 128                    # docs per bucket of the two-stage top-k
-TOPK_BUCKETS = BLOCK_SIZE // CHUNK
-# pairs per K2 tile: 256 MB of masked scores (256 KB a pair) at a time
-TILE_PAIRS = 1024
-
-
-def _sort_desc(x):
-    return torch.sort(x, dim=1, descending=True, stable=True)
-
-
-def topk_block(rank: torch.Tensor, k: int):
-    """Exact top-k of each row of rank f32[P, BLOCK_SIZE] by (score desc,
-    doc asc): (values f32[P, k], docs i64[P, k]), k <= BLOCK_SIZE.
-
-    For k <= 128, the reference's two stages: the top-k 128-doc buckets by
-    (bucket max desc, bucket asc), then the top-k of their docs in
-    ascending doc order.  It is exact because a doc outside those buckets
-    is beaten or tied-and-preceded by each selected bucket's best doc."""
-    P = rank.shape[0]
-    if k > CHUNK:
-        vals, docs = _sort_desc(rank)
-        return vals[:, :k], docs[:, :k]
-    xb = rank.view(P, TOPK_BUCKETS, CHUNK)
-    bti = _sort_desc(xb.amax(dim=2))[1][:, :k]
-    bti = bti.sort(dim=1)[0]                          # doc-ordered buckets
-    cand = torch.gather(xb, 1, bti[:, :, None].expand(P, k, CHUNK))
-    vals, ci = _sort_desc(cand.reshape(P, k * CHUNK))
-    vals, ci = vals[:, :k], ci[:, :k]
-    docs = torch.gather(bti, 1, ci // CHUNK) * CHUNK + ci % CHUNK
-    return vals, docs
+from .dense_scan import KMAX, _sort_desc, dense_scan, dense_topk, topk_tiles
 
 
 def scan_pairs(arrays, pairs, k: int, n_queries: int):
-    """Score every pair with K2 (or its plain version on the CPU), tile by
-    tile, and reduce each to its top-min(k, BLOCK_SIZE).
+    """Score every pair and reduce it to its top-kk, kk = min(k,
+    BLOCK_SIZE): for kk <= KMAX in K2's fused mode, one launch for all
+    pairs; above it K2's unfused mode a tile of pairs at a time, each
+    tile's masked scores reduced by its top-k (``topk_tiles``).  On the
+    CPU, the plain versions of the same.
 
     arrays: (docid, imp, bitmaps, sat1, delw) device tensors; pairs:
     (p_blk, p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag) device tensors.
     Returns (vals f32[P, kk], docs i64[P, kk], cnt i32[n_queries])."""
-    p_blk = pairs[0]
-    dev = p_blk.device
-    P = p_blk.shape[0]
     kk = min(k, BLOCK_SIZE)
-    vals = torch.empty((P, kk), dtype=torch.float32, device=dev)
-    docs = torch.empty((P, kk), dtype=torch.int64, device=dev)
-    cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
-    for a in range(0, P, TILE_PAIRS):
-        b = a + TILE_PAIRS
-        scores, c = dense_scan(*arrays, *[x[a:b] for x in pairs], n_queries)
-        cnt += c
-        vals[a:b], docs[a:b] = topk_block(scores, kk)
-        del scores
-    return vals, docs, cnt
+    if kk <= KMAX:
+        return dense_topk(*arrays, *pairs, n_queries, kk)
+    return topk_tiles(dense_scan, *arrays, *pairs, n_queries, kk)
 
 
 def merge_rows(vals, gids, row, col, n_rows: int, n_cols: int, k: int):

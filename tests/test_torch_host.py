@@ -2,9 +2,10 @@
 package's host modules) against the JAX package's, on the CPU.
 
   * The same documents, deletes and commits through both packages write
-    byte-identical index files, with one and two shards (one and two
-    commits, a full 64K-doc level and partial ones, deletes, string and
-    numeric facet columns, the spelling dictionary and the completions).
+    byte-identical index files, with one and two shards (a seed batch
+    that fixes the string-facet ordinals, one and two commits, a full
+    64K-doc level and partial ones, deletes, string and numeric facet
+    columns, the spelling dictionary and the completions).
     The one field that differs is a time: ``lexcache.npz`` is a zip
     archive (``np.savez``) whose headers record when each member was
     written, so that file is compared member by member, names and bytes.
@@ -58,20 +59,32 @@ def _meta(pkg):
         query_completion=pkg.QueryCompletion(max_completion_entries=10_000))
 
 
+N_BRANDS = 9
+
+
 def _facet_docs(n, seed):
     rng = np.random.default_rng(seed)
     docs = _docs(n, seed)
-    for d, b, p in zip(docs, rng.integers(0, 9, n), rng.integers(0, 500, n)):
+    for d, b, p in zip(docs, rng.integers(0, N_BRANDS, n),
+                       rng.integers(0, 500, n)):
         d["title"] = "the " + d["title"]
         d["brand"] = f"brand{b}"
         d["price"] = int(p)
     return docs
 
 
+def _seed_docs():
+    """Fewer than 64 docs that name every brand in a fixed order."""
+    docs = _facet_docs(N_BRANDS, 6)
+    for b, d in enumerate(docs):
+        d["brand"] = f"brand{b}"
+    return docs
+
+
 @pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
 def built(request, tmp_path_factory):
-    """Both packages' indexes: BLOCK_SIZE + 3000 docs committed, deletes,
-    2000 more docs committed."""
+    """Both packages' indexes: a seed batch, BLOCK_SIZE + 3000 docs
+    committed, deletes, 2000 more docs committed."""
     path = tmp_path_factory.mktemp("th")
     first = _facet_docs(BLOCK_SIZE + 3_000, 7)
     second = _facet_docs(2_000, 8)
@@ -79,6 +92,14 @@ def built(request, tmp_path_factory):
     for pkg in (st, pt):
         idx = _create(pkg, path, _schema(pkg), meta=_meta(pkg),
                       shard_count=request.param)
+        # A string-facet value gets the next ordinal in the order ingest
+        # reaches it.  Batches of 64 docs or more ingest on one thread per
+        # shard, so with two shards that order, and with it
+        # facet_tables.json and the facet columns, would follow thread
+        # timing.  The seed batch, under 64 docs, ingests one doc after
+        # another and fixes every brand's ordinal first; the later
+        # batches only look them up.
+        idx.index_documents(_seed_docs())
         idx.index_documents(first)
         idx.commit()
         idx.delete_documents(list(range(0, 60_000, 173)))

@@ -11,7 +11,12 @@ from the same documents, deletes and commits.
     reference StackedIndex.run on plans of the same batch: counts exact,
     pages equal under tests/test_wand.py's _Page;
   * the exact f32 fma, the block top-k's tie order and the merges' tie
-    order on constructed ties.
+    order on constructed ties;
+  * K2's fused mode: its plain version against topk_block of the masked
+    scores and the reference's _topk_block, on random pairs with and
+    without ties and with fewer matches than kk; scan_pairs's choice
+    between the fused mode (k <= KMAX, one call) and unfused tiles; the
+    wrappers' input checks.
 """
 
 import importlib
@@ -264,7 +269,7 @@ def test_topk_block_keeps_lowest_doc_on_ties(k):
     rng = np.random.default_rng(k)
     rank = rng.choice(np.array([-np.inf, 1.0, 2.0, 2.5], np.float32),
                       size=(3, BLOCK_SIZE), p=[0.5, 0.3, 0.19, 0.01])
-    vals, docs = lx.topk_block(torch.from_numpy(rank), k)
+    vals, docs = ds.topk_block(torch.from_numpy(rank), k)
     ts, ti = ref_lex._topk_block(jnp.asarray(rank), k)
     for r in range(3):
         want = np.lexsort((np.arange(BLOCK_SIZE), -rank[r]))[:k]
@@ -299,15 +304,118 @@ def test_merges_keep_reference_tie_order():
     np.testing.assert_array_equal(mgid.numpy(), np.asarray(i32)[:B, :k])
 
 
+def _random_pairs(seed, ties, P=12, T=3, NBLK=2):
+    """A small random index (sorted CSR segments, bitmap rows, sat1,
+    deleted docs) and P pairs over it, as K2's input tensors; with ties,
+    impacts, weights and sat1 come from a few values, so many docs tie.
+    The last pair names one three-posting segment: fewer matches than kk."""
+    rng = np.random.default_rng(seed)
+    segs, docid, imp, off = [], [], [], 0
+    for n in [3] + list(rng.integers(1, 3000, 15)):
+        docid.append(np.sort(rng.choice(BLOCK_SIZE, n, replace=False)))
+        imp.append(rng.choice(np.float32([0.5, 1.0, 1.5]), n) if ties
+                   else rng.random(n).astype(np.float32) * 3 + 0.01)
+        segs.append((off, n))
+        off += n
+    words = (rng.random((4 + NBLK, ds.NWORDS, 32))
+             < np.array([0.001, 0.05, 0.3, 0.9] + [0.02] * NBLK)[:, None,
+                                                                  None])
+    words = (words * (np.uint64(1) << np.arange(32, dtype=np.uint64))
+             ).sum(axis=2).astype(np.uint32)
+    sat1 = (rng.choice(np.float32([1.0, 2.0]), NBLK * BLOCK_SIZE) if ties
+            else rng.random(NBLK * BLOCK_SIZE).astype(np.float32) + 0.5)
+    s_off = np.zeros((P, T), np.int64)
+    s_len = np.zeros((P, T), np.int32)
+    s_bm = np.full((P, T), -1, np.int32)
+    s_w = np.zeros((P, T), np.float32)
+    s_flag = np.zeros((P, T), np.int32)
+    for p in range(P - 1):
+        for t in range(int(rng.integers(1, T + 1))):
+            if rng.random() < 0.8:
+                s_off[p, t], s_len[p, t] = segs[rng.integers(1, len(segs))]
+            if rng.random() < 0.4:
+                s_bm[p, t] = rng.integers(4)
+            s_w[p, t] = (rng.choice(np.float32([1.0, 2.0])) if ties
+                         else rng.random() * 2 + 0.1)
+            s_flag[p, t] = pp.FLAG_REQ if rng.random() < 0.2 else 0
+    s_off[P - 1, 0], s_len[P - 1, 0] = segs[0]
+    s_w[P - 1, 0] = 1.0
+    t = torch.from_numpy
+    arrays = (t(np.concatenate(docid).astype(np.uint16).view(np.int16)),
+              t(np.concatenate(imp)), t(words[:4].view(np.int32)), t(sat1),
+              t(words[4:].view(np.int32)))
+    pairs = (t(rng.integers(0, NBLK, P).astype(np.int32)),
+             t(np.arange(P, dtype=np.int32) // 2),
+             t(rng.integers(0, 2, P).astype(np.int32)), t(s_off), t(s_len),
+             t(s_bm), t(s_w), t(s_flag))
+    return arrays, pairs, (P + 1) // 2
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["spread", "ties"])
+@pytest.mark.parametrize("kk", [1, 10, 16, 128])
+def test_fused_topk_matches_plain_and_reference(kk, ties):
+    """K2's fused plain version: topk_block of dense_scan_ref's masked
+    scores with the fill (-inf, doc -1) past a pair's last match, and the
+    same top-kk as the reference's _topk_block of those scores."""
+    arrays, pairs, B = _random_pairs(kk, ties)
+    vals, docs, cnt = ds.dense_topk_ref(*arrays, *pairs, B, kk)
+    scores, want_cnt = ds.dense_scan_ref(*arrays, *pairs, B)
+    want_v, want_d = ds.topk_block(scores, kk)
+    fin = torch.isfinite(want_v)
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(docs[fin], want_d[fin])
+    assert (docs[~fin] == -1).all() and (~fin).any()       # the fill
+    assert torch.equal(cnt, want_cnt)
+    ts, ti = ref_lex._topk_block(jnp.asarray(scores.numpy()), kk)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ts))
+    np.testing.assert_array_equal(docs[fin].numpy(), np.asarray(ti)[fin])
+    if ties and kk > 1:      # a top-kk holds a run of equal scores
+        assert (vals[:, 1:] == vals[:, :-1])[fin[:, 1:]].any()
+
+
+@pytest.mark.parametrize("k", [16, 128, 129, 2048])
+def test_scan_pairs_takes_fused_mode_up_to_kmax(k, monkeypatch):
+    """scan_pairs makes one fused call for k <= KMAX and unfused tiles of
+    TILE_PAIRS above it; both give the same entries."""
+    arrays, pairs, B = _random_pairs(5, True)
+    calls = []
+    for name in ("dense_topk", "dense_scan"):
+        fn = getattr(lx, name)
+        monkeypatch.setattr(lx, name, lambda *a, _n=name, _f=fn: (
+            calls.append(_n), _f(*a))[1])
+    monkeypatch.setattr(ds, "TILE_PAIRS", 5)
+    vals, docs, cnt = lx.scan_pairs(arrays, pairs, k, B)
+    P = pairs[0].shape[0]
+    assert calls == (["dense_topk"] if k <= ds.KMAX
+                     else ["dense_scan"] * -(-P // 5))
+    scores, want_cnt = ds.dense_scan_ref(*arrays, *pairs, B)
+    want_v, want_d = ds.topk_block(scores, k)
+    fin = torch.isfinite(want_v)
+    assert vals.shape == (P, k) and docs.dtype == torch.int64
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(docs[fin], want_d[fin])
+    assert torch.equal(cnt, want_cnt)
+
+
 def test_dense_scan_refuses_other_devices():
     meta = torch.zeros(4, device="meta")
     with pytest.raises(ValueError):
         ds.dense_scan(meta, meta, *[None] * 11, 1)
+    with pytest.raises(ValueError):
+        ds.dense_topk(meta, meta, *[None] * 11, 1, 16)
+
+
+def _k2_call(wrapper, ins, **kw):
+    if wrapper == "fused":
+        return ds.dense_topk_cuda(**ins, n_queries=1, kk=kw.get("kk", 16),
+                                  split=kw.get("split"))
+    return ds.dense_scan_cuda(**ins, n_queries=1)
 
 
 def test_k2_wrapper_checks_inputs_before_launch():
-    """dense_scan_cuda refuses a wrong dtype, shape or slot count before it
-    builds or launches anything."""
+    """dense_scan_cuda and dense_topk_cuda refuse a wrong dtype, shape,
+    device or slot count (and the fused one a kk or split it does not
+    take) before they build or launch anything."""
     i32 = dict(dtype=torch.int32)
     P, T = 2, 3
     good = dict(
@@ -322,11 +430,20 @@ def test_k2_wrapper_checks_inputs_before_launch():
     bad = [("docid", good["docid"].to(torch.int32)),
            ("sat1", torch.zeros(BLOCK_SIZE - 1)),
            ("s_off", good["s_off"].to(torch.int32)),
-           ("s_w", torch.zeros((P, T + 1)))]
-    for name, x in bad:
-        with pytest.raises(ValueError, match=name):
-            ds.dense_scan_cuda(**{**good, name: x}, n_queries=1)
+           ("s_w", torch.zeros((P, T + 1))),
+           ("p_q", torch.zeros(P, device="meta", **i32))]
     wide = {k: (v.repeat(1, 43) if k.startswith("s_") else v)
             for k, v in good.items()}                        # T = 129
-    with pytest.raises(ValueError, match="slots"):
-        ds.dense_scan_cuda(**wide, n_queries=1)
+    for wrapper in ("unfused", "fused"):
+        for name, x in bad:
+            with pytest.raises(ValueError, match=name):
+                _k2_call(wrapper, {**good, name: x})
+        with pytest.raises(ValueError, match="CUDA"):      # all on the CPU
+            _k2_call(wrapper, good)
+        with pytest.raises(ValueError, match="slots"):
+            _k2_call(wrapper, wide)
+    for kk in (0, ds.KMAX + 1):
+        with pytest.raises(ValueError, match="kk"):
+            _k2_call("fused", good, kk=kk)
+    with pytest.raises(ValueError, match="split"):
+        _k2_call("fused", good, split=3)

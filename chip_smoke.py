@@ -8,16 +8,19 @@ Phases, each printing what it found:
   1. card:   nvidia-smi name and power limit, torch's device name, and
              whether the native host library loaded (ingesting the corpus
              below needs it);
-  2. build:  nvcc builds kernels K1 (csrc/wand_scan.cu) and K2
-             (csrc/dense_scan.cu) from the sources, one process each;
+  2. build:  nvcc builds kernels K1 (csrc/wand_scan.cu), K2
+             (csrc/dense_scan.cu) and K3 (csrc/facet_hist.cu) from the
+             sources, one process each;
   3. K1:     K1 against its plain PyTorch version on random pools at the
              serving shapes (Bq=2048, NBLK=16, V=4096, T in {2,4,8}, filter
-             off and on): counts equal, UBs and the rung maxima (ub4, ub16,
-             g1) bitwise equal, with both times (CUDA events, median of
-             20), K1's bound (bytes once at 3.35 TB/s, or operations at the
-             f32 peak) and its share of it;
+             off and on): counts equal, UBs, the rung maxima (ub4, ub16,
+             g1) and the matched words bitwise equal, with both times (CUDA
+             events, median of 20), K1's bound (bytes once at 3.35 TB/s, or
+             operations at the f32 peak) and its share of it;
   4. index:  1,048,576 docs of bench.make_corpus (seed 7, vocab 30,000,
-             title boost 10, 1 shard), committed, plus 5,000 uncommitted;
+             title boost 10, 1 shard) with bench_facet.py's facet fields
+             (brand of 24 values, price 1-499, a location), committed, plus
+             5,000 uncommitted with the same fields;
   5. serve:  the default route (WAND at 16 blocks):
              bench.make_queries(2048, seed 100) as Topk and TopkCount with
              realtime=True through seekstorm_tpu_torch.search_batch on
@@ -35,14 +38,24 @@ Phases, each printing what it found:
   6. K2:     K2 against its plain PyTorch versions on every (block,
              query) pair of the 2,048-query TopkCount batch's dense plan:
              the unfused mode (masked scores) tile by tile, scores bitwise
-             equal and counts equal; the fused mode (the per-pair top-kk
-             in the kernel) at kk=10 and 128 in one launch at each split
-             (CTAs a pair), values bitwise equal, docs equal at every
-             finite entry, -inf pattern and counts equal; at 1,024 pairs,
-             the whole plan and the serve batch's straggler pairs (kk=16):
+             equal, matched words and counts equal; the fused mode (the
+             per-pair top-kk in the kernel) at kk=10 and 128 in one launch
+             at each split (CTAs a pair), without and with the matched
+             words, values bitwise equal, docs equal at every finite
+             entry, -inf pattern, counts and matched words equal; at 1,024
+             pairs, the whole plan and the serve batch's straggler pairs
+             (kk=16):
              the fused time at each split and at the wrapper's default,
              the yardstick (unfused K2 + topk_block(16), tile by tile),
              the plain time, the fused bound and its share;
+  6b. K3:    K3 against its plain PyTorch version, counts equal, at the
+             shapes of the 2,048-query facet2 batch on both routes (NF=2,
+             fcm=32: K1's matched words under the brand filter, and K2's
+             fused-mode matched words over the batch's dense plan) and at
+             one wide code space (fcm=65,536, global atomics), with K3's
+             time, its bound (the matched words, the codes of the blocks
+             touched and the histogram, each once) and share, the plain
+             time, and torch.bincount on indices unpacked beforehand;
   7. dense:  the same batches with SEEKSTORM_TPU_NO_WAND=1 (the dense
              path): K2 must have launched, once for the TopkCount batch
              (fused mode); pages equal to the WAND route's
@@ -50,7 +63,19 @@ Phases, each printing what it found:
              cluster); warm batch latency and the device's kernel time by
              name (torch.profiler); 256 queries must give the same pages on
              "cpu"; a batch of pages 1990-2009 and a batch of 10- to
-             12-term queries served, their first 32 equal on "cpu".
+             12-term queries served, their first 32 equal on "cpu";
+  8. facets: bench_facet.py's facet2 (TopkCount, two-term queries, facets
+             brand and price in ranges cheap/mid/lux, filter brand in the
+             first 6 brands) and geosort (Topk, loc ascending from
+             [37.7, -122.4]) with realtime=True, batches of 64 and one
+             facet2 batch of 2,048, on the default route, with
+             SEEKSTORM_TPU_NO_WAND=1, and geosort with
+             SEEKSTORM_TPU_WAND_SORT=1: K1, K2 and K3 launched where the
+             route says; pages, counts and facet lists equal between the
+             routes and equal to "cpu" on the first 64 queries of each
+             batch; every filtered page's docs carry an allowed brand; a
+             result's brand counts sum to its count; warm batch latency
+             and the device's kernel time by name.
 
 The script imports the port (seekstorm_tpu_torch), bench.py and torch;
 jax and the JAX package (seekstorm_tpu) are blocked through every phase.
@@ -129,7 +154,7 @@ def phase_build():
     _build.load("wand_scan")
     secs = time.perf_counter() - t0
     names = ", ".join(p.name for p in _build.build().values())
-    print(f"[build] K1, K2 libraries {names}: {secs:.2f} s (nvcc, one "
+    print(f"[build] K1, K2, K3 libraries {names}: {secs:.2f} s (nvcc, one "
           f"process per source, {_build.BUILD_SECONDS})")
     for line in (_build.BUILD_LOG or "").splitlines():
         if "registers" in line or "spill" in line:
@@ -216,9 +241,10 @@ def k1_bound(torch, args, with_maxima=True):
     (block, slot) the batch's columns name, the bucket-max row of every
     one a positive column names, the delete and filter words, the tables)
     and each output byte written once (allub, ub4, ub16, g1 unless
-    with_maxima is False, cnt), over the HBM rate; against the f32 operations of the UB chains (per query
-    and bucket: T products, then per presence class of the first
-    min(T, 3) columns its sums and a max) over the f32 peak."""
+    with_maxima is False, cnt), over the HBM rate; against the f32
+    operations of the UB chains (per query and bucket: T products, then
+    per presence class of the first min(T, 3) columns its sums and a max)
+    over the f32 peak."""
     ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard, sid = args
     NBLK, _ = prow.shape
     Bq, T = tslot.shape
@@ -241,20 +267,28 @@ def k1_bound(torch, args, with_maxima=True):
 
 
 def check_k1(torch, args, tag):
-    """K1 against its plain version on args: counts equal, allub and the
-    rung maxima bitwise equal.  Returns (max abs err, finite UBs, UBs)."""
+    """K1 against its plain version on args: counts equal, allub, the rung
+    maxima and the matched words bitwise equal, and the five outputs the
+    same whether or not the matched words are asked for.  Returns (max abs
+    err, finite UBs, UBs)."""
     from seekstorm_tpu_torch.ops import wand_scan as ws
 
-    got = ws.wand_scan_cuda(*args)
-    want = ws.scan_blocks_ref(*args)
+    got = ws.wand_scan_cuda(*args, with_matched=True)
+    want = ws.scan_blocks_ref(*args, with_matched=True)
+    five = ws.wand_scan_cuda(*args)
     torch.cuda.synchronize()
+    for name, x, y in zip(("allub", "cnt", "ub4", "ub16", "g1"), five, got):
+        check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+              f"K1 {name} changes with the matched-words output ({tag})")
+    del five
     check(torch.equal(got[1], want[1]), f"K1 counts differ ({tag})")
     fin = torch.isfinite(want[0])
     check(torch.equal(fin, torch.isfinite(got[0])),
           f"K1 -inf pattern differs ({tag})")
     err = float((got[0][fin] - want[0][fin]).abs().max()) \
         if bool(fin.any()) else 0.0
-    for name, x, y in zip(("allub", "cnt", "ub4", "ub16", "g1"), got, want):
+    for name, x, y in zip(("allub", "cnt", "ub4", "ub16", "g1", "mwords"),
+                          got, want):
         check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
               f"K1 {name} not bitwise equal ({tag}, max abs err of allub "
               f"{err})")
@@ -286,15 +320,33 @@ def phase_k1(torch):
             tag = f"T={T} filter={with_filter}"
             err, n_fin, n = check_k1(torch, args, tag)
             ms, plain_ms, bound, by = time_k1(torch, args)
-            print(f"[K1] {tag}: counts equal, UBs, ub4, ub16 and g1 bitwise "
-                  f"equal ({n_fin} finite of {n}); K1 {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
-                  f"{100 * bound / ms:.1f}% of bound")
+            print(f"[K1] {tag}: counts equal, UBs, ub4, ub16, g1 and matched "
+                  f"words bitwise equal ({n_fin} finite of {n}); K1 "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of bound")
             rows.append(dict(T=T, filter=with_filter, err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound, bound_by=by))
             del args
             torch.cuda.empty_cache()
     return rows
+
+
+BRANDS = [f"brand{i:02d}" for i in range(24)]
+
+
+def _add_facets(docs, rng):
+    """bench_facet.py's facet fields (its lines 53-63): brand from 24
+    values, price 1-499 and a location, drawn in its order from rng."""
+    n = len(docs)
+    bi = rng.integers(0, len(BRANDS), size=n)
+    price = rng.integers(1, 500, size=n)
+    lat = rng.uniform(-60, 60, size=n)
+    lon = rng.uniform(-170, 170, size=n)
+    for i, d in enumerate(docs):
+        d["brand"] = BRANDS[int(bi[i])]
+        d["price"] = int(price[i])
+        d["loc"] = [float(lat[i]), float(lon[i])]
+    return docs
 
 
 def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index"):
@@ -303,13 +355,20 @@ def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index"):
     import bench
 
     t0 = time.perf_counter()
-    docs = bench.make_corpus(n_docs, 30_000, np.random.default_rng(7))
-    tail = bench.make_corpus(n_tail, 30_000, np.random.default_rng(8))
+    docs = _add_facets(
+        bench.make_corpus(n_docs, 30_000, np.random.default_rng(7)),
+        np.random.default_rng(8))
+    tail = _add_facets(
+        bench.make_corpus(n_tail, 30_000, np.random.default_rng(8)),
+        np.random.default_rng(9))
     t1 = time.perf_counter()
     shutil.rmtree(path, ignore_errors=True)
     schema = [
         st.SchemaField("title", st.FieldType.Text, indexed=True, boost=10.0),
         st.SchemaField("body", st.FieldType.Text, indexed=True),
+        st.SchemaField("brand", st.FieldType.String16, facet=True),
+        st.SchemaField("price", st.FieldType.U16, facet=True),
+        st.SchemaField("loc", st.FieldType.Point, facet=True),
     ]
     idx = st.create_index(path, schema, shard_count=1)
     idx.index_documents(docs)
@@ -441,7 +500,8 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     Bq, T = args[5].shape
     print(f"[serve] K1 at the batch's shapes (Bq={Bq}, T={T}, "
           f"NBLK={args[2].shape[0]}, V={args[2].shape[1]}): counts equal, "
-          f"UBs, ub4, ub16 and g1 bitwise equal ({n_fin} finite of {n}); "
+          f"UBs, ub4, ub16, g1 and matched words bitwise equal ({n_fin} "
+          f"finite of {n}); "
           f"K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
           f"({by}), {100 * bound / ms:.1f}% of bound")
     k1_serve = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -492,9 +552,9 @@ class _recording_scans:
 
         self.lx, self.orig, self.calls = lx, lx.scan_pairs, []
 
-        def rec(arrays, pairs, k, n_queries):
+        def rec(arrays, pairs, k, n_queries, **kw):
             self.calls.append((arrays, pairs, k, n_queries))
-            return self.orig(arrays, pairs, k, n_queries)
+            return self.orig(arrays, pairs, k, n_queries, **kw)
 
         lx.scan_pairs = rec
         return self.calls
@@ -662,9 +722,13 @@ def phase_k2(torch, st, idx, queries, stragglers):
     err_u, cnt_k, finite = 0.0, 0, 0
     for a in range(0, P, tile):
         part = [x[a:a + tile] for x in pairs]
-        out_k, ck = ds.dense_scan_cuda(*arrays, *part, B)
-        out_r, cr = ds.dense_scan_ref(*arrays, *part, B)
+        out_k, ck, mw_k = ds.dense_scan_cuda(*arrays, *part, B,
+                                             with_matched=True)
+        out_r, cr, mw_r = ds.dense_scan_ref(*arrays, *part, B,
+                                            with_matched=True)
         torch.cuda.synchronize()
+        check(torch.equal(mw_k, mw_r),
+              f"K2 matched words differ in pairs {a}..{a + tile}")
         fin = torch.isfinite(out_r)
         check(torch.equal(fin, torch.isfinite(out_k)),
               f"K2 match pattern differs in pairs {a}..{a + tile}")
@@ -679,23 +743,33 @@ def phase_k2(torch, st, idx, queries, stragglers):
         del out_k, out_r
     print(f"[K2] unfused mode, {P} pairs (T={T}) of the {B}-query TopkCount "
           f"plan ({len(plans[0].block_ids)} blocks), tiles of {tile}: "
-          f"scores bitwise equal ({finite} matched docs), counts equal "
-          f"({cnt_k} matches)")
+          f"scores bitwise equal ({finite} matched docs), matched words "
+          f"and counts equal ({cnt_k} matches)")
 
     # fused mode, one launch for every pair, at each split
     err = 0.0
     for kk in (10, 128):
-        want = ds.dense_topk_ref(*arrays, *pairs, B, kk)
+        want = ds.dense_topk_ref(*arrays, *pairs, B, kk, with_matched=True)
         for split in ds.SPLITS:
             got = ds.dense_topk_cuda(*arrays, *pairs, B, kk, split=split)
             torch.cuda.synchronize()
-            e, n_fin = _check_fused(torch, got, want,
+            e, n_fin = _check_fused(torch, got, want[:3],
                                     f"kk={kk} split={split}")
             err = max(err, e)
+            # the same launch with the matched words: they equal the plain
+            # version's and nothing else changes
+            got = ds.dense_topk_cuda(*arrays, *pairs, B, kk, split=split,
+                                     with_matched=True)
+            torch.cuda.synchronize()
+            _check_fused(torch, got[:3], want[:3],
+                         f"kk={kk} split={split} with matched words")
+            check(torch.equal(got[3], want[3]),
+                  f"K2 fused matched words differ (kk={kk} split={split})")
         del want, got
         print(f"[K2] fused mode, kk={kk}, all {P} pairs in one launch at "
-              f"splits {ds.SPLITS}: values bitwise equal, docs equal "
-              f"({n_fin} finite entries), -inf pattern and counts equal")
+              f"splits {ds.SPLITS}, without and with the matched words: "
+              f"values bitwise equal, docs equal ({n_fin} finite entries), "
+              f"-inf pattern, counts and matched words equal")
 
     # times: 1,024 pairs, the whole plan, the serve batch's stragglers
     shapes = [("1,024 pairs", arrays, [x[:tile] for x in pairs], B),
@@ -893,6 +967,334 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
     return launches
 
 
+def facet_requests(st, kind, n, realtime=True):
+    """bench_facet.py's requests (its mk_reqs): n two-term queries from
+    np.random.default_rng(100), as facet2 (TopkCount, brand counts and
+    price ranges under a brand filter) or geosort (Topk by distance)."""
+    import numpy as np
+
+    qrng = np.random.default_rng(100)
+    out = []
+    for _ in range(n):
+        q = (f"w{qrng.integers(20, 3000):05d} "
+             f"w{qrng.integers(20, 3000):05d}")
+        if kind == "facet2":
+            ranges = st.Ranges(field="price", ranges=[
+                ("cheap", 0), ("mid", 100), ("lux", 300)])
+            out.append(st.SearchRequest(
+                query=q, length=10, realtime=realtime,
+                result_type=st.ResultType.TopkCount,
+                query_facets=[st.QueryFacet(field="brand"),
+                              st.QueryFacet(field="price", ranges=ranges)],
+                facet_filter=[st.FacetFilter(field="brand",
+                                             values=BRANDS[:6])]))
+        else:
+            out.append(st.SearchRequest(
+                query=q, length=10, realtime=realtime,
+                result_type=st.ResultType.Topk,
+                result_sort=[st.ResultSort(field="loc", order="Ascending",
+                                           base=[37.7, -122.4])]))
+    return out
+
+
+def k3_bound(torch, mwords, p_blk, codes, fcm, n_rows):
+    """K3's least time on an H100 for these inputs, in ms, and what sets
+    it.  Bytes moved once: the matched words of every pair, the pair
+    tables, the codes (every facet) of each distinct block some pair with
+    a matched doc names, and the histogram written.  Operations: one
+    integer add a matched doc and facet, taken at the f32 rate."""
+    from seekstorm_tpu_torch.ops.wand_scan import popcount32
+
+    NF = codes.shape[0]
+    hit = (mwords != 0).any(dim=1)
+    n_blk = len(torch.unique(p_blk[hit]))
+    matched = 0
+    for a in range(0, mwords.shape[0], 4096):
+        matched += int(popcount32(mwords[a:a + 4096]).sum())
+    n_bytes = (mwords.numel() * 4 + p_blk.numel() * 8
+               + n_blk * (1 << 16) * 4 * NF + NF * n_rows * fcm * 4)
+    return _bound(n_bytes, matched * NF) + (matched,)
+
+
+def phase_k3(torch, st, idx, n_queries=N_QUERIES):
+    """K3 against its plain version at the faceted batch's own shapes on
+    both routes and at one wide code space; times, bound and share."""
+    import importlib
+
+    import numpy as np
+
+    from seekstorm_tpu_torch import facets as facets_mod
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+    from seekstorm_tpu_torch.utils import ceil_pow2
+
+    sm = importlib.import_module("seekstorm_tpu_torch.search")
+    reqs = facet_requests(st, "facet2", n_queries)
+    rt = facets_mod.get_runtime(idx)
+    coded = [rt.codes_for(qf) for qf in reqs[0].query_facets]
+    fcm = ceil_pow2(max(nc for _, _, nc in coded), 16)
+    mask = rt.filter_mask(reqs[0].facet_filter)
+    wstate = W.get_state(idx, "cuda")
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    codes = put(sm._wand_facet_codes(idx, wstate, [c for c, _, _ in coded]))
+    filt = sm._wand_filter_words(idx, wstate, mask)
+
+    # the WAND route's shape: K1's matched words under the filter
+    args = list(st.wand_inputs(idx, reqs, "cuda"))
+    args[4] = put(filt.view(np.int32))
+    mw = ws.wand_scan_cuda(*args, with_matched=True)[5]
+    Bq, NBLK = mw.shape[0], args[2].shape[0]
+    shapes = [("WAND route", mw.view(Bq * NBLK, NW),
+               *fh.wand_pairs(Bq, NBLK, mw.device), codes, fcm, Bq)]
+    del args
+
+    # the dense route's shape: K2's fused-mode matched words over the plan
+    plans, stacked = st.dense_plans(idx, reqs, device="cuda")
+    pairs = [put(x) for x in stacked.pair_tables(plans)[:8]]
+    arrays = (*stacked.arrays[:4],
+              put((stacked.delw_host | filt).view(np.int32)))
+    dmw = ds.dense_topk_cuda(*arrays, *pairs, n_queries, 16,
+                             with_matched=True)[3]
+    shapes.append(("dense route", dmw, pairs[0], pairs[1], codes, fcm,
+                   n_queries))
+
+    # one wide code space (a numeric facet without ranges): global atomics
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    wide = torch.randint(-5, 65_541, (1, codes.shape[1]), generator=g,
+                         device="cuda", dtype=torch.int32)
+    shapes.append(("WAND route, wide codes", *shapes[0][1:4], wide, 65_536,
+                   Bq))
+
+    rows = {}
+    for name, mwords, p_blk, p_row, cod, f, R in shapes:
+        got = fh.facet_hist_cuda(mwords, p_blk, p_row, cod, f, R)
+        want = fh.facet_hist_ref(mwords, p_blk, p_row, cod, f, R)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K3 counts differ ({name})")
+        err = int((got - want).abs().max())
+        ms = _median_ms(torch, lambda: fh.facet_hist_cuda(
+            mwords, p_blk, p_row, cod, f, R))
+        plain = _median_ms(torch, lambda: fh.facet_hist_ref(
+            mwords, p_blk, p_row, cod, f, R), n=1, rounds=3)
+        bound, by, matched = k3_bound(torch, mwords, p_blk, cod, f, R)
+        check(int(got.sum()) == matched * cod.shape[0],
+              f"K3 counts every matched doc once a facet ({name})")
+        # the library yardstick: one torch.bincount over the (facet, row,
+        # code) index of every matched doc, the unpacking done beforehand
+        lib_ms = None
+        try:
+            flat = []
+            for a in range(0, mwords.shape[0], 2048):
+                pi, di = torch.nonzero(ds.unpack_words(mwords[a:a + 2048]),
+                                       as_tuple=True)
+                at = p_blk[a + pi].long() * (1 << 16) + di
+                for fi in range(cod.shape[0]):
+                    flat.append((fi * R + p_row[a + pi].long()) * f
+                                + cod[fi, at].clamp(0, f - 1).long())
+            flat = torch.cat(flat)
+            n_bins = cod.shape[0] * R * f
+            lib = torch.bincount(flat, minlength=n_bins)
+            check(torch.equal(lib.view(got.shape).to(torch.int32), got),
+                  f"torch.bincount disagrees ({name})")
+            lib_ms = _median_ms(torch, lambda: torch.bincount(
+                flat, minlength=n_bins), n=5)
+            del flat, lib
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[K3] {name}: no library time, the unpacked indices do "
+                  f"not fit ({e})")
+        print(f"[K3] {name}: {mwords.shape[0]} pairs, NF={cod.shape[0]}, "
+              f"fcm={f}, {matched} matched docs: counts equal; K3 {ms:.4f} "
+              f"ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of bound; torch.bincount on indices "
+              f"unpacked beforehand "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+        rows[name] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by=by, library_ms=lib_ms)
+        torch.cuda.empty_cache()
+    return dict(rows["WAND route"],
+                err=max(r["err"] for r in rows.values()))
+
+
+def _facets_equal(a, b, how):
+    """Counts and facet lists equal, and pages equal by `how`: "exact" (ids
+    in order, scores or sort keys exactly), "order" (ids in order, scores
+    within PAGE_RTOL) or "cluster" (_same_pages, between two routes)."""
+    if a.facets != b.facets:
+        return False, "facets"
+    if how == "cluster":
+        return _same_pages(a, b)
+    return _pages_equal(a, b, rtol=0.0 if how == "exact" else PAGE_RTOL)
+
+
+def phase_facets(torch, st, idx, n_big=N_QUERIES, n_small=64):
+    import numpy as np
+
+    from seekstorm_tpu_torch import METRICS
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    # each doc's brand, drawn as phase_index drew it (one shard: doc id =
+    # position; the uncommitted docs follow the committed ones)
+    brand_of = np.concatenate([
+        np.random.default_rng(8).integers(0, len(BRANDS), size=N_DOCS),
+        np.random.default_rng(9).integers(0, len(BRANDS), size=N_TAIL)])
+    batches = [("facet2", n_small), ("geosort", n_small), ("facet2", n_big)]
+
+    def run(kind, n, device="cuda"):
+        ws.LAUNCHES = ds.LAUNCHES = fh.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = st.search_batch(idx, facet_requests(st, kind, n),
+                              device=device)
+        return out, time.perf_counter() - t0, (ws.LAUNCHES, ds.LAUNCHES,
+                                               fh.LAUNCHES)
+
+    def check_facet2(tag, rs_list):
+        for rs in rs_list:
+            check(all(brand_of[r.doc_id] < 6 for r in rs.results),
+                  f"{tag}: a filtered page holds a disallowed brand")
+            check(sum(c for _, c in rs.facets["brand"])
+                  == rs.result_count_total,
+                  f"{tag}: brand counts do not sum to the match count")
+            check(sum(c for _, c in rs.facets["price"])
+                  == rs.result_count_total,
+                  f"{tag}: price ranges do not sum to the match count")
+            check(all(lbl in BRANDS[:6] for lbl, _ in rs.facets["brand"]),
+                  f"{tag}: a disallowed brand is counted")
+        check(sum(rs.result_count_total > 0 for rs in rs_list)
+              > len(rs_list) // 2, f"{tag}: most queries match")
+
+    def check_geosort(tag, rs_list):
+        for rs in rs_list:
+            keys = [r.score for r in rs.results]
+            check(keys == sorted(keys) and all(np.isfinite(keys)),
+                  f"{tag}: a page is not in ascending distance")
+        check(sum(len(rs.results) == 10 for rs in rs_list)
+              > len(rs_list) // 2, f"{tag}: most pages are full")
+
+    served = {}
+    launches = {}
+    # the default route: WAND at 16 blocks for facet2; a sorted batch takes
+    # the dense path unless SEEKSTORM_TPU_WAND_SORT is set
+    for kind, n in batches:
+        fb0 = METRICS.snapshot().get("wand_fallbacks_total", 0.0)
+        out, dt, (k1, k2, k3) = run(kind, n)
+        fb = METRICS.snapshot().get("wand_fallbacks_total", 0.0) - fb0
+        served[kind, n] = out
+        launches[kind, n] = (k1, k2, k3)
+        print(f"[facets] default route, {kind} x {n}: {dt:.3f} s (first "
+              f"batch); K1 launches {k1}, K2 {k2}, K3 {k3}; WAND "
+              f"stragglers {fb:.0f}")
+        if kind == "facet2":
+            check(k1 == 1 and k3 >= 1, "facet2 rides WAND: K1 and K3")
+            check((k2 > 0) == (fb > 0 and n >= 512) and k3 == 1 + (k2 > 0),
+                  "deferred stragglers take K2 and K3 with their facets, "
+                  "and only they")
+            check_facet2(f"default {kind} x {n}", out)
+        else:
+            check(k1 == 0 and k2 > 0 and k3 == 0,
+                  "a sorted batch takes the dense path's unfused scan")
+            check_geosort(f"default {kind} x {n}", out)
+
+    lat = {}
+    for kind, n in batches:
+        snap0 = METRICS.snapshot()
+        lat[kind, n] = [run(kind, n)[1] for _ in range(3)]
+        snap1 = METRICS.snapshot()
+        print(f"[facets] default route, warm {kind} batch of {n}: "
+              f"{[round(x * 1e3, 1) for x in lat[kind, n]]} ms")
+        _print_split("facets", lat[kind, n], snap0, snap1)
+    for kind, n in (("facet2", n_big), ("geosort", n_small)):
+        device_kernels(torch, f"facets {kind} x {n}", lambda: run(kind, n),
+                       top=10)
+    _profile(lambda: run("facet2", n_big))
+
+    # cpu: the first 64 queries of each batch (the batch of 2,048 defers
+    # its stragglers to the dense path; so does the cpu's batch of 64)
+    os.environ["SEEKSTORM_TPU_WAND_DEFER_DENSE"] = "1"
+    try:
+        for kind, n in batches:
+            cpu, _, _ = run(kind, n_small, device="cpu")
+            bad = [(i, why) for i, (a, b) in
+                   enumerate(zip(served[kind, n], cpu))
+                   for ok, why in [_facets_equal(
+                       a, b, "exact" if kind == "geosort" else "order")]
+                   if not ok]
+            print(f"[facets] default route, {kind} x {n}: cuda vs cpu on "
+                  f"{n_small} queries: {n_small - len(bad)} equal (counts, "
+                  f"facet lists, ids and order), first mismatches {bad[:5]}")
+            check(not bad, f"{kind} x {n}: cuda and cpu differ")
+    finally:
+        del os.environ["SEEKSTORM_TPU_WAND_DEFER_DENSE"]
+
+    # the dense route
+    os.environ["SEEKSTORM_TPU_NO_WAND"] = "1"
+    try:
+        for kind, n in batches:
+            out, dt, (k1, k2, k3) = run(kind, n)
+            warm = [run(kind, n)[1] for _ in range(2)]
+            print(f"[facets] dense route, {kind} x {n}: {dt:.3f} s, warm "
+                  f"{[round(x * 1e3, 1) for x in warm]} ms; K1 launches "
+                  f"{k1}, K2 {k2}, K3 {k3}")
+            check(k1 == 0 and k2 > 0 and k3 == (kind == "facet2"),
+                  "the dense route: K2, and one K3 launch a faceted batch")
+            if kind == "facet2":
+                check(k2 == 1, "a faceted top-10 batch is one K2 launch")
+            bad = [(i, why) for i, (a, b) in
+                   enumerate(zip(out, served[kind, n]))
+                   for ok, why in [_facets_equal(
+                       a, b, "exact" if kind == "geosort" else "cluster")]
+                   if not ok]
+            print(f"[facets]   vs the default route's: {n - len(bad)} of "
+                  f"{n} equal, first mismatches {bad[:5]}")
+            check(not bad, f"{kind} x {n}: the routes differ")
+            cpu, _, _ = run(kind, n_small, device="cpu")
+            bad = [(i, why) for i, (a, b) in enumerate(zip(out, cpu))
+                   for ok, why in [_facets_equal(a, b, "exact")] if not ok]
+            print(f"[facets]   cuda vs cpu on {n_small}: "
+                  f"{n_small - len(bad)} equal (scores exactly), first "
+                  f"mismatches {bad[:5]}")
+            check(not bad, f"dense {kind} x {n}: cuda and cpu differ")
+        device_kernels(torch, f"facets dense facet2 x {n_big}",
+                       lambda: run("facet2", n_big), top=8)
+    finally:
+        del os.environ["SEEKSTORM_TPU_NO_WAND"]
+
+    # WAND rank-by-key
+    os.environ["SEEKSTORM_TPU_WAND_SORT"] = "1"
+    try:
+        fb0 = METRICS.snapshot().get("wand_fallbacks_total", 0.0)
+        out, dt, (k1, k2, k3) = run("geosort", n_small)
+        fb = METRICS.snapshot().get("wand_fallbacks_total", 0.0) - fb0
+        print(f"[facets] SEEKSTORM_TPU_WAND_SORT=1, geosort x {n_small}: "
+              f"{dt:.3f} s; K1 launches {k1}, K2 {k2}, K3 {k3}; {fb:.0f} "
+              f"queries fell through every rung to the host exact "
+              f"evaluation")
+        check(k1 == 1 and k3 == 0, "rank-by-key rides K1")
+        check_geosort("WAND rank-by-key", out)
+        bad = [(i, why) for i, (a, b) in
+               enumerate(zip(out, served["geosort", n_small]))
+               for ok, why in [_facets_equal(a, b, "exact")] if not ok]
+        print(f"[facets]   vs the dense route's: {n_small - len(bad)} of "
+              f"{n_small} equal (ids, order and keys exactly), first "
+              f"mismatches {bad[:5]}")
+        check(not bad, "rank-by-key pages differ from the dense route's")
+        cpu, _, _ = run("geosort", n_small, device="cpu")
+        bad = [i for i, (a, b) in enumerate(zip(out, cpu))
+               if not _facets_equal(a, b, "exact")[0]]
+        check(not bad, f"rank-by-key: cuda and cpu differ at {bad[:5]}")
+    finally:
+        del os.environ["SEEKSTORM_TPU_WAND_SORT"]
+    return dict(k3_launches=launches["facet2", n_big][2],
+                launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -919,13 +1321,16 @@ def main() -> int:
     k2 = phase_k2(torch, st, idx, served["queries"],
                   served["stragglers"])
     k2_launches = phase_dense(torch, st, idx, served)
+    k3 = phase_k3(torch, st, idx)
+    faceted = phase_facets(torch, st, idx)
     shutil.rmtree(WORK / "index", ignore_errors=True)
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")],
           "jax or the JAX package was imported")
 
-    # K1's times are those at the serve batch's own shapes; no single
-    # PyTorch call computes either kernel's function (library_ms null)
+    # K1's times are those at the serve batch's own shapes, K3's those at
+    # the facet2 batch's on the WAND route; no single PyTorch call computes
+    # K1's or K2's function (library_ms null)
     k1_main = served["k1"]
     print(json.dumps({"kernels": [{
         "name": "wand_scan_cuda",
@@ -952,6 +1357,19 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "facet_hist_cuda",
+        "route": "cuda",
+        "source": "seekstorm_tpu_torch/csrc/facet_hist.cu",
+        "replaces": "seekstorm_tpu/ops/wand.py:247, "
+                    "seekstorm_tpu/ops/lexical.py:297",
+        "launches": faceted["k3_launches"],
+        "max_abs_err": k3["err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ device:
 plain PyTorch versions of the kernels.
 """
 
+from .facets import index_facets_minmax, index_string_facets
 from .index import Index, create_index, open_index
 from .metrics import METRICS
 from .native import load as native_library
@@ -70,5 +71,5 @@ __all__ = [
     "VectorConfig", "VectorSimilarity", "FacetFilter", "Highlight",
     "QueryFacet", "QueryType", "Ranges", "ResultObject", "ResultSet",
     "ResultSort", "ResultType", "SearchMode", "SearchRequest", "search",
-    "search_batch",
+    "search_batch", "index_string_facets", "index_facets_minmax",
 ]

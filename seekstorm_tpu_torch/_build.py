@@ -43,16 +43,20 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wand_scan": {
         # ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk,
-        # T, with_counts, allub, ub4, ub16, g1, cnt, stream
+        # T, with_counts, allub, ub4, ub16, g1, cnt, mwords, stream
         "wand_scan_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P, _P, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _P, _P],
     },
     "dense_scan": {
         # docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off, s_len,
-        # s_bm, s_w, s_flag, P, T, out, cnt, stream
-        "dense_scan_launch": [_P] * 13 + [_I, _I, _P, _P, _P],
-        # the same inputs, P, T, kk, split, vals, docs, cnt, stream
-        "dense_topk_launch": [_P] * 13 + [_I] * 4 + [_P] * 4,
+        # s_bm, s_w, s_flag, P, T, out, cnt, mwords, stream
+        "dense_scan_launch": [_P] * 13 + [_I, _I, _P, _P, _P, _P],
+        # the same inputs, P, T, kk, split, vals, docs, cnt, mwords, stream
+        "dense_topk_launch": [_P] * 13 + [_I] * 4 + [_P] * 5,
+    },
+    "facet_hist": {
+        # mwords, p_blk, p_row, codes, nblk, P, NF, fcm, R, out, stream
+        "facet_hist_launch": [_P] * 4 + [_I] * 5 + [_P, _P],
     },
 }
 

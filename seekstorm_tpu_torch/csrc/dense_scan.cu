@@ -20,7 +20,12 @@
 //   fused (kk <= KMAX): vals[p, :], docs[p, :] = the top-kk matched docs by
 //       (S desc, doc asc), -inf / -1 past the last match;
 //   unfused: out[p, d] = matched ? S : -inf for every doc (the caller takes
-//       the top-k; used for kk > KMAX, deep pages).
+//       the top-k; used for kk > KMAX, deep pages, and for sorted results,
+//       whose rank is a per-doc key and not S).
+// In either mode it writes, on request, the packed matched words mwords
+// [P, NWORDS] (bit j of word i: doc i*32 + j matched), which the facet
+// histogram (csrc/facet_hist.cu) counts from: a faceted top-10 batch stays
+// one launch of this kernel.
 //
 // What bounds it on an H100.  Unfused, the 256 KB of masked scores a pair
 // writes.  Fused, nothing is written per doc: a pair reads its query's
@@ -250,13 +255,15 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
                   float* __restrict__ out,              // [P, 64K] unfused
                   float* __restrict__ vals,             // [P, kk] fused
                   int64_t* __restrict__ docs,           // [P, kk] fused
-                  int32_t* __restrict__ cnt) {          // [B], accumulated
+                  int32_t* __restrict__ cnt,            // [B], accumulated
+                  uint32_t* __restrict__ mwords) {      // [P, NWORDS] or null
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Sel sel;
   __shared__ int warp_cnt[NWARPS];
   __shared__ uint32_t dws[2][WWORDS];  // delete words, a window ahead
   __shared__ int64_t stage_c[PF];      // the cursor of each staged chunk
   __shared__ int n_bms;                // slots with a bitmap row
+  __shared__ uint32_t mws[WWORDS];     // the window's matched words (fused)
 
   int64_t* cur = reinterpret_cast<int64_t*>(smem);      // slot cursors
   int64_t* send = cur + SLOTS;                          // segment ends
@@ -299,6 +306,7 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
     reinterpret_cast<uint32_t*>(st)[i] = 0;
   if (tid < WWORDS) {
     occ[tid] = 0;
+    mws[tid] = 0;
     dws[0][tid] = dw[w0 * WWORDS + tid];
   }
   if (tid < PF) stage_c[tid] = -1;
@@ -451,6 +459,7 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
           st[x] = 0;
         }
         mine += m ? 1 : 0;
+        if (mwords != nullptr && m) atomicOr(&mws[x >> 5], 1u << (x & 31));
         const uint64_t key =
             (static_cast<uint64_t>(__float_as_uint(s)) << 16) |
             static_cast<uint64_t>(65535 - (wbase + x));
@@ -466,6 +475,12 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
           shrink(cand, keep, hist, sel, kk, tid, lane, warp);
       }
       if (lane < EPI && oc) occ[j0 + lane] = 0;
+      // the loop's last barrier followed every atomicOr above
+      if (mwords != nullptr && tid < WWORDS) {
+        mwords[static_cast<int64_t>(p) * NWORDS + (wbase >> 5) + tid] =
+            mws[tid];
+        mws[tid] = 0;
+      }
     } else {
       // every doc's masked score is written: a warp a word
 #pragma unroll 1
@@ -484,6 +499,9 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
         if (lane == 0 && o) occ[j] = 0;
         mine += m ? 1 : 0;
         out[static_cast<int64_t>(p) * BLOCK_DOCS + wbase + x] = m ? s : ninf;
+        const uint32_t mb = __ballot_sync(FULL, m);
+        if (mwords != nullptr && lane == 0)
+          mwords[static_cast<int64_t>(p) * NWORDS + (wbase >> 5) + j] = mb;
       }
     }
     if (tid < WWORDS) dws[(wi - w0 + 1) & 1][tid] = dnext;
@@ -547,7 +565,7 @@ int launch(const void* docid, const void* imp, const void* bitmaps,
            const void* p_q, const void* p_nreq, const void* s_off,
            const void* s_len, const void* s_bm, const void* s_w,
            const void* s_flag, int P, int T, int split, int kk, void* out,
-           void* vals, void* docs, void* cnt, void* stream) {
+           void* vals, void* docs, void* cnt, void* mwords, void* stream) {
   if (P <= 0) return 0;
   if (T > SLOTS - 1 || split < 1 || NWIN % split != 0 ||
       (FUSED && (split > 8 || kk < 1 || kk > KMAX)))
@@ -582,7 +600,8 @@ int launch(const void* docid, const void* imp, const void* bitmaps,
       static_cast<const int32_t*>(s_len), static_cast<const int32_t*>(s_bm),
       static_cast<const float*>(s_w), static_cast<const int32_t*>(s_flag), T,
       split, kk, static_cast<float*>(out), static_cast<float*>(vals),
-      static_cast<int64_t*>(docs), static_cast<int32_t*>(cnt));
+      static_cast<int64_t*>(docs), static_cast<int32_t*>(cnt),
+      static_cast<uint32_t*>(mwords));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -590,8 +609,9 @@ int launch(const void* docid, const void* imp, const void* bitmaps,
 }  // namespace
 
 // Unfused mode: masked scores of P pairs of T slot columns into out
-// [P, 64K].  Returns cudaGetLastError() after the launch (0 when P == 0 and
-// nothing is launched).
+// [P, 64K], and the matched words into mwords [P, NWORDS] unless it is null.
+// Returns cudaGetLastError() after the launch (0 when P == 0 and nothing is
+// launched).
 extern "C" int dense_scan_launch(const void* docid, const void* imp,
                                  const void* bitmaps, const void* sat1,
                                  const void* delw, const void* p_blk,
@@ -599,14 +619,15 @@ extern "C" int dense_scan_launch(const void* docid, const void* imp,
                                  const void* s_off, const void* s_len,
                                  const void* s_bm, const void* s_w,
                                  const void* s_flag, int P, int T, void* out,
-                                 void* cnt, void* stream) {
+                                 void* cnt, void* mwords, void* stream) {
   return launch<false>(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                        s_off, s_len, s_bm, s_w, s_flag, P, T, UNFUSED_SPLIT,
-                       0, out, nullptr, nullptr, cnt, stream);
+                       0, out, nullptr, nullptr, cnt, mwords, stream);
 }
 
 // Fused mode: the top-kk of each of P pairs into vals [P, kk] and docs
-// [P, kk], split CTAs (a cluster) a pair.  Returns cudaGetLastError() after
+// [P, kk], split CTAs (a cluster) a pair, and the matched words into mwords
+// [P, NWORDS] unless it is null.  Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a kk, split or T it does not take.
 extern "C" int dense_topk_launch(const void* docid, const void* imp,
                                  const void* bitmaps, const void* sat1,
@@ -616,8 +637,8 @@ extern "C" int dense_topk_launch(const void* docid, const void* imp,
                                  const void* s_bm, const void* s_w,
                                  const void* s_flag, int P, int T, int kk,
                                  int split, void* vals, void* docs, void* cnt,
-                                 void* stream) {
+                                 void* mwords, void* stream) {
   return launch<true>(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                       s_off, s_len, s_bm, s_w, s_flag, P, T, split, kk,
-                      nullptr, vals, docs, cnt, stream);
+                      nullptr, vals, docs, cnt, mwords, stream);
 }

@@ -21,7 +21,11 @@
 //   g1   [Bq, L1/128] max over 128 (the warp: a rung-1 group of
 //                     _topk_lanes),
 // with L1 = nblk*NW.  A max is exact, so these equal the amax chain of the
-// plain version bit for bit.
+// plain version bit for bit.  On request it also writes the matched words
+// themselves, mwords [Bq, L1], which it holds in registers anyway: the facet
+// histogram (csrc/facet_hist.cu) counts from them and rank-by-key batches
+// mask their sort-key bounds with them.  Without the request nothing more
+// is written than the five outputs above.
 //
 // What bounds it on an H100: bytes.  Per (query, block, word) the kernel
 // reads T presence words and up to T bucket-max words and writes the UB and
@@ -106,7 +110,7 @@ __device__ __forceinline__ void fetch(Stage<T>& st, const int* rows,
   cp_async_commit();
 }
 
-template <int T, bool FILTER, bool COUNTS>
+template <int T, bool FILTER, bool COUNTS, bool MATCHED>
 __global__ void __launch_bounds__(THREADS)
 wand_scan_kernel(const uint32_t* __restrict__ ppool,   // [PR, NW]
                  const float* __restrict__ vpool,      // [PR, NW]
@@ -122,7 +126,8 @@ wand_scan_kernel(const uint32_t* __restrict__ ppool,   // [PR, NW]
                  float* __restrict__ ub4,              // [Bq, L1/4]
                  float* __restrict__ ub16,             // [Bq, L1/16]
                  float* __restrict__ g1,               // [Bq, L1/128]
-                 int32_t* __restrict__ cnt) {          // [Bq], zeroed
+                 int32_t* __restrict__ cnt,            // [Bq], zeroed
+                 uint32_t* __restrict__ mwords) {      // [Bq, L1] if MATCHED
   constexpr int NC = T < 3 ? T : 3;
   const float ninf = __int_as_float(0xff800000);
   const int tid = threadIdx.x;
@@ -228,10 +233,12 @@ wand_scan_kernel(const uint32_t* __restrict__ ppool,   // [PR, NW]
     }
 
     float ub[WPT];
+    uint32_t mt[WPT];
     int c = 0;
 #pragma unroll
     for (int i = 0; i < WPT; ++i) {
       const uint32_t matched = andw[i] & posw[i] & ~negw[i] & notdel[i];
+      mt[i] = matched;
       if (COUNTS) c += __popc(matched);
       // best over the live classes of the first NC columns' partial sums,
       // then the later columns added once: rounding is monotone, so
@@ -269,6 +276,9 @@ wand_scan_kernel(const uint32_t* __restrict__ ppool,   // [PR, NW]
     const size_t q = static_cast<size_t>(q0 + qq);
     __stcs(reinterpret_cast<float4*>(allub + q * L1 + bw),
            make_float4(ub[0], ub[1], ub[2], ub[3]));
+    if (MATCHED)
+      *reinterpret_cast<uint4*>(mwords + q * L1 + bw) =
+          make_uint4(mt[0], mt[1], mt[2], mt[3]);
     float m = fmaxf(fmaxf(ub[0], ub[1]), fmaxf(ub[2], ub[3]));
     __stcs(&ub4[q * (L1 / 4) + bw / 4], m);
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -291,7 +301,8 @@ cudaError_t launch_t(const void* ppool, const void* vpool, const void* prow,
                      int V, const void* delw, const void* filtw,
                      const void* tcode, const void* wshard, const void* sid,
                      int Bq, int nblk, int with_counts, void* allub, void* ub4,
-                     void* ub16, void* g1, void* cnt, cudaStream_t stream) {
+                     void* ub16, void* g1, void* cnt, void* mwords,
+                     cudaStream_t stream) {
   const dim3 grid(NW / CHUNK, nblk, (Bq + QT - 1) / QT);
   const dim3 block(THREADS);
   constexpr int smem = 2 * static_cast<int>(sizeof(Stage<T>));
@@ -307,39 +318,49 @@ cudaError_t launch_t(const void* ppool, const void* vpool, const void* prow,
         static_cast<const int32_t*>(tcode), static_cast<const float*>(wshard),
         static_cast<const int32_t*>(sid), Bq, nblk, static_cast<float*>(allub),
         static_cast<float*>(ub4), static_cast<float*>(ub16),
-        static_cast<float*>(g1), static_cast<int32_t*>(cnt));
+        static_cast<float*>(g1), static_cast<int32_t*>(cnt),
+        static_cast<uint32_t*>(mwords));
     err = cudaGetLastError();
   };
   const bool filt = filtw != nullptr;
-  if (filt && with_counts) run(wand_scan_kernel<T, true, true>);
-  else if (filt) run(wand_scan_kernel<T, true, false>);
-  else if (with_counts) run(wand_scan_kernel<T, false, true>);
-  else run(wand_scan_kernel<T, false, false>);
+  if (mwords != nullptr) {
+    if (filt && with_counts) run(wand_scan_kernel<T, true, true, true>);
+    else if (filt) run(wand_scan_kernel<T, true, false, true>);
+    else if (with_counts) run(wand_scan_kernel<T, false, true, true>);
+    else run(wand_scan_kernel<T, false, false, true>);
+  } else if (filt && with_counts) run(wand_scan_kernel<T, true, true, false>);
+  else if (filt) run(wand_scan_kernel<T, true, false, false>);
+  else if (with_counts) run(wand_scan_kernel<T, false, true, false>);
+  else run(wand_scan_kernel<T, false, false, false>);
   return err;
 }
 
 }  // namespace
 
-// Returns the CUDA error of the attribute call or the launch, 0 on success,
-// or -1 for an unsupported T.
+// mwords may be null: the matched words are then not written.  Returns the
+// CUDA error of the attribute call or the launch, 0 on success, or -1 for an
+// unsupported T.
 extern "C" int wand_scan_launch(const void* ppool, const void* vpool,
                                 const void* prow, int V, const void* delw,
                                 const void* filtw, const void* tcode,
                                 const void* wshard, const void* sid, int Bq,
                                 int nblk, int T, int with_counts, void* allub,
                                 void* ub4, void* ub16, void* g1, void* cnt,
-                                void* stream) {
+                                void* mwords, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (T) {
     case 2:
       return launch_t<2>(ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid,
-                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, s);
+                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, mwords,
+                         s);
     case 4:
       return launch_t<4>(ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid,
-                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, s);
+                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, mwords,
+                         s);
     case 8:
       return launch_t<8>(ppool, vpool, prow, V, delw, filtw, tcode, wshard, sid,
-                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, s);
+                         Bq, nblk, with_counts, allub, ub4, ub16, g1, cnt, mwords,
+                         s);
     default:
       return -1;
   }

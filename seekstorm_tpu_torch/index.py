@@ -4,9 +4,8 @@ persistence, open/close, document CRUD.
 The port's copy of ``seekstorm_tpu/index.py``: the same on-disk format, byte
 for byte.  What differs: an index is bound to a torch device (``device=`` of
 ``create_index``/``open_index``, default ``"cuda"``), on which commit's
-frequent-word warmup runs through the port's ``search_batch``; the warmup
-cache holds pages and counts without string-facet histograms (facets are
-ROADMAP A.6); ``precompile`` is gone (PyTorch compiles nothing per shape);
+frequent-word warmup runs through the port's ``search_batch``;
+``precompile`` is gone (PyTorch compiles nothing per shape);
 ``attach_mesh`` (A.9) and vector indexes (A.8) raise NotImplementedError.
 
 Structure mirrors the reference's lifecycle (reference seekstorm/src/index.rs
@@ -1339,12 +1338,14 @@ class Index:
     def warmup(self, k: int = 1000, batch: int = 256) -> None:
         """Precompute cached results for every frequent word present in the
         index (reference warmup index.rs:4006-4058, invoked from commit
-        commit.rs:148): top-k doc ids + scores + exact counts, served to
-        single-term queries without a device dispatch.  Runs through the
-        port's search_batch on the index's device.  The reference also
-        caches string-facet histograms; until ROADMAP A.6 the port serves
-        no faceted query, so its cache holds pages and counts only."""
-        from .search import ResultType, SearchRequest, search_batch
+        commit.rs:148): top-k doc ids + scores + exact counts, and the
+        string-facet histograms over all matching docs (the reference
+        caches `facets` alongside the result page, index.rs:4035-4050),
+        served to single-term queries, faceted or not, without a device
+        dispatch.  Runs through the port's search_batch on the index's
+        device."""
+        from .search import (QueryFacet, ResultType, SearchRequest,
+                             search_batch)
 
         present = []
         for w in sorted(self._frequent_words):
@@ -1353,12 +1354,20 @@ class Index:
                    and sh.lexical.directory.lookup(h) >= 0
                    for sh in self.shards):
                 present.append(w)
+        # plain string-facet histograms (reference get_index_string_facets
+        # semantics): every string/stringset facet field, full depth
+        facet_specs = [
+            QueryFacet(field=sf.field, length=k)
+            for sf in self.facet_fields
+            if sf.field_type.is_string_facet
+        ]
         cache: dict[int, tuple] = {}
         for i in range(0, len(present), batch):
             chunk = present[i : i + batch]
             reqs = [
                 SearchRequest(query=w, length=k, realtime=False,
-                              result_type=ResultType.TopkCount)
+                              result_type=ResultType.TopkCount,
+                              query_facets=list(facet_specs))
                 for w in chunk
             ]
             for w, rs in zip(chunk, search_batch(self, reqs, self.device)):
@@ -1366,6 +1375,7 @@ class Index:
                     np.array([r.score for r in rs.results], np.float32),
                     np.array([r.doc_id for r in rs.results], np.int64),
                     rs.result_count_total,
+                    dict(rs.facets),
                 )
         self._warmup_cache = cache
         self._warmup_k = k

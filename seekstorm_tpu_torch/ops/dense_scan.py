@@ -26,10 +26,13 @@ gives ``cnt[q] += popcount(matched)`` and, by mode:
     no per-doc score leaves the kernel;
   * unfused (``dense_scan``): the masked score of every doc (-inf where
     unmatched), whose top-k the caller takes (``topk_block``); for kk >
-    KMAX, deep pages.
+    KMAX, deep pages, and for sorted results, which rank a matched doc by
+    its sort key (``topk_tiles`` with ``rank``) and not by its score.
 
 Both modes are one kernel source; K2 and the plain versions are bitwise
-equal.
+equal.  With ``with_matched`` either mode also returns the packed matched
+words i32[P, NWORDS], which the facet histogram (``ops/facet_hist.py``,
+kernel K3) counts from.
 
 Device layout: docids are u16 bit patterns in int16, bitmap and delete
 words u32 bit patterns in int32 (torch has no u32 shifts on the CPU).
@@ -70,6 +73,14 @@ def unpack_words(words: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*words.shape[:-1], words.shape[-1] * 32) != 0
 
 
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """bool [..., n*32] -> int32 bit-pattern words [..., n], the inverse of
+    unpack_words."""
+    b = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 32, 32)
+    w = (b.to(torch.int64) << _BIT.to(bits.device).long()).sum(dim=-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 fused multiply-add a*b + c (what __fmaf_rn
     computes).  The product is exact in f64; the f64 sum is rounded to odd
@@ -88,7 +99,8 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
-                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
+                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int,
+                   with_matched: bool = False):
     """Plain PyTorch block scan over P pairs.
 
     docid i16[Pc] (u16 bits) / imp f32[Pc] the CSR remainder; bitmaps
@@ -96,7 +108,8 @@ def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     deleted-doc words; p_blk / p_q / p_nreq i32[P] global block, batch row
     and required-slot count of each pair; s_off i64 / s_len i32 / s_bm i32
     / s_w f32 / s_flag i32 [P, T] per (pair, slot).  Returns (scores
-    f32[P, BLOCK_SIZE] with -inf where unmatched, cnt i32[n_queries])."""
+    f32[P, BLOCK_SIZE] with -inf where unmatched, cnt i32[n_queries]), and
+    with_matched the matched words i32[P, NWORDS] as a third."""
     dev = imp.device
     P, T = s_len.shape
     score = torch.zeros((P, BLOCK_SIZE), dtype=torch.float32, device=dev)
@@ -142,6 +155,8 @@ def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                       torch.full((), float("-inf"), device=dev))
     cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
     cnt.index_add_(0, p_q.long(), matched.sum(dim=1, dtype=torch.int32))
+    if with_matched:
+        return out, cnt, pack_words(matched)
     return out, cnt
 
 
@@ -175,7 +190,8 @@ def _pointers(*xs):
 
 
 def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
-                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int):
+                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int,
+                    with_matched: bool = False):
     """K2's unfused mode on CUDA tensors: same contract as
     dense_scan_ref."""
     global LAUNCHES
@@ -186,22 +202,29 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     dev, P, T = _check_inputs(*ins)
     out = torch.empty((P, BLOCK_SIZE), dtype=torch.float32, device=dev)
     cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    mwords = torch.empty((P, NWORDS), dtype=torch.int32, device=dev) \
+        if with_matched else None
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
     err = lib.dense_scan_launch(*_pointers(*ins), P, T, out.data_ptr(),
-                                cnt.data_ptr(), stream)
+                                cnt.data_ptr(),
+                                mwords.data_ptr() if with_matched else None,
+                                stream)
     if err != 0:
         raise RuntimeError(f"dense_scan_cuda launch failed (error {err})")
+    if with_matched:
+        return out, cnt, mwords
     return out, cnt
 
 
 def dense_scan(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
-               s_len, s_bm, s_w, s_flag, n_queries: int):
+               s_len, s_bm, s_w, s_flag, n_queries: int,
+               with_matched: bool = False):
     """Unfused mode: the plain version for tensors on the CPU, K2 for CUDA
     tensors (a CUDA failure raises; there is no fallback)."""
     args = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
-            s_len, s_bm, s_w, s_flag, n_queries)
+            s_len, s_bm, s_w, s_flag, n_queries, with_matched)
     if imp.device.type == "cpu":
         return dense_scan_ref(*args)
     if imp.device.type == "cuda":
@@ -243,43 +266,62 @@ def _check_kk(kk: int):
 
 
 def topk_tiles(scan, docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
-               s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+               s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int,
+               rank=None, with_matched: bool = False):
     """Each pair's top-kk by (score desc, doc asc) from the masked scores of
     `scan` (dense_scan or dense_scan_ref), TILE_PAIRS pairs at a time, each
-    tile reduced by topk_block.  Returns (vals f32[P, kk], docs i64[P, kk],
-    cnt i32[n_queries]); an entry past a pair's last match is -inf with
-    doc -1."""
+    tile reduced by topk_block.  With rank f32[NBLK*BLOCK_SIZE] (sorted
+    results) a matched doc ranks by rank[block*BLOCK_SIZE + doc] in place of
+    its score: the top-kk by (rank desc, doc asc), as the reference's
+    sort-key scan orders a block (lexical.py:535-544).  Returns (vals
+    f32[P, kk], docs i64[P, kk], cnt i32[n_queries]), and with_matched the
+    matched words i32[P, NWORDS] as a fourth; an entry past a pair's last
+    match is -inf with doc -1."""
     dev = imp.device
     P = p_blk.shape[0]
     pairs = (p_blk, p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag)
     vals = torch.empty((P, kk), dtype=torch.float32, device=dev)
     docs = torch.empty((P, kk), dtype=torch.int64, device=dev)
     cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    mwords = torch.empty((P, NWORDS), dtype=torch.int32, device=dev) \
+        if with_matched else None
+    ninf = torch.full((), float("-inf"), device=dev)
     for a in range(0, P, TILE_PAIRS):
         b = a + TILE_PAIRS
-        scores, c = scan(docid, imp, bitmaps, sat1, delw,
-                         *[x[a:b] for x in pairs], n_queries)
+        args = (docid, imp, bitmaps, sat1, delw, *[x[a:b] for x in pairs],
+                n_queries)
+        if with_matched:
+            scores, c, mwords[a:b] = scan(*args, True)
+        else:
+            scores, c = scan(*args)
         cnt += c
+        if rank is not None:
+            scores = torch.where(
+                scores > ninf, rank.view(-1, BLOCK_SIZE)[p_blk[a:b].long()],
+                ninf)
         v, d = topk_block(scores, kk)
         vals[a:b] = v
         docs[a:b] = torch.where(torch.isfinite(v), d, -1)
         del scores
+    if with_matched:
+        return vals, docs, cnt, mwords
     return vals, docs, cnt
 
 
 def dense_topk_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
-                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+                   s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int,
+                   with_matched: bool = False):
     """Plain PyTorch version of K2's fused mode: topk_tiles of
     dense_scan_ref, kk <= KMAX."""
     _check_kk(kk)
     return topk_tiles(dense_scan_ref, docid, imp, bitmaps, sat1, delw, p_blk,
                       p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag,
-                      n_queries, kk)
+                      n_queries, kk, with_matched=with_matched)
 
 
 def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                     s_off, s_len, s_bm, s_w, s_flag, n_queries: int, kk: int,
-                    split: int | None = None):
+                    split: int | None = None, with_matched: bool = False):
     """K2's fused mode on CUDA tensors, one launch for all pairs: same
     contract as dense_topk_ref.  split: CTAs a pair (a cluster), one of
     SPLITS; by default SMALL_SPLIT below SPLIT_BELOW_SMS pairs an SM,
@@ -299,25 +341,32 @@ def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     vals = torch.empty((P, kk), dtype=torch.float32, device=dev)
     docs = torch.empty((P, kk), dtype=torch.int64, device=dev)
     cnt = torch.zeros(n_queries, dtype=torch.int32, device=dev)
+    mwords = torch.empty((P, NWORDS), dtype=torch.int32, device=dev) \
+        if with_matched else None
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
     err = lib.dense_topk_launch(*_pointers(*ins), P, T, kk, split,
                                 vals.data_ptr(), docs.data_ptr(),
-                                cnt.data_ptr(), stream)
+                                cnt.data_ptr(),
+                                mwords.data_ptr() if with_matched else None,
+                                stream)
     if err != 0:
         raise RuntimeError(f"dense_topk_cuda launch failed (error {err})")
+    if with_matched:
+        return vals, docs, cnt, mwords
     return vals, docs, cnt
 
 
 def dense_topk(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
-               s_len, s_bm, s_w, s_flag, n_queries: int, kk: int):
+               s_len, s_bm, s_w, s_flag, n_queries: int, kk: int,
+               with_matched: bool = False):
     """Fused mode: the plain version for tensors on the CPU, K2 for CUDA
     tensors (a CUDA failure raises; there is no fallback)."""
     args = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
             s_len, s_bm, s_w, s_flag, n_queries, kk)
     if imp.device.type == "cpu":
-        return dense_topk_ref(*args)
+        return dense_topk_ref(*args, with_matched=with_matched)
     if imp.device.type == "cuda":
-        return dense_topk_cuda(*args)
+        return dense_topk_cuda(*args, with_matched=with_matched)
     raise ValueError(f"no dense scan for device {imp.device}")

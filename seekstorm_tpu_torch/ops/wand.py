@@ -13,7 +13,14 @@ engine has four phases per batch:
   4. ``_ladder_device``: the page, the WAND termination test and a rung-2
      escalation, returned as one slim i32 buffer per query.
 
-Phases 2-4 are torch ops.  Queries the device ladder cannot finish go
+Phases 2-4 are torch ops.  A batch may carry, as in the reference: a facet
+filter (packed disallowed words, ANDed out of matching in phase 1, phase 3
+and the host rescores like the deleted words); facet codes, whose exact
+histogram over every matched doc kernel K3 (``ops/facet_hist.py``) counts
+from phase 1's matched words; and a rank key (sorted results): regions then
+rank by their bucket's best sort key where a doc matched, the host ladder
+ranks candidates by their exact keys over all three rungs with the strict
+test, and the device ladder is off.  Queries the device ladder cannot finish go
 through the host rung ladder (native ``st_rescore``).  Queries whose UBs
 saturate every rung are stragglers: at batch >= 512 (or under
 ``SEEKSTORM_TPU_WAND_DEFER_DENSE``) they come back unhandled for the dense
@@ -44,6 +51,7 @@ from .. import native
 from ..metrics import METRICS
 from ..schema import BLOCK_SIZE
 from ..utils import ceil_pow2
+from .facet_hist import facet_hist, wand_pairs
 from .wand_scan import popcount32, rung_maxima, scan_blocks
 
 NW = BLOCK_SIZE // 32          # packed words per block == buckets per block
@@ -122,7 +130,8 @@ _BELOW = torch.tensor([(1 << b) - 1 for b in range(32)], dtype=torch.int32)
 
 
 def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
-                     slotmap, tslot, treq, tneg, wshard, ids, vals):
+                     slotmap, tslot, treq, tneg, wshard, ids, vals,
+                     filtw=None):
     """Phase 3: exact rescore of the selected buckets.
 
     ids / vals [Bq, K]: bucket ids and their UBs (-inf = unselected).  For
@@ -131,6 +140,7 @@ def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
     (the reference's one-hot MXU select is not needed here).  Scores add
     one term at a time in column order with a separate mul and add, the
     host rescore's two-rounding chain, so UB >= score stays bitwise.
+    filtw i32[NBLK, NW]: a facet filter's disallowed words, or None.
 
     Returns (score f32[Bq, K*32] with -inf for unmatched lanes, lane
     i32[Bq, K*32] doc lanes = bucket*32 + bit, found i32[Bq])."""
@@ -181,6 +191,8 @@ def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
         negw = negw | torch.where((tneg[:, t] & ts_ok[:, t])[:, None],
                                   pres[:, t], zero_i)
     matched_w = andw & posw & ~negw & ~delw[blk, w]
+    if filtw is not None:
+        matched_w = matched_w & ~filtw[blk, w]
     matched = ((matched_w[..., None] >> bit) & 1) != 0
     matched = matched & valid_s[..., None]               # [Bq, K, 32]
 
@@ -282,35 +294,63 @@ def batch_prow(sp_prow, slotmap):
 
 
 def scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq, tneg,
-            wshard, *, with_counts: bool):
+            wshard, *, with_counts: bool, filtw=None,
+            with_matched: bool = False):
     """Phase 1 over the resident pools (K1 on CUDA).  Returns (allub
-    f32[Bq, NBLK*NW], cnt i32[Bq], ub4, ub16, g1) as scan_blocks does."""
+    f32[Bq, NBLK*NW], cnt i32[Bq], ub4, ub16, g1) as scan_blocks does, and
+    with_matched the matched words as a sixth."""
     return scan_blocks(ppool, vpool, batch_prow(sp_prow, slotmap), delw,
-                       None, tslot, treq, tneg, wshard, sid,
-                       with_counts=with_counts)
+                       filtw, tslot, treq, tneg, wshard, sid,
+                       with_counts=with_counts, with_matched=with_matched)
 
 
 def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
               slotmap, tslot, treq, tneg, wshard, *, with_counts: bool,
-              with_rescore: bool, need: int = 0, multi: bool = False):
+              with_rescore: bool, need: int = 0, multi: bool = False,
+              filtw=None, fcod=None, fcm: int = 1, skeyb=None):
     """One WAND dispatch over the resident pools.
 
-    with_rescore=True returns the slim i32 buffer of _ladder_device;
-    otherwise (cnt i32[Bq], rungs) for the host rung ladder."""
-    allub, cnt, *maxima = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap,
-                                  tslot, treq, tneg, wshard,
-                                  with_counts=with_counts)
-    rungs = _rung_topks(allub, sp_prow.shape[1], maxima)
+    filtw i32[NBLK, NW]: a facet filter's disallowed words.  fcod
+    i32[NF, NBLK*BLOCK_SIZE] with code space fcm: the facet histogram fc
+    i32[NF, Bq, fcm] over every matched doc, from phase 1's matched words
+    (K3 on CUDA).  skeyb f32[NBLK, NW] (rank-by-key, the reference's
+    wand.py:275-283): a bucket's bound is its best sort key where a doc
+    matched, and the rungs rank those.
+
+    Returns (out, fc), fc None without fcod: with_rescore=True out is the
+    slim i32 buffer of _ladder_device; otherwise (cnt i32[Bq], rungs) for
+    the host rung ladder."""
+    NBLK = sp_prow.shape[1]
+    want_matched = fcod is not None or skeyb is not None
+    allub, cnt, *rest = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap,
+                                tslot, treq, tneg, wshard,
+                                with_counts=with_counts, filtw=filtw,
+                                with_matched=want_matched)
+    maxima = rest[:3]
+    fc = None
+    if want_matched:
+        mwords = rest[3]
+        Bq = mwords.shape[0]
+        if fcod is not None:
+            fc = facet_hist(mwords.view(Bq * NBLK, NW),
+                            *wand_pairs(Bq, NBLK, mwords.device), fcod, fcm,
+                            Bq)
+        if skeyb is not None:
+            allub = torch.where(mwords != 0, skeyb.reshape(1, NBLK * NW),
+                                torch.full((), float("-inf"),
+                                           device=mwords.device))
+            maxima = None
+    rungs = _rung_topks(allub, NBLK, maxima)
     if not with_rescore:
-        return cnt, rungs
+        return (cnt, rungs), fc
 
     def rescore_fn(ids, vals):
         return _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw,
                                 sid, slotmap, tslot, treq, tneg, wshard,
-                                ids, vals)
+                                ids, vals, filtw)
 
     return _ladder_device(cnt, rungs, rescore_fn, need=need, multi=multi,
-                          s_gt1=wshard.shape[0] > 1)
+                          s_gt1=wshard.shape[0] > 1), fc
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +459,25 @@ class WandState:
         self.cap_prows = max(cap_bytes * 9 // 10 // (NW * 10), 64)
         self.cap_slots = max(cap_bytes // 10 // (self.nblk * 4), 64)
         self.cap_imps = max(IMP_MB * 1024 * 1024 // 4, 4096)
+        self._aux: dict = {}
         self._reset()
+
+    def aux(self, key, make, device: bool = True):
+        """(host array, tensor on this state's device) of an auxiliary array
+        in the global-block layout (facet codes, filter words, a rank key),
+        built once per key by make(); the tensor is None with
+        device=False, and u32 words go up as int32 bit patterns.  Dropped
+        with the state, which a commit or delete replaces."""
+        with self.lock:
+            hit = self._aux.get(key)
+            if hit is None:
+                host = np.ascontiguousarray(make())
+                dev = None
+                if device:
+                    dev = self._put(host.view(np.int32)
+                                    if host.dtype == np.uint32 else host)
+                hit = self._aux[key] = (host, dev)
+            return hit
 
     @property
     def pools(self):
@@ -698,19 +756,34 @@ def _deleted_flat(state, S):
 
 
 def _rescore_many(state: WandState, slot_rows, specs_sel, idf_per_shard,
-                  buckets_list, S: int, need: int = 0):
+                  buckets_list, S: int, need: int = 0, filt_host=None,
+                  rank_key=None):
     """Exact host rescore of many queries' candidate buckets: the native
-    st_rescore when the library loads, else the numpy formulation."""
+    st_rescore when the library loads, else the numpy formulation.
+    filt_host u32[NBLK, NW]: a facet filter's disallowed words, so pages
+    never hold a filtered doc.  rank_key f32[NBLK*BLOCK_SIZE] (sorted
+    results): matched candidates rank by their key, not their score."""
     out = _rescore_many_native(state, slot_rows, specs_sel, idf_per_shard,
-                               buckets_list, S, need)
+                               buckets_list, S, need, filt_host, rank_key)
     if out is not None:
         return out
     return _rescore_many_np(state, slot_rows, specs_sel, idf_per_shard,
-                            buckets_list, S)
+                            buckets_list, S, filt_host, rank_key)
+
+
+def _opt_ptr(a, np_type, c_type):
+    """(array kept alive, C pointer) of an optional array: null for None."""
+    import ctypes as C
+
+    if a is None:
+        return None, C.POINTER(c_type)()
+    a = np.ascontiguousarray(a, np_type)
+    return a, a.ctypes.data_as(C.POINTER(c_type))
 
 
 def _rescore_many_native(state: WandState, slot_rows, specs_sel,
-                         idf_per_shard, buckets_list, S: int, need: int):
+                         idf_per_shard, buckets_list, S: int, need: int,
+                         filt_host=None, rank_key=None):
     """st_rescore (C++, GIL released): one call per batch rung.  Output is
     cut to kmax = max(need*4, 64) entries per query; the length of the
     returned arrays still reports the true matched count (-inf / -1
@@ -773,17 +846,18 @@ def _rescore_many_native(state: WandState, slot_rows, specs_sel,
     def p(a, ct):
         return a.ctypes.data_as(C.POINTER(ct))
 
+    filt_c, filt_p = _opt_ptr(filt_host, np.uint32, C.c_uint32)
+    rank_c, rank_p = _opt_ptr(rank_key, np.float32, C.c_float)
     lib.st_rescore(
         n_used, p(key_ptrs, C.c_uint64), p(imp_ptrs, C.c_uint64),
         p(slot_len, C.c_int64), p(w_slot_shard, C.c_float),
         nq, p(q_slots, C.c_int32), p(q_flags, C.c_uint8),
         p(qs_off, C.c_int64), p(buckets, C.c_int64), p(qoff, C.c_int64),
         p(blk_shard, C.c_int32), p(base, C.c_int64), S, NW,
-        p(del_flat, C.c_int64), p(del_off, C.c_int64),
-        C.POINTER(C.c_uint32)(), C.POINTER(C.c_float)(),
+        p(del_flat, C.c_int64), p(del_off, C.c_int64), filt_p, rank_p,
         kmax, p(out_s, C.c_float), p(out_g, C.c_int64),
         p(out_m, C.c_int64), p(out_f, C.c_int64))
-    del keep
+    del keep, filt_c, rank_c
     out = []
     for qi in range(nq):
         m = int(out_m[qi])
@@ -798,7 +872,7 @@ def _rescore_many_native(state: WandState, slot_rows, specs_sel,
 
 
 def _rescore_many_np(state: WandState, slot_rows, specs_sel, idf_per_shard,
-                     buckets_list, S: int):
+                     buckets_list, S: int, filt_host=None, rank_key=None):
     """numpy host rescore: per query (scores f32[n], gids i64[n]) sorted by
     (score desc, gid asc).  Scoring slots add in ascending slot id, the
     order of the device UB chain."""
@@ -872,6 +946,11 @@ def _rescore_many_np(state: WandState, slot_rows, specs_sel, idf_per_shard,
             scores[rm, lm] += w.astype(np.float32) * sr.imps[im]
 
     matched = anyh & ~negh & (reqc >= nreq[qmap][:, None])
+    if filt_host is not None:
+        fw = filt_host[blk, word]
+        fbits = (fw[:, None] >> np.arange(32, dtype=np.uint32)) \
+            & np.uint32(1)
+        matched &= fbits == 0
     shard_of = state.blk_shard[blk]
     base_arr = np.asarray(state.block_base, np.int64)
     lvl_local0 = ((blk - base_arr[shard_of]) * BLOCK_SIZE + word * 32)
@@ -892,7 +971,11 @@ def _rescore_many_np(state: WandState, slot_rows, specs_sel, idf_per_shard,
     rows, local = np.nonzero(matched)
     if not len(rows):
         return [empty] * nq
-    sc = scores[rows, local]
+    if rank_key is not None:
+        sc = rank_key[blk[rows] * BLOCK_SIZE + word[rows] * 32 + local]
+        sc = sc.astype(np.float32)
+    else:
+        sc = scores[rows, local]
     gid = ((lvl_local0[rows] + local) * S + shard_of[rows]).astype(np.int64)
     qi_of = qmap[rows]
     order = np.lexsort((gid, -sc, qi_of))
@@ -907,7 +990,8 @@ def _rescore_many_np(state: WandState, slot_rows, specs_sel, idf_per_shard,
     return out
 
 
-def _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N, need):
+def _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N, need,
+                       filt_host=None, rank_key=None):
     """st_exact_eval (C++) version of the exact evaluation: GIL released,
     bit-identical accumulation.  None when the native library is absent."""
     import ctypes as C
@@ -945,29 +1029,32 @@ def _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N, need):
     def p(a, ct):
         return a.ctypes.data_as(C.POINTER(ct))
 
+    filt_c, filt_p = _opt_ptr(filt_host, np.uint32, C.c_uint32)
+    rank_c, rank_p = _opt_ptr(rank_key, np.float32, C.c_float)
     m = lib.st_exact_eval(
         len(order), p(keys, C.c_uint32), p(imps, C.c_float),
         p(offs, C.c_int64), p(wss, C.c_float), p(flags, C.c_uint8),
         p(blk_shard, C.c_int32), p(base, C.c_int64), S, N,
-        p(del_flat, C.c_int64), p(del_off, C.c_int64),
-        C.POINTER(C.c_uint32)(), C.POINTER(C.c_float)(), k,
+        p(del_flat, C.c_int64), p(del_off, C.c_int64), filt_p, rank_p, k,
         p(out_s, C.c_float), p(out_g, C.c_int64), p(out_c, C.c_int64))
+    del filt_c, rank_c
     m = int(m)
     return out_s[:m], out_g[:m], int(out_c[0])
 
 
 def _exact_fallback(state: WandState, slot_rows, spec, idf_per_shard,
-                    S: int, need: int):
+                    S: int, need: int, filt_host=None, rank_key=None):
     """Exact full evaluation of one query on the host CSR, for queries
     whose UBs saturate every rung.  Accumulation matches the rescores
     (ascending slot id, f32), so scores are bit-identical to WAND pages.
-    Returns (scores, gids, count)."""
+    filt_host / rank_key as in _rescore_many.  Returns (scores, gids,
+    count)."""
     N = 0
     for s_, sh in enumerate(state.index.shards):
         N = max(N, int(sh.committed_doc_count) * S + s_ + 1)
     N = max(N, 1)
     native = _exact_eval_native(state, slot_rows, spec, idf_per_shard, S, N,
-                                need)
+                                need, filt_host, rank_key)
     if native is not None:
         return native
     score = np.zeros(N, np.float32)
@@ -986,6 +1073,14 @@ def _exact_fallback(state: WandState, slot_rows, spec, idf_per_shard,
             continue
         blk = (sr.keys >> np.uint32(16)).astype(np.int64)
         docid = (sr.keys & np.uint32(0xFFFF)).astype(np.int64)
+        imps_t = sr.imps
+        if filt_host is not None:
+            fw = filt_host[blk, docid >> 5]
+            keep = ((fw >> (docid & 31).astype(np.uint32))
+                    & np.uint32(1)) == 0
+            blk, docid, imps_t = blk[keep], docid[keep], imps_t[keep]
+            if not len(blk):
+                continue
         shard_of = state.blk_shard[blk]
         gid = ((blk - base_arr[shard_of]) * BLOCK_SIZE + docid) * S + shard_of
         if neg:
@@ -997,7 +1092,7 @@ def _exact_fallback(state: WandState, slot_rows, spec, idf_per_shard,
         if t in spec.weights:
             w = idf_per_shard[shard_of, t].astype(np.float32)
             score += np.bincount(
-                gid, weights=(w * sr.imps).astype(np.float64),
+                gid, weights=(w * imps_t).astype(np.float64),
                 minlength=N).astype(np.float32)
     matched = (any_cnt > 0) & (neg_cnt == 0) & (req_cnt >= nreq)
     for s_, dels in enumerate(state.deleted_sorted):
@@ -1008,6 +1103,10 @@ def _exact_fallback(state: WandState, slot_rows, spec, idf_per_shard,
     if count == 0:
         return np.zeros(0, np.float32), np.zeros(0, np.int64), 0
     k = min(max(need * 4, 64), count)
+    if rank_key is not None:
+        gidx = np.flatnonzero(matched)
+        score = np.zeros(N, np.float32)
+        score[gidx] = rank_key[gidx // S + base_arr[gidx % S] * BLOCK_SIZE]
     sc_m = np.where(matched, score, -np.inf)
     # everything strictly above the kth value, then the smallest gids of
     # the kth tie class
@@ -1109,7 +1208,10 @@ def plan_batch(state: WandState, slots, specs, idf_per_shard):
 
 
 def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
-              with_counts: bool, device, count_only: bool = False):
+              with_counts: bool, device, count_only: bool = False,
+              fcod_dev=None, n_facets: int = 0, fcm: int = 1,
+              filtw_dev=None, filt_host=None, skeyb_dev=None,
+              rank_key_host=None):
     """Execute a batch of eligible (query_ok) queries on the WAND path.
 
     idf_per_shard: f32[S, V] per-shard idf per slot (realtime aware).
@@ -1119,7 +1221,16 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     (SEEKSTORM_TPU_WAND_DEFER_DENSE=1/0 overrides) for the dense path, and
     go through the host exact evaluation otherwise.  count_only
     (ResultType.Count) returns phase 1's popcounts and no pages.
-    Returns (scores list, gids list, counts i64[B], handled bool[B])."""
+
+    fcod_dev (i32[NF, NBLK*BLOCK_SIZE], global-block layout) with
+    n_facets / fcm: exact facet counts over every matched doc.  filtw_dev /
+    filt_host (disallowed words [NBLK, NW], tensor and u32 array): a facet
+    filter shared by the batch, applied to matching, counts, facet counts
+    and every rescore.  skeyb_dev (f32[NBLK, NW] best rank key a bucket)
+    with rank_key_host (f32[NBLK*BLOCK_SIZE]): pages order by the rank key
+    (sorted results), through the host ladder over all three rungs.
+    Returns (scores list, gids list, counts i64[B], fc i64[NF, B, fcm] or
+    None, handled bool[B])."""
     state = get_state(index, device)
     dev = state.device
     B = len(specs)
@@ -1133,23 +1244,31 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
             state, slots, specs, idf_per_shard)
         pools = state.pools
 
-    dev_rescore = not count_only and max(need * 4, 64) <= P_PAGE
+    rank_mode = rank_key_host is not None
+    # rank mode keeps the host ladder: it ranks by gathered sort keys, not
+    # by scores
+    dev_rescore = (not rank_mode and not count_only
+                   and max(need * 4, 64) <= P_PAGE)
     qargs = [torch.from_numpy(a).to(dev)
              for a in (slotmap, tslot, treq, tneg, wsh)]
+    aux = dict(filtw=filtw_dev, fcod=fcod_dev if n_facets else None,
+               fcm=fcm, skeyb=skeyb_dev if rank_mode else None)
     METRICS.inc("device_dispatch_total")
     KP = K_SEL + 1
     with METRICS.timer("lex_device"):
         if dev_rescore:
-            out = wand_scan(*pools, *qargs, with_counts=with_counts,
-                            with_rescore=True, need=need,
-                            multi=state.multi_shard)
+            out, fc_d = wand_scan(*pools, *qargs, with_counts=with_counts,
+                                  with_rescore=True, need=need,
+                                  multi=state.multi_shard, **aux)
             packed = out.cpu().numpy()
         else:
-            cnt_d, rungs_d = wand_scan(*pools, *qargs,
-                                       with_counts=with_counts,
-                                       with_rescore=False)
+            (cnt_d, rungs_d), fc_d = wand_scan(*pools, *qargs,
+                                               with_counts=with_counts,
+                                               with_rescore=False, **aux)
             cnt = cnt_d.cpu().numpy().astype(np.int64)
             rungs = [(v.cpu().numpy(), i.cpu().numpy()) for v, i in rungs_d]
+        fc = None if fc_d is None else \
+            fc_d[:n_facets, :B].cpu().numpy().astype(np.int64)
 
     if dev_rescore:
         A = 4 + 2 * P_PAGE
@@ -1167,14 +1286,16 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     elif count_only:
         # the phase-1 popcount is the answer: no pages, no ladder
         counts[:] = cnt[:B]
-        return out_scores, out_gids, counts, np.ones(B, bool)
+        return out_scores, out_gids, counts, fc, np.ones(B, bool)
     else:
         pending = list(range(B))
         host_rungs = [(ids.astype(np.int64), vals[:, K_SEL], F)
                       for (vals, ids), F in zip(rungs, F_LADDER)]
 
     # host ladder: rescore each pending query's selected regions exactly
-    # and terminate on the strict WAND test (kth > next_ub, 3e-7 margin)
+    # and terminate on the strict WAND test (kth > next_ub, 3e-7 margin;
+    # rank mode compares gathered f32 keys on both sides, which may be
+    # negative, so it takes no margin)
     for ids_arr, nub_arr, F in host_rungs:
         if not pending:
             break
@@ -1186,14 +1307,15 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         with METRICS.timer("wand_rescore"):
             rescored = _rescore_many(state, slot_rows,
                                      [specs[qi] for qi in pending],
-                                     idf_per_shard, buckets_list, S, need)
+                                     idf_per_shard, buckets_list, S, need,
+                                     filt_host, rank_key_host)
         still = []
         for (sc, gid), qi in zip(rescored, pending):
             next_ub = float(nub_arr[qi])
             n_found = len(gid)
             kth = float(sc[need - 1]) if n_found >= need else -np.inf
-            if (next_ub == -np.inf) or (
-                    n_found >= need and kth > next_ub * (1.0 + 3e-7)):
+            bound = next_ub if rank_mode else next_ub * (1.0 + 3e-7)
+            if (next_ub == -np.inf) or (n_found >= need and kth > bound):
                 out_scores[qi] = sc[: max(need * 4, 64)]
                 out_gids[qi] = gid[: max(need * 4, 64)]
                 counts[qi] = cnt[qi]
@@ -1203,19 +1325,23 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         if pending:
             METRICS.inc("wand_escalations_total")
     METRICS.inc("wand_fallbacks_total", len(pending))
-    route_stats(index).record_wand(len(pending), B)
+    if not rank_mode:
+        # the opt-in sort path has its own fallback geometry and must not
+        # close the gate for score-mode batches
+        route_stats(index).record_wand(len(pending), B)
     handled = np.ones(B, bool)
     denv = os.environ.get("SEEKSTORM_TPU_WAND_DEFER_DENSE")
     defer = denv not in ("", "0") if denv is not None \
         else B >= DEFER_MIN_BATCH
     if defer:
         handled[pending] = False
-        return out_scores, out_gids, counts, handled
+        return out_scores, out_gids, counts, fc, handled
     for qi in pending:
         with METRICS.timer("wand_exact_fallback"):
             sc, gid, count = _exact_fallback(state, slot_rows, specs[qi],
-                                             idf_per_shard, S, need)
+                                             idf_per_shard, S, need,
+                                             filt_host, rank_key_host)
         out_scores[qi] = sc
         out_gids[qi] = gid
         counts[qi] = count
-    return out_scores, out_gids, counts, handled
+    return out_scores, out_gids, counts, fc, handled

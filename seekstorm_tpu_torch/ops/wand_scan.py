@@ -23,7 +23,10 @@ registers, reads pool rows by index inside the kernel (no ``[NBLK, V, NW]``
 pre-gather), and reduces the maxima with warp shuffles.  Its UB chains
 round twice per term (``__fmul_rn``/``__fadd_rn``), exactly as the separate
 torch mul and add below, and a max is exact, so K1 is bit-exact against
-``scan_blocks_ref`` in all five outputs.
+``scan_blocks_ref`` in all five outputs.  With ``with_matched`` both return
+the matched words themselves as a sixth output, i32[Bq, NBLK*NW]: the facet
+histogram (``ops/facet_hist.py``, kernel K3) counts from them, and
+rank-by-key batches mask their sort-key bounds with them.
 
 u32 words are carried as int32 bit patterns: ``torch.uint32`` has no
 ``>>``, ``~`` or comparisons on the CPU.  ``int32 >>`` is arithmetic, so
@@ -74,7 +77,8 @@ def rung_maxima(allub):
 
 
 def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
-                    wshard, sid, *, with_counts: bool = True):
+                    wshard, sid, *, with_counts: bool = True,
+                    with_matched: bool = False):
     """Plain PyTorch phase-1 scan.
 
     ppool i32[PR, NW] presence words / vpool f32[PR, NW] bucket maxima;
@@ -83,7 +87,8 @@ def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
     no filter); tslot i32[Bq, T], treq / tneg bool[Bq, T]; wshard
     f32[S, Bq, T] per-shard weights and sid i32[NBLK] the shard of each
     block.  Returns (allub f32[Bq, NBLK*NW], cnt i32[Bq] (zeros unless
-    with_counts), ub4, ub16, g1) with the maxima of rung_maxima(allub)."""
+    with_counts), ub4, ub16, g1) with the maxima of rung_maxima(allub), and
+    with_matched the matched words i32[Bq, NBLK*NW] as a sixth."""
     NBLK = prow.shape[0]
     Bq, T = tslot.shape
     NC = min(T, 3)
@@ -142,7 +147,10 @@ def scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
             live = live & okc[:, None, None]
         best = torch.maximum(best, torch.where(live, sc, ninf))
     allub = torch.where(matched != 0, best, ninf).reshape(Bq, NBLK * NW)
-    return (allub, cnt, *rung_maxima(allub))
+    out = (allub, cnt, *rung_maxima(allub))
+    if with_matched:
+        out += (matched.reshape(Bq, NBLK * NW),)
+    return out
 
 
 def _check(name, x, dtype, shape, device):
@@ -156,7 +164,8 @@ def _check(name, x, dtype, shape, device):
 
 
 def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
-                   wshard, sid, *, with_counts: bool = True):
+                   wshard, sid, *, with_counts: bool = True,
+                   with_matched: bool = False):
     """K1 on CUDA tensors: same contract as scan_blocks_ref."""
     global LAUNCHES
     from .. import _build
@@ -190,6 +199,8 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
     ub16 = torch.empty((Bq, L1 // 16), dtype=torch.float32, device=dev)
     g1 = torch.empty((Bq, L1 // 128), dtype=torch.float32, device=dev)
     cnt = torch.zeros(Bq, dtype=torch.int32, device=dev)
+    mwords = torch.empty((Bq, L1), dtype=torch.int32, device=dev) \
+        if with_matched else None
     lib = _build.load("wand_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
@@ -198,20 +209,25 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
         delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
         tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK, T,
         int(with_counts), allub.data_ptr(), ub4.data_ptr(), ub16.data_ptr(),
-        g1.data_ptr(), cnt.data_ptr(), stream)
+        g1.data_ptr(), cnt.data_ptr(),
+        mwords.data_ptr() if with_matched else None, stream)
     if err != 0:
         raise RuntimeError(f"wand_scan_cuda launch failed (error {err})")
+    if with_matched:
+        return allub, cnt, ub4, ub16, g1, mwords
     return allub, cnt, ub4, ub16, g1
 
 
 def scan_blocks(ppool, vpool, prow, delw, filtw, tslot, treq, tneg, wshard,
-                sid, *, with_counts: bool = True):
+                sid, *, with_counts: bool = True, with_matched: bool = False):
     """Phase 1: the plain version for tensors on the CPU, K1 for CUDA
     tensors (a CUDA failure raises; there is no fallback)."""
     if ppool.device.type == "cpu":
         return scan_blocks_ref(ppool, vpool, prow, delw, filtw, tslot, treq,
-                               tneg, wshard, sid, with_counts=with_counts)
+                               tneg, wshard, sid, with_counts=with_counts,
+                               with_matched=with_matched)
     if ppool.device.type == "cuda":
         return wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq,
-                              tneg, wshard, sid, with_counts=with_counts)
+                              tneg, wshard, sid, with_counts=with_counts,
+                              with_matched=with_matched)
     raise ValueError(f"no phase-1 scan for device {ppool.device}")

@@ -4,13 +4,19 @@ Port of ``seekstorm_tpu/parallel/mesh.py::StackedIndex`` (524-1027) for one
 device in impact mode: ``_imp_arrays`` (567), ``build`` (611), ``run``
 (679) with ``_run_imp`` (930) and ``_run_qt_mode`` (840), which both go to
 the pair-list scan of ``ops/lexical.py``, and ``_merge`` with
-``merge_shard_results`` (400-410).  No plan packing, tf arrays, mesh or
-join programs.
+``merge_shard_results`` (400-410), with ``aux_device`` (554) for the facet
+codes, sort keys and filter words of a batch.  No plan packing, tf arrays,
+mesh or join programs.
 
 The shards' arrays are laid end to end in one global-block layout (the
 WAND state's), so one K2 launch covers the pairs of every shard: the CSR
 remainders (``dev_docid`` as u16 bits in int16, ``dev_imp``), the presence
-bitmaps, ``sat1`` per global block and a packed deleted bitmap.
+bitmaps, ``sat1`` per global block and a packed deleted bitmap.  The
+auxiliary columns use the same layout (``search._wand_facet_codes``,
+``_wand_rank_key``, ``_wand_filter_words``): facet codes
+i32[NF, nblk*BLOCK_SIZE], a sort key f32[nblk*BLOCK_SIZE], and the
+disallowed words of a facet filter, which ``run`` takes already ORed into
+the deleted words (the reference's ``_merge_deleted``, 1031).
 """
 
 from __future__ import annotations
@@ -31,7 +37,19 @@ class StackedIndex:
     def __init__(self, index, device):
         self.index = index
         self.device = torch.device(device)
+        self._aux: dict = {}
         self.build()
+
+    def aux_device(self, key, make):
+        """The tensor on this device of an auxiliary array (facet codes, a
+        sort key, filter words), keyed by its spec's signature; make()
+        makes the host array on a miss only.  Dropped with this object,
+        which a commit or delete replaces."""
+        hit = self._aux.get(key)
+        if hit is None:
+            hit = self._aux[key] = torch.from_numpy(
+                np.ascontiguousarray(make())).to(self.device)
+        return hit
 
     def build(self):
         idx = self.index
@@ -83,6 +101,7 @@ class StackedIndex:
         s1 = np.concatenate(sat1) if sat1 else np.zeros(0, np.float32)
         pad = self.nblk * BLOCK_SIZE - len(s1)
         self.sat1 = put(np.concatenate([s1, np.zeros(pad, np.float32)]))
+        self.delw_host = delw
         self.delw = put(delw.view(np.int32))
 
     @property
@@ -126,11 +145,19 @@ class StackedIndex:
             raise ValueError("plan bitmap row or block outside the index")
         return out
 
-    def run(self, plans, k: int, with_counts: bool):
+    def run(self, plans, k: int, with_counts: bool, fcod=None, fcm: int = 1,
+            skey=None, sort_desc: bool = True, disallowed=None):
         """plans: the per-shard DensePlans (None where a shard selected no
-        block), all of the same batch of B queries.  Returns (ts f32[B, k],
-        gid i64[B, k] with gid = local * S + shard, cnt i64[B]; zeros
-        unless with_counts) as numpy."""
+        block), all of the same batch of B queries.  fcod i32[NF,
+        nblk*BLOCK_SIZE] facet codes with code space fcm; skey
+        f32[nblk*BLOCK_SIZE] a sort key, under which pages order by (key
+        desc or asc by sort_desc, doc asc) and ts holds the rank (the key,
+        negated when ascending); disallowed i32[nblk, NWORDS] the deleted
+        words with a facet filter's disallowed docs ORed in, scanned in
+        place of the deleted words.  All three on this device, in the
+        global-block layout.  Returns (ts f32[B, k], gid i64[B, k] with gid
+        = local * S + shard, cnt i64[B]; zeros unless with_counts, fcounts
+        i64[max(NF, 1), B, fcm]) as numpy."""
         S = self.index.shard_count
         B = next(p.W.shape[0] for p in plans if p is not None)
         dev = self.device
@@ -151,7 +178,14 @@ class StackedIndex:
 
         pairs = [put(x) for x in (p_blk, p_q, p_nreq, s_off, s_len, s_bm,
                                   s_w, s_flag)]
-        vals, docs, cnt = lex_ops.scan_pairs(self.arrays, pairs, k, B)
+        arrays = self.arrays if disallowed is None else \
+            (*self.arrays[:4], disallowed)
+        rank = None
+        if skey is not None:
+            rank = skey if sort_desc else -skey
+        vals, docs, cnt, fc = lex_ops.scan_pairs(arrays, pairs, k, B,
+                                                 fcod=fcod, fcm=fcm,
+                                                 rank=rank)
         gids = ((put(lblk)[:, None] * BLOCK_SIZE + docs) * S
                 + put(shard)[:, None])
         ts_s, gid_s = lex_ops.merge_rows(
@@ -161,7 +195,9 @@ class StackedIndex:
         cnt = cnt.cpu().numpy().astype(np.int64)
         if not with_counts:
             cnt[:] = 0
-        return ts.cpu().numpy(), gid.cpu().numpy(), cnt
+        fcounts = np.zeros((1, B, fcm), np.int64) if fc is None else \
+            fc.cpu().numpy().astype(np.int64)
+        return ts.cpu().numpy(), gid.cpu().numpy(), cnt, fcounts
 
 
 def get_stacked(index, device) -> StackedIndex:

@@ -3,9 +3,9 @@
 Port of the lexical entry points of ``seekstorm_tpu/search.py``
 (``search``/``search_batch`` and ``_lexical_search_batch``, impact mode).
 The request/result types and the host functions (parsing, idf, the
-realtime tail merge, phrase verification and result assembly) are copies of
-the reference's, without the facet and sort branches (ROADMAP A.6); the
-device dispatch is the port's.
+realtime tail merge, phrase verification, result assembly and the
+empty-query browse, each with its facet, filter and sort branches) are
+copies of the reference's; the device dispatch is the port's.
 
 A batch routes as the reference routes it:
 
@@ -20,6 +20,17 @@ A batch routes as the reference routes it:
     pruned batch whose k-th score falls below an unscored bound re-runs
     in full.
 
+Facet counts (``query_facets``), facet filters (``facet_filter``) and sorted
+results (``result_sort``) ride both routes as in the reference: the filter
+as packed disallowed words beside the deleted words, the counts by kernel K3
+(``ops/facet_hist.py``) from the scans' matched words, with full coverage;
+a sorted batch takes the dense path (its unfused scan, ranked by the sort
+key) unless ``SEEKSTORM_TPU_WAND_SORT`` sends a one-key sort to WAND's
+rank-by-key mode.  The auxiliary columns (facet codes, sort key, filter
+words) are laid out by global block, shards end to end, as both routes'
+device state is, and cached on that state.  ``field_filter`` (the tf path)
+is not ported and raises.
+
 ``ResultType.Count`` takes WAND's phase-1 popcount on the WAND route and
 the dense path's counts elsewhere.  The device is explicit:
 ``device="cuda"`` without CUDA raises.
@@ -29,12 +40,15 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time
 from dataclasses import dataclass, field as dfield
 
 import numpy as np
 import torch
 
+from . import facets as facets_mod
+from . import geo as geo_mod
 from . import plan as plan_mod
 from .index import Index, Shard
 from .metrics import METRICS
@@ -43,7 +57,7 @@ from .oracle import score_query, topk_from_scores, verify_phrase
 from .ops import wand as wand_mod
 from .parallel import mesh
 from .rewrite import rewrite_query
-from .schema import BLOCK_SIZE
+from .schema import BLOCK_SIZE, FieldType
 from .tokenizer import ParsedQuery, parse_query
 from .utils import ceil_pow2, ngram_virtual_hash, term_hash
 
@@ -319,6 +333,53 @@ def _build_specs(
     return slots, specs
 
 
+def _wand_facet_codes(index, state, codes_list) -> np.ndarray:
+    """Facet code columns [S, nb*BLOCK] -> the global-block layout
+    i32[NF, nblk*BLOCK] of `state` (a WandState or a StackedIndex: both lay
+    the shards' blocks end to end).  Facet columns are stored per level =
+    per block, so this is a copy per shard."""
+    out = np.zeros((len(codes_list), state.nblk * BLOCK_SIZE), np.int32)
+    for fi, codes in enumerate(codes_list):
+        for s, sh in enumerate(index.shards):
+            n = sh.lexical.n_blocks * BLOCK_SIZE
+            g0 = state.block_base[s] * BLOCK_SIZE
+            out[fi, g0: g0 + n] = codes[s, :n]
+    return out
+
+
+def _wand_rank_key(index, state, skey_host, sort_desc: bool) -> np.ndarray:
+    """Sort-key column [S, nb*BLOCK] -> the global rank array
+    f32[nblk*BLOCK] (larger ranks first: an ascending order negates).
+    Positions with no committed doc are -inf, so a bucket's best rank stays
+    tight (the column's padding is 0.0, which would beat negative ranks)."""
+    out = np.full(state.nblk * BLOCK_SIZE, -np.inf, np.float32)
+    for s, sh in enumerate(index.shards):
+        g0 = state.block_base[s] * BLOCK_SIZE
+        for li, lvl in enumerate(sh.lexical.levels):
+            n = lvl.doc_count
+            seg = skey_host[s, li * BLOCK_SIZE: li * BLOCK_SIZE + n]
+            seg = seg.astype(np.float32)
+            out[g0 + li * BLOCK_SIZE: g0 + li * BLOCK_SIZE + n] = \
+                seg if sort_desc else -seg
+    return out
+
+
+def _wand_filter_words(index, state, mask) -> np.ndarray:
+    """Facet-filter allowed mask bool[S, nb*BLOCK] -> packed DISALLOWED
+    words u32[nblk, BLOCK//32] in the global-block layout (ANDed out of
+    matching exactly like the deleted-doc words)."""
+    nw = BLOCK_SIZE // 32
+    out = np.zeros((state.nblk, nw), np.uint32)
+    for s, sh in enumerate(index.shards):
+        nb = sh.lexical.n_blocks
+        dis = np.ascontiguousarray(~mask[s, :nb * BLOCK_SIZE])
+        # bit j of word w = doc w*32+j (little-endian, as the deleted words)
+        words = np.packbits(dis, bitorder="little").view(np.uint32)
+        out[state.block_base[s]: state.block_base[s] + nb] = \
+            words.reshape(nb, nw)
+    return out
+
+
 def _shard_idf(shard: Shard, slots: list[_Slot], realtime: bool,
                hs: np.ndarray | None = None,
                found: np.ndarray | None = None,
@@ -546,15 +607,21 @@ def wand_inputs(index: Index, requests: list[SearchRequest],
 
 
 def _unsupported(req0: SearchRequest) -> str | None:
-    if req0.query_facets:
-        return "query_facets (ROADMAP A.6 WAND facet histograms)"
-    if req0.facet_filter:
-        return "facet_filter (ROADMAP A.6 WAND batch filter)"
-    if req0.result_sort:
-        return "result_sort (ROADMAP A.6 WAND rank-by-key)"
     if req0.field_filter:
         return "field_filter (ROADMAP A.7 tf path)"
     return None
+
+
+def _warm_facets_ok(r, entry, warm_k) -> bool:
+    """Cached facets serve the request iff every requested facet is a
+    plain (no ranges) histogram the warmup computed, shallow enough that
+    the cached depth is exact."""
+    if not r.query_facets:
+        return True
+    if len(entry) < 4:
+        return False
+    return all(qf.ranges is None and qf.field in entry[3]
+               and qf.length <= warm_k for qf in r.query_facets)
 
 
 def _lexical_search_batch(index: Index, requests: list[SearchRequest],
@@ -581,12 +648,17 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
             and len(spec.weights) == 1
             and not spec.phrases
             and not any(spec.negated.values())
+            and not r.facet_filter
+            and not r.result_sort
             and r.offset + r.length <= warm_k
             and (not r.realtime
                  or all(sh.tail_len() == 0 for sh in index.shards))
             and slots[next(iter(spec.weights))].hash in warm
+            and _warm_facets_ok(
+                r, warm[slots[next(iter(spec.weights))].hash], warm_k)
         ):
-            # frequent-word cached result (the reference's warmup cache)
+            # frequent-word cached result (the reference's warmup cache;
+            # string-facet histograms are served from the same entry)
             entry = warm[slots[next(iter(spec.weights))].hash]
             scores, gids, total = entry[:3]
             rs = ResultSet()
@@ -597,6 +669,9 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
             rs.result_count = len(rs.results)
             rs.query_terms = [slots[s2].term for s2 in spec.weights
                               if not slots[s2].virtual]
+            if r.query_facets:
+                rs.facets = {qf.field: entry[3][qf.field][: qf.length]
+                             for qf in r.query_facets}
             _attach_docs(index, r, rs)
             results[i] = rs
         else:
@@ -619,30 +694,129 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     counts = np.zeros(B, dtype=np.int64)
     counts_exact = np.ones(B, dtype=bool)
     tail_phrase_counts = np.zeros(B, dtype=np.int64)
+    need_full = with_counts or has_phrase
 
+    # facet filter, facet codes and sort key (seekstorm_tpu/search.py:
+    # 1452-1513): host columns from the facet runtime; each route lays them
+    # out by global block and caches them on its device state
+    rt = None
+    mask = fsig = None
+    if req0.facet_filter:
+        rt = facets_mod.get_runtime(index)
+        fsig = tuple(
+            (f.field, tuple(f.values) if f.values else None,
+             tuple(f.range) if f.range else None)
+            for f in req0.facet_filter)
+        mask = rt.filter_mask(req0.facet_filter)
+
+    facet_specs = []
+    fkey = None
+    fcm = 1
+    if req0.query_facets:
+        rt = rt or facets_mod.get_runtime(index)
+        for qf in req0.query_facets:
+            _, labels, nc = rt.codes_for(qf)
+            facet_specs.append((qf, labels, nc))
+        fcm = ceil_pow2(max(nc for _, _, nc in facet_specs), 16)
+        fkey = ("facets", tuple(
+            (qf.field,
+             tuple((r[0], float(r[1])) for r in qf.ranges.ranges)
+             if qf.ranges else None)
+            for qf, _, _ in facet_specs))
+        need_full = True    # facet counting covers every matched doc
+
+    def facet_codes(state):
+        return _wand_facet_codes(index, state, [rt.codes_for(qf)[0]
+                                                for qf, _, _ in facet_specs])
+
+    sorting = bool(req0.result_sort)
+    sort_desc = True
+    skey_host = skey_sig = None
+    if sorting:
+        rt = rt or facets_mod.get_runtime(index)
+        rs0 = req0.result_sort[0]
+        sort_desc = rs0.order != "Ascending"
+        skey_host = rt.sort_key(rs0)
+        skey_sig = ("sort", rs0.field,
+                    tuple(rs0.base) if rs0.base is not None else None)
+        need_full = True    # score pruning is invalid under a sort key
+        k = ceil_pow2(max(4 * need, 64))
+
+    fc_total = np.zeros((max(len(facet_specs), 1), B, fcm), np.int64)
+
+    # Sorted batches ride WAND only on request (the reference's
+    # SEEKSTORM_TPU_WAND_SORT): rank-by-key bounds are a bucket's best key,
+    # which prunes only where sort keys cluster with insertion order
+    wand_sort_ok = (not req0.result_sort
+                    or bool(os.environ.get("SEEKSTORM_TPU_WAND_SORT")))
     wanded = np.zeros(B, bool)
-    if need <= MAX_PAGE and wand_mod.wand_auto(index):
+    if (need <= MAX_PAGE
+            and not (req0.facet_filter and mask is None)
+            and len(req0.result_sort) <= 1
+            and wand_sort_ok
+            and wand_mod.wand_auto(index)):
         wrows = [i for i in range(B) if wand_mod.query_ok(live_specs[i])]
         if wrows:
+            wstate = wand_mod.get_state(index, device)
+            wfcod_dev = None
+            if facet_specs:
+                _, wfcod_dev = wstate.aux(fkey, lambda: facet_codes(wstate))
+            wfilt_dev = wfilt_host = None
+            if mask is not None:
+                wfilt_host, wfilt_dev = wstate.aux(
+                    ("filter", fsig),
+                    lambda: _wand_filter_words(index, wstate, mask))
+            wskeyb_dev = wrank_host = None
+            if sorting:
+                wrank_host, _ = wstate.aux(
+                    skey_sig + (sort_desc, "flat"),
+                    lambda: _wand_rank_key(index, wstate, skey_host,
+                                           sort_desc), device=False)
+                _, wskeyb_dev = wstate.aux(
+                    skey_sig + (sort_desc, "bmax"),
+                    lambda: wrank_host.reshape(-1, 32).max(axis=1)
+                    .reshape(wstate.nblk, BLOCK_SIZE // 32))
             idf_ps = np.stack([_shard_idf(sh, slots, req0.realtime)
                                for sh in index.shards])      # [S, V]
-            wsc, wgid, wcnt, whandled = wand_mod.run_batch(
+            wsc, wgid, wcnt, wfc, whandled = wand_mod.run_batch(
                 index, slots, [live_specs[i] for i in wrows], idf_ps,
                 max(need, 1), with_counts, device,
-                count_only=req0.result_type == ResultType.Count)
+                count_only=req0.result_type == ResultType.Count,
+                fcod_dev=wfcod_dev, n_facets=len(facet_specs), fcm=fcm,
+                filtw_dev=wfilt_dev, filt_host=wfilt_host,
+                skeyb_dev=wskeyb_dev, rank_key_host=wrank_host)
             for r, qi in enumerate(wrows):
                 if whandled[r]:
                     merged_scores[qi] = wsc[r]
                     merged_ids[qi] = wgid[r]
                     counts[qi] = wcnt[r]
                     wanded[qi] = True
+                    if wfc is not None:
+                        fc_total[:len(facet_specs), qi] += wfc[:, r, :fcm]
 
     rest_rows = [i for i in range(B) if not wanded[i]]
     if rest_rows:
-        need_full = with_counts or has_phrase
-        ts, gid, cnt, all_full = _dense_rows(
+        stacked = mesh.get_stacked(index, device)
+        aux = dict(fcm=fcm, sort_desc=sort_desc)
+        if facet_specs:
+            aux["fcod"] = stacked.aux_device(fkey,
+                                             lambda: facet_codes(stacked))
+        if sorting:
+            aux["skey"] = stacked.aux_device(
+                skey_sig, lambda: _wand_rank_key(index, stacked, skey_host,
+                                                 True))
+        if mask is not None:
+            # the reference ORs the disallowed docs into the deleted mask
+            # (_merge_deleted); here, the packed words
+            aux["disallowed"] = stacked.aux_device(
+                ("filter", fsig),
+                lambda: (stacked.delw_host
+                         | _wand_filter_words(index, stacked, mask)
+                         ).view(np.int32))
+        ts, gid, cnt, fcounts, all_full = _dense_rows(
             index, slots, [live_specs[i] for i in rest_rows], req0.realtime,
-            need_full, need, k, with_counts, device)
+            need_full, need, k, with_counts, stacked,
+            filtered=bool(req0.facet_filter), aux=aux)
         if ts is not None:
             for r, qi in enumerate(rest_rows):
                 valid = np.isfinite(ts[r])
@@ -652,6 +826,9 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                 counts[rest_rows] += cnt
             elif with_counts:
                 counts_exact[:] = False
+            if facet_specs and all_full:
+                fc_total[:len(facet_specs), rest_rows] += \
+                    fcounts[:len(facet_specs)]
 
     # WAND pages are deduped and (score desc, gid asc) ordered; dense
     # pages and a tail merge are not, and _finalize_lexical re-sorts them
@@ -661,11 +838,13 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
         if req0.realtime and shard.tail_len() > 0:
             _merge_tail(index, shard, slots, live_specs, boosts,
                         merged_scores, merged_ids, counts, with_counts,
+                        req0, facet_specs, fc_total, fcm, sorting, sort_desc,
                         tail_phrase_counts=tail_phrase_counts)
             canonical[:] = False
     return _finalize_lexical(index, requests, results, live, live_specs,
                              slots, merged_scores, merged_ids, counts,
-                             counts_exact, with_counts,
+                             counts_exact, with_counts, facet_specs,
+                             fc_total, sorting, sort_desc,
                              tail_phrase_counts=tail_phrase_counts,
                              phrase_escalate_ok=True, canonical=canonical)
 
@@ -691,17 +870,22 @@ def _compact_slots(slots, specs):
 
 
 def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
-                need: int, k: int, with_counts: bool, device):
-    """The dense path for `specs` (search.py:1646-1750, impact mode):
-    plan every shard, scan, and re-run in full when a pruned plan's k-th
-    score falls below a bound it left unscored.  Returns (ts f32[B, k],
-    gid i64[B, k], cnt i64[B], all_full), or Nones when no shard selected
-    a block."""
+                need: int, k: int, with_counts: bool, stacked,
+                filtered: bool = False, aux=None):
+    """The dense path for `specs` (search.py:1646-1750, impact mode) on the
+    index's StackedIndex: plan every shard, scan, and re-run in full when a
+    pruned plan's k-th score falls below a bound it left unscored.  aux:
+    the batch's facet codes, sort key and filter words for
+    StackedIndex.run.  Returns (ts f32[B, k], gid i64[B, k], cnt i64[B],
+    fcounts i64[NF, B, fcm], all_full), or Nones when no shard selected a
+    block."""
+    aux = aux or {}
     stats = wand_mod.route_stats(index)
     cover_full = need_full or not stats.prune_ok()
     # Topk batches on large shards plan like the reference's query-tiled
-    # kernel, which prunes as soon as candidates pass PRUNE_BLOCKS
-    mode = ("qt" if not cover_full and max(
+    # kernel, which prunes as soon as candidates pass PRUNE_BLOCKS; a facet
+    # filter keeps a batch off that plan, as in the reference
+    mode = ("qt" if not cover_full and not filtered and max(
         sh.lexical.n_blocks for sh in index.shards) >= plan_mod.QT_MIN_BLOCKS
         else "imp")
     slots, specs = _compact_slots(slots, specs)
@@ -715,12 +899,12 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
 
     plans = plans_for(cover_full)
     if all(p is None for p in plans):
-        return None, None, None, True
-    stacked = mesh.get_stacked(index, device)
+        return None, None, None, None, True
     METRICS.inc("device_dispatch_total")
     all_full = all(p is None or p.full for p in plans)
     with METRICS.timer("lex_device"):
-        ts, gid, cnt = stacked.run(plans, k, with_counts and all_full)
+        ts, gid, cnt, fcounts = stacked.run(plans, k,
+                                            with_counts and all_full, **aux)
     if not all_full:
         ub = np.zeros(len(specs), np.float32)
         for p in plans:
@@ -734,9 +918,10 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
             METRICS.inc("device_dispatch_total")
             plans = plans_for(True)
             with METRICS.timer("lex_device"):
-                ts, gid, cnt = stacked.run(plans, k, with_counts)
+                ts, gid, cnt, fcounts = stacked.run(plans, k, with_counts,
+                                                    **aux)
             all_full = True
-    return ts, gid, cnt, all_full
+    return ts, gid, cnt, fcounts, all_full
 
 
 # ---------------------------------------------------------------------------
@@ -745,12 +930,18 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
 
 def _empty_query_results(index: Index, req: SearchRequest) -> ResultSet:
     """Empty-query browse path (reference search.rs:1413 -> iterator.rs):
-    every live doc, committed and tail, by ascending doc id.  The
-    reference's facet filter, facet counts and sort keys here are ROADMAP
-    A.6; the port raises for such requests before it comes here."""
+    supports facet_filter, query_facets and result_sort over all docs
+    (reference enable_empty_query semantics)."""
     rs = ResultSet()
     index.ensure_loaded()
+
+    # match-all mask over all docs (committed + tail), host columnar
+    rt = facets_mod.get_runtime(index) if (
+        req.facet_filter or req.query_facets or req.result_sort
+    ) else None
+
     gids = []
+    keep = []
     for shard in index.shards:
         n = shard.doc_count
         local = np.arange(n, dtype=np.int64)
@@ -759,13 +950,144 @@ def _empty_query_results(index: Index, req: SearchRequest) -> ResultSet:
             dl = np.fromiter(shard.deleted, dtype=np.int64)
             dl = dl[dl < n]
             mask[dl] = False
-        gids.append(local[mask] * index.shard_count + shard.shard_id)
-    all_gids = np.sort(np.concatenate(gids)) if gids \
-        else np.zeros(0, np.int64)
+        if rt is not None and req.facet_filter:
+            allowed = rt.filter_mask(req.facet_filter)
+            if allowed is not None:
+                am = allowed[shard.shard_id]
+                committed = min(n, shard.committed_doc_count, am.shape[0])
+                mask[:committed] &= am[local[:committed]]
+                # tail docs: evaluate from level-0 values
+                for li in range(committed, n):
+                    ok = True
+                    for f in req.facet_filter:
+                        sf = index.schema_map[f.field]
+                        vals = shard.level0.facet_values.get(sf.facet_id, [])
+                        ti = li - shard.full_levels * BLOCK_SIZE
+                        v = vals[ti] if 0 <= ti < len(vals) else None
+                        if f.values is not None:
+                            if sf.field_type.is_string_facet:
+                                tab = getattr(index, "_facet_tables", {}).get(
+                                    sf.facet_id, {"": 0})
+                                want = {tab.get(str(x), -1) for x in f.values}
+                                sets = getattr(index, "_facet_set_tables",
+                                               {}).get(sf.facet_id)
+                                if sets is not None:
+                                    members = next(
+                                        (m for m, so in sets.items()
+                                         if so == v), ())
+                                    ok &= bool(want & set(members))
+                                else:
+                                    ok &= v in want
+                            else:
+                                ok &= v in [float(x) for x in f.values]
+                        elif f.range is not None and v is not None:
+                            lo, hi = f.range
+                            ok &= lo <= v <= hi
+                        else:
+                            ok &= v is not None
+                    if not ok:
+                        mask[li] = False
+        sel = local[mask]
+        gids.append(sel * index.shard_count + shard.shard_id)
+        keep.append((shard, sel))
+    all_gids = np.concatenate(gids) if gids else np.zeros(0, np.int64)
     rs.result_count_total = int(len(all_gids))
+
+    # ordering: docid asc by default, or result_sort keys
+    if rt is not None and req.result_sort:
+        rs0 = req.result_sort[0]
+        key = rt.sort_key(rs0)  # [S, N]
+        kvals = np.zeros(len(all_gids), np.float32)
+        pos = 0
+        for shard, sel in keep:
+            committed_cols = key.shape[1]
+            kv = np.zeros(len(sel), np.float32)
+            inb = sel < committed_cols
+            kv[inb] = key[shard.shard_id, sel[inb]]
+            kvals[pos : pos + len(sel)] = kv
+            pos += len(sel)
+        order = np.lexsort((all_gids, -kvals if rs0.order != "Ascending"
+                            else kvals))
+        all_gids = all_gids[order]
+        kvals = kvals[order]
+    else:
+        order = np.argsort(all_gids, kind="stable")
+        all_gids = all_gids[order]
+        kvals = None
+
     page = all_gids[req.offset : req.offset + req.length]
-    rs.results = [ResultObject(doc_id=int(g), score=0.0) for g in page]
+    if kvals is not None:
+        pk = kvals[req.offset : req.offset + req.length]
+        rs.results = [ResultObject(doc_id=int(g), score=float(v))
+                      for g, v in zip(page, pk)]
+    else:
+        rs.results = [ResultObject(doc_id=int(g), score=0.0) for g in page]
     rs.result_count = len(rs.results)
+
+    # facet counting over all matching docs
+    if rt is not None and req.query_facets:
+        rs.facets = {}
+        for qf in req.query_facets:
+            codes, labels, nc = rt.codes_for(qf)
+            sf = index.schema_map[qf.field]
+            vec = np.zeros(max(nc, 1), np.float64)
+            for shard, sel in keep:
+                committed = shard.committed_doc_count
+                inb = sel[sel < committed]
+                c = codes[shard.shard_id, inb]
+                np.add.at(vec, np.clip(c, 0, nc - 1), 1)
+                # tail docs: codes from level-0 facet values
+                tail_sel = sel[sel >= committed]
+                if len(tail_sel):
+                    vals = shard.level0.facet_values.get(sf.facet_id, [])
+                    base2 = shard.full_levels * BLOCK_SIZE
+                    raw = [vals[g - base2] if 0 <= g - base2 < len(vals)
+                           else None for g in tail_sel]
+                    if qf.ranges is not None:
+                        if sf.field_type == FieldType.Point:
+                            lat = np.array([v[0] if v else 0.0 for v in raw])
+                            lon = np.array([v[1] if v else 0.0 for v in raw])
+                            code_col = geo_mod.point_distance(
+                                geo_mod.encode_morton_2_d(lat, lon),
+                                float(qf.ranges.base[0]),
+                                float(qf.ranges.base[1]))
+                            if qf.ranges.unit == "Miles":
+                                code_col = code_col * 0.621371192
+                        else:
+                            code_col = np.array(
+                                [0 if v is None else v for v in raw],
+                                np.float64)
+                        bounds = np.array([float(r[1])
+                                           for r in qf.ranges.ranges])
+                        cc = np.searchsorted(bounds, code_col, side="right")
+                    else:
+                        cc = np.array([0 if v is None else int(v)
+                                       for v in raw], np.int64)
+                    np.add.at(vec, np.clip(cc, 0, nc - 1), 1)
+            if qf.ranges is not None and qf.ranges.range_type != \
+                    "CountWithinRange":
+                if qf.ranges.range_type == "CountAboveRange":
+                    vec = np.cumsum(vec[::-1])[::-1]
+                else:
+                    vec = np.cumsum(vec)
+            if isinstance(labels, tuple) and labels and labels[0] == "__SETS__":
+                set_members = labels[1]
+                vcounts = {}
+                for so in np.flatnonzero(vec):
+                    if so < len(set_members):
+                        for v in set_members[so]:
+                            vcounts[v] = vcounts.get(v, 0) + int(vec[so])
+                pairs = sorted(vcounts.items(),
+                               key=lambda kv2: (-kv2[1], str(kv2[0])))
+            else:
+                nz = np.flatnonzero(vec)
+                pairs = sorted(
+                    ((labels[c2] if labels else int(c2), int(vec[c2]))
+                     for c2 in nz),
+                    key=lambda kv2: (-kv2[1], str(kv2[0])),
+                )
+            rs.facets[qf.field] = pairs[: qf.length]
+
     _attach_docs(index, req, rs)
     return rs
 
@@ -789,9 +1111,9 @@ def _slot_global_docids(index, slots, s) -> np.ndarray:
     return np.concatenate(out) if out else np.zeros(0, np.int64)
 
 
-def _phrase_exact_committed(index, slots, spec) -> np.ndarray:
+def _phrase_exact_committed(index, slots, spec, request) -> np.ndarray:
     """Sorted global ids of committed docs matching the WHOLE query's
-    phrase + required/negated/deleted constraints —
+    phrase + required/negated/deleted (+ facet filter) constraints —
     exact phrase counting with no candidate cliff (reference gets this
     from per-doc position streams, add_result.rs:38-92)."""
     from .phrase import phrase_docs_global
@@ -814,6 +1136,21 @@ def _phrase_exact_committed(index, slots, spec) -> np.ndarray:
         if shard.deleted and len(cand):
             dl = np.fromiter(shard.deleted, dtype=np.int64)
             cand = cand[~np.isin(cand, dl * S + shard.shard_id)]
+    if request is not None and request.facet_filter and len(cand):
+        rt = facets_mod.get_runtime(index)
+        allowed = rt.filter_mask(request.facet_filter)
+        if allowed is not None:
+            sid = (cand % S).astype(np.int64)
+            loc = (cand // S).astype(np.int64)
+            okm = np.ones(len(cand), bool)
+            for shard in index.shards:
+                m = sid == shard.shard_id
+                am = allowed[shard.shard_id]
+                inb = loc[m] < am.shape[0]
+                ok_part = np.zeros(int(m.sum()), bool)
+                ok_part[inb] = am[loc[m][inb]]
+                okm[m] = ok_part
+            cand = cand[okm]
     return cand
 
 
@@ -866,11 +1203,11 @@ def _score_gids(index, slots, spec, gids, realtime) -> np.ndarray:
 
 def _finalize_lexical(index, requests, results, live, live_specs, slots,
                       merged_scores, merged_ids, counts, counts_exact,
-                      with_counts, tail_phrase_counts=None,
-                      phrase_escalate_ok=True, canonical=None):
-    """Phrase verification and final assembly (the reference's facet
-    histograms and sort keys here are ROADMAP A.6; the port raises for
-    such requests before it comes here)."""
+                      with_counts, facet_specs=(), fc_total=None,
+                      sorting=False, sort_desc=True,
+                      tail_phrase_counts=None, phrase_escalate_ok=True,
+                      canonical=None):
+    # phrase verification + final assembly
     for bi, qi in enumerate(live):
         spec = live_specs[bi]
         scores, gids = merged_scores[bi], merged_ids[bi]
@@ -889,7 +1226,8 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
                 # intersection + vectorized position join, phrase.py);
                 # retrieved results check membership, tail docs verify
                 # per doc
-                pd = _phrase_exact_committed(index, slots, spec)
+                pd = _phrase_exact_committed(index, slots, spec,
+                                             requests[qi])
                 if len(gids):
                     S_ = index.shard_count
                     sid = (gids % S_).astype(np.int64)
@@ -929,9 +1267,11 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
             want = requests[qi].offset + requests[qi].length
             if (phrase_escalate_ok
                     and len(gids) < want
+                    and not sorting
                     and not any(slots[s].virtual for s in spec.slots)):
                 if pd is None:
-                    pd = _phrase_exact_committed(index, slots, spec)
+                    pd = _phrase_exact_committed(index, slots, spec,
+                                                 requests[qi])
                 S_ = index.shard_count
                 if len(gids):
                     committed = np.array(
@@ -956,14 +1296,71 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
         rs.result_count_total = int(counts[bi]) if with_counts else 0
         rs.count_exact = bool(counts_exact[bi])
         page = slice(requests[qi].offset, requests[qi].offset + requests[qi].length)
-        # .tolist() yields native Python scalars in one C pass —
-        # per-element int()/float() numpy-scalar unwrap was ~30% of
-        # the assembly cost at large batch
-        rs.results = [
-            ResultObject(doc_id=g, score=s)
-            for s, g in zip(scores[page].tolist(), gids[page].tolist())
-        ]
+        if sorting:
+            # device rank = key (desc) or -key (asc); report the real key
+            vals = scores if sort_desc else -scores
+            # multi-key tie-breaking over the candidate window (reference
+            # result_ordering_root min_heap.rs:56-545): sub-sort ties of the
+            # primary key by the remaining sort fields using host columns
+            sort_fields = requests[qi].result_sort
+            if len(sort_fields) > 1 and len(gids):
+                rt2 = facets_mod.get_runtime(index)
+                keys = [(-vals if sort_fields[0].order != "Ascending"
+                         else vals)]
+                for rs_f in sort_fields[1:]:
+                    col = np.zeros(len(gids), np.float32)
+                    for row, g in enumerate(gids):
+                        v = rt2.raw_value(rs_f.field, int(g))
+                        col[row] = 0.0 if v is None else float(v)
+                    keys.append(-col if rs_f.order != "Ascending" else col)
+                keys.append(gids)
+                order2 = np.lexsort(tuple(reversed(keys)))
+                vals, gids = vals[order2], gids[order2]
+            rs.results = [
+                ResultObject(doc_id=int(g), score=float(v))
+                for v, g in zip(vals[page], gids[page])
+            ]
+        else:
+            # .tolist() yields native Python scalars in one C pass —
+            # per-element int()/float() numpy-scalar unwrap was ~30% of
+            # the assembly cost at large batch
+            rs.results = [
+                ResultObject(doc_id=g, score=s)
+                for s, g in zip(scores[page].tolist(), gids[page].tolist())
+            ]
         rs.result_count = len(rs.results)
+        if facet_specs and fc_total is not None:
+            rs.facets = {}
+            for fi, (qf, labels, nc) in enumerate(facet_specs):
+                vec = fc_total[fi, bi, :nc].copy()
+                if qf.ranges is not None and qf.ranges.range_type != \
+                        "CountWithinRange":
+                    # cumulative range counts (reference RangeType
+                    # search.rs:220-228, cumulation search.rs:3660-3764)
+                    if qf.ranges.range_type == "CountAboveRange":
+                        vec = np.cumsum(vec[::-1])[::-1]
+                    elif qf.ranges.range_type == "CountBelowRange":
+                        vec = np.cumsum(vec)
+                if isinstance(labels, tuple) and labels and \
+                        labels[0] == "__SETS__":
+                    # StringSet: expand set-ordinal histogram to value counts
+                    set_members = labels[1]
+                    vcounts: dict[str, int] = {}
+                    for so in np.flatnonzero(vec):
+                        if so < len(set_members):
+                            for v in set_members[so]:
+                                vcounts[v] = vcounts.get(v, 0) + int(vec[so])
+                    pairs = sorted(
+                        vcounts.items(), key=lambda kv: (-kv[1], str(kv[0]))
+                    )[: qf.length]
+                else:
+                    nz = np.flatnonzero(vec)
+                    pairs = sorted(
+                        ((labels[c] if labels else int(c), int(vec[c]))
+                         for c in nz),
+                        key=lambda kv: (-kv[1], str(kv[0])),
+                    )[: qf.length]
+                rs.facets[qf.field] = pairs
         _attach_docs(index, requests[qi], rs)
         results[qi] = rs
 
@@ -973,11 +1370,11 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
 def _merge_tail(
     index: Index, shard: Shard, slots, specs, boosts,
     merged_scores, merged_ids, counts, with_counts,
-    tail_phrase_counts=None,
+    req0=None, facet_specs=(), fc_total=None, fcm=1,
+    sorting=False, sort_desc=True, tail_phrase_counts=None,
 ) -> None:
     """Score the uncommitted level-0 tail with the numpy oracle and merge
-    (the reference's tail facet counting, filtering and sort keys are
-    ROADMAP A.6)."""
+    (including tail facet counting / filtering / sort keys)."""
     hashes = [
         (term_hash(sl.term), sl.tf_hash) if sl.tf_hash is not None
         else sl.hash
@@ -993,6 +1390,56 @@ def _merge_tail(
     for sid in shard.deleted:
         if base <= sid < base + n_tail:
             tail_deleted[sid - base] = True
+
+    # facet filter / codes / sort keys over the tail (host values)
+    tail_vals = {}
+
+    def _tail_col(field):
+        sf = index.schema_map[field]
+        if sf.facet_id in tail_vals:
+            return tail_vals[sf.facet_id]
+        vals = shard.level0.facet_values.get(sf.facet_id, [])
+        start = shard.partial_on_disk
+        vv = vals[start : start + n_tail]
+        if sf.field_type == FieldType.Point:
+            lat = np.array([v[0] if v else 0.0 for v in vv])
+            lon = np.array([v[1] if v else 0.0 for v in vv])
+            col = geo_mod.encode_morton_2_d(lat, lon)
+        else:
+            col = np.array(
+                [0 if v is None else v for v in vv], dtype=np.float64
+            )
+        tail_vals[sf.facet_id] = col
+        return col
+
+    if req0 is not None and req0.facet_filter:
+        for f in req0.facet_filter:
+            sf = index.schema_map[f.field]
+            col = _tail_col(f.field)
+            if f.values is not None:
+                if sf.field_type.is_string_facet:
+                    tab = getattr(index, "_facet_tables", {}).get(
+                        sf.facet_id, {"": 0}
+                    )
+                    vals = [tab.get(str(v), -1) for v in f.values]
+                else:
+                    vals = [float(v) for v in f.values]
+                tail_deleted |= ~np.isin(col, vals)
+            elif f.range is not None:
+                lo, hi = f.range
+                tail_deleted |= ~((col >= lo) & (col <= hi))
+
+    tail_key = None
+    if sorting and req0 is not None and req0.result_sort:
+        rs0 = req0.result_sort[0]
+        sf = index.schema_map[rs0.field]
+        col = _tail_col(rs0.field)
+        if sf.field_type == FieldType.Point:
+            tail_key = geo_mod.point_distance(
+                col, float(rs0.base[0]), float(rs0.base[1])
+            ).astype(np.float32)
+        else:
+            tail_key = col.astype(np.float32)
 
     n_docs = lex.doc_count + n_tail
     for qi, spec in enumerate(specs):
@@ -1018,7 +1465,32 @@ def _merge_tail(
                         tail_phrase_counts[qi] += 1
             else:
                 counts[qi] += int(matched.sum())
-        s2, ids = topk_from_scores(sc, min(n_tail, 1024))
+        if facet_specs and fc_total is not None:
+            for fi, (qf, labels, nc) in enumerate(facet_specs):
+                sf = index.schema_map[qf.field]
+                col = _tail_col(qf.field)
+                if qf.ranges is not None:
+                    if sf.field_type == FieldType.Point:
+                        col = geo_mod.point_distance(
+                            col, float(qf.ranges.base[0]),
+                            float(qf.ranges.base[1]),
+                        )
+                        if qf.ranges.unit == "Miles":
+                            col = col * 0.621371192
+                    bounds = np.array([float(r[1]) for r in qf.ranges.ranges])
+                    codes = np.searchsorted(bounds, col, side="right")
+                else:
+                    codes = col.astype(np.int64)
+                codes = np.clip(codes, 0, fcm - 1)
+                np.add.at(fc_total[fi, qi], codes[matched], 1)
+        if sorting and tail_key is not None:
+            rank = np.where(
+                matched, tail_key if sort_desc else -tail_key,
+                np.float32(-np.inf),
+            ).astype(np.float32)
+            s2, ids = topk_from_scores(rank, min(n_tail, 1024))
+        else:
+            s2, ids = topk_from_scores(sc, min(n_tail, 1024))
         gids = (ids + base) * index.shard_count + shard.shard_id
         merged_scores[qi] = np.concatenate([merged_scores[qi], s2])
         merged_ids[qi] = np.concatenate([merged_ids[qi], gids])

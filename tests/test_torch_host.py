@@ -167,8 +167,8 @@ idx.index_documents([{"t": f"the w{i % 50} of w{i % 7}" + " the" * (i % 3)}
                      for i in range(3000)])
 idx.commit()
 assert len(idx._warmup_cache) >= 2, idx._warmup_cache.keys()
-scores, gids, total = idx._warmup_cache[term_hash("the")]
-assert total == 3000 and len(gids) == 1000
+scores, gids, total, facets = idx._warmup_cache[term_hash("the")]
+assert total == 3000 and len(gids) == 1000 and facets == {}
 req = pt.SearchRequest(query="the", length=20, realtime=False)
 n0 = pt.METRICS.snapshot().get("device_dispatch_total", 0)
 cached = idx.search(req)

@@ -167,8 +167,8 @@ def test_executor_matches_reference(index, qtype, with_counts, k):
                 for sh in index.port.shards]
     ts, gid, cnt, _ = RefStacked(index.ref).run(
         ref_plans, index.ref.boosts_or_default(), k, with_counts)
-    mts, mgid, mcnt = pm.get_stacked(index.port, "cpu").run(my_plans, k,
-                                                           with_counts)
+    mts, mgid, mcnt, _ = pm.get_stacked(index.port, "cpu").run(
+        my_plans, k, with_counts)
     assert mts.shape == (len(QS), k) and mgid.dtype == np.int64
     if with_counts:
         np.testing.assert_array_equal(mcnt, cnt)
@@ -384,7 +384,7 @@ def test_scan_pairs_takes_fused_mode_up_to_kmax(k, monkeypatch):
         monkeypatch.setattr(lx, name, lambda *a, _n=name, _f=fn: (
             calls.append(_n), _f(*a))[1])
     monkeypatch.setattr(ds, "TILE_PAIRS", 5)
-    vals, docs, cnt = lx.scan_pairs(arrays, pairs, k, B)
+    vals, docs, cnt, _ = lx.scan_pairs(arrays, pairs, k, B)
     P = pairs[0].shape[0]
     assert calls == (["dense_topk"] if k <= ds.KMAX
                      else ["dense_scan"] * -(-P // 5))

@@ -361,9 +361,9 @@ def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
     idx = _Pair(*both)
     assert idx.port._warmup_cache
     assert idx.port._warmup_cache.keys() == idx.ref._warmup_cache.keys()
-    for h, (sc, gid, total) in idx.port._warmup_cache.items():
-        rsc, rgid, rtotal = idx.ref._warmup_cache[h][:3]
-        assert total == rtotal
+    for h, (sc, gid, total, facets) in idx.port._warmup_cache.items():
+        rsc, rgid, rtotal, rfacets = idx.ref._warmup_cache[h]
+        assert total == rtotal and facets == rfacets
         np.testing.assert_array_equal(gid, rgid)
         np.testing.assert_allclose(sc, rsc, rtol=3e-5)
     word = next(iter(idx.ref.spell.words))
@@ -410,9 +410,10 @@ def test_cuda_without_card_raises(index, tmp_path):
 
 @pytest.mark.parametrize("kw, served", [
     (dict(search_mode=st.SearchMode.Vector), False),
-    (dict(query_facets=[st.QueryFacet(field="title")]), False),
-    (dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]), False),
-    (dict(result_sort=[st.ResultSort(field="title")]), False),
+    (dict(query_facets=[st.QueryFacet(field="title")]), ValueError),
+    (dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]),
+     ValueError),
+    (dict(result_sort=[st.ResultSort(field="title")]), ValueError),
     (dict(field_filter=["title"]), False),
     (dict(result_type=st.ResultType.Count), True),
     (dict(offset=1000, length=100), True),
@@ -420,15 +421,26 @@ def test_cuda_without_card_raises(index, tmp_path):
 ], ids=["vector", "facets", "filter", "sort", "field_filter", "count",
         "deep", "slots"])
 def test_out_of_scope_raises(index, kw, served, monkeypatch):
-    """What the port does not serve yet raises NotImplementedError naming
-    its ROADMAP item.  Count, pages past 1024 and more than 8 slots raised
-    too until the dense path came; now the port serves them as the
-    reference does."""
+    """What the port does not serve yet (vector search, field_filter)
+    raises NotImplementedError naming its ROADMAP item.  Count, pages past
+    1024 and more than 8 slots raised too until the dense path came, and
+    facets, facet filters and sorting until their slice; now the port does
+    what the reference does: it serves them, and for a field that is no
+    facet field (this fixture has none; tests/test_torch_facets.py has)
+    it raises the reference's ValueError."""
     req = st.SearchRequest(**{"query": "w001 w002", **kw})
-    if served:
+    if served is True:
         mine = _port(index, [req], monkeypatch)
         assert mine == _reference(index, [req], monkeypatch)
         assert mine[0].count > 0
+        return
+    if served is ValueError:
+        for search, idx, r in (
+                (st.search_batch, index.ref, req),
+                (lambda i, rq: pt.search_batch(i, rq, device="cpu"),
+                 index.port, _to_port(req))):
+            with pytest.raises(ValueError, match="'title' is not a facet"):
+                search(idx, [r])
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.search_batch(index.port, [_to_port(req)], device="cpu")

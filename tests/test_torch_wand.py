@@ -190,7 +190,8 @@ def phases(batch):
     jp = _jpools(batch["jstate"])
     tp = pw.pools_from_numpy(*[np.asarray(x) for x in jp], device="cpu")
     tq, jq = _tq(batch), _jq(batch)
-    cnt, rungs = pw.wand_scan(*tp, *tq, with_counts=True, with_rescore=False)
+    (cnt, rungs), _ = pw.wand_scan(*tp, *tq, with_counts=True,
+                                   with_rescore=False)
     Bq, T = batch["tslot"].shape
 
     def mine(ids, vals):

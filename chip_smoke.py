@@ -51,11 +51,14 @@ Phases, each printing what it found:
   6b. K3:    K3 against its plain PyTorch version, counts equal, at the
              shapes of the 2,048-query facet2 batch on both routes (NF=2,
              fcm=32: K1's matched words under the brand filter, and K2's
-             fused-mode matched words over the batch's dense plan) and at
-             one wide code space (fcm=65,536, global atomics), with K3's
-             time, its bound (the matched words, the codes of the blocks
-             touched and the histogram, each once) and share, the plain
-             time, and torch.bincount on indices unpacked beforehand;
+             fused-mode matched words over the batch's dense plan), the
+             dense route's pairs in a shuffled order, one wide code space
+             (fcm=65,536, global atomics), the widest the shared histogram
+             takes (8,192 bins) and the tf scan's matched words of a
+             256-query field_filter batch, with K3's time, its bound
+             (the matched words, the codes of the blocks touched and the
+             histogram, each once) and share, the plain time, and
+             torch.bincount on indices unpacked beforehand;
   7. dense:  the same batches with SEEKSTORM_TPU_NO_WAND=1 (the dense
              path): K2 must have launched, once for the TopkCount batch
              (fused mode); pages equal to the WAND route's
@@ -75,7 +78,20 @@ Phases, each printing what it found:
              routes and equal to "cpu" on the first 64 queries of each
              batch; every filtered page's docs carry an allowed brand; a
              result's brand counts sum to its count; warm batch latency
-             and the device's kernel time by name.
+             and the device's kernel time by name;
+  9. tf:     field_filter batches (the tf path: plans over the full
+             postings, scored from per-field term frequencies by torch ops):
+             256 queries of bench.make_queries as TopkCount with
+             realtime=True under field_filter=["title"] and ["body"], and
+             256 facet2 requests (brand counts, price ranges, brand filter)
+             under field_filter=["body"], whose matched words feed K3: no
+             K1 or K2 launch, one K3 launch for the faceted batch; pages,
+             counts and facet lists equal to "cpu" on the first 64; eight
+             queries on the corpus's most frequent words (dense-term rows)
+             equal to "cpu"; field_filter naming both fields equal to the unfiltered batch;
+             a title-only page holds no doc that matches in the body alone
+             (its count is at most the unfiltered count); warm batch
+             latency and the device's kernel time by name.
 
 The script imports the port (seekstorm_tpu_torch), bench.py and torch;
 jax and the JAX package (seekstorm_tpu) are blocked through every phase.
@@ -88,6 +104,8 @@ exits 1 at once.  The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import importlib.abc
 import json
 import os
@@ -103,6 +121,7 @@ WORK = ROOT / "build" / "smoke"
 N_DOCS = 1 << 20
 N_TAIL = 5_000
 N_QUERIES = 2048
+N_TF = 256                   # queries of a field_filter batch
 K1_SHAPES = dict(Bq=2048, NBLK=16, V=4096)
 PAGE_RTOL = 3e-5
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense f32 rate outside the
@@ -997,6 +1016,12 @@ def facet_requests(st, kind, n, realtime=True):
     return out
 
 
+def tf_facet_requests(st, n, fields=("body",)):
+    """facet2's requests (facets, brand filter) under a field_filter."""
+    return [dataclasses.replace(r, field_filter=list(fields))
+            for r in facet_requests(st, "facet2", n)]
+
+
 def k3_bound(torch, mwords, p_blk, codes, fcm, n_rows):
     """K3's least time on an H100 for these inputs, in ms, and what sets
     it.  Bytes moved once: the matched words of every pair, the pair
@@ -1016,9 +1041,16 @@ def k3_bound(torch, mwords, p_blk, codes, fcm, n_rows):
     return _bound(n_bytes, matched * NF) + (matched,)
 
 
-def phase_k3(torch, st, idx, n_queries=N_QUERIES):
-    """K3 against its plain version at the faceted batch's own shapes on
-    both routes and at one wide code space; times, bound and share."""
+def k3_shapes(torch, st, idx, n_queries=N_QUERIES):
+    """K3's inputs at the 2,048-query facet2 batch's own shapes, as
+    [(name, mwords, p_blk, p_row, codes, fcm, n_rows)]: K1's matched words
+    under the brand filter (the WAND route, row-major pairs), K2's
+    fused-mode matched words over the batch's dense plan (block-major
+    pairs), the same pairs in a shuffled order, the WAND shape with one wide
+    code space (fcm=65,536, global atomics) and with the widest the shared
+    histogram takes (NF*fcm = 8,192 bins), the tf scan's matched words of
+    the faceted field_filter batch, and a ragged cut of those with three
+    facets."""
     import importlib
 
     import numpy as np
@@ -1026,6 +1058,7 @@ def phase_k3(torch, st, idx, n_queries=N_QUERIES):
     from seekstorm_tpu_torch import facets as facets_mod
     from seekstorm_tpu_torch.ops import dense_scan as ds
     from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops import lexical as lx
     from seekstorm_tpu_torch.ops import wand as W
     from seekstorm_tpu_torch.ops import wand_scan as ws
     from seekstorm_tpu_torch.utils import ceil_pow2
@@ -1063,14 +1096,54 @@ def phase_k3(torch, st, idx, n_queries=N_QUERIES):
     shapes.append(("dense route", dmw, pairs[0], pairs[1], codes, fcm,
                    n_queries))
 
-    # one wide code space (a numeric facet without ranges): global atomics
+    # the same pairs in a shuffled order: K3 assumes nothing of it
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
+    perm = torch.randperm(dmw.shape[0], generator=g, device="cuda")
+    shapes.append(("dense route, shuffled pairs", dmw[perm],
+                   pairs[0][perm].contiguous(), pairs[1][perm].contiguous(),
+                   codes, fcm, n_queries))
+
+    # one wide code space (a numeric facet without ranges): global atomics
     wide = torch.randint(-5, 65_541, (1, codes.shape[1]), generator=g,
                          device="cuda", dtype=torch.int32)
     shapes.append(("WAND route, wide codes", *shapes[0][1:4], wide, 65_536,
                    Bq))
+    # the widest code space the shared histogram takes: 8,192 bins, one copy
+    mid = torch.randint(-5, 4_101, (2, codes.shape[1]), generator=g,
+                        device="cuda", dtype=torch.int32)
+    shapes.append(("WAND route, 8,192 bins", *shapes[0][1:4], mid, 4_096, Bq))
 
+    # the tf scan's matched words: the faceted field_filter batch of phase 9
+    treqs = tf_facet_requests(st, N_TF)
+    plans, stacked = st.dense_plans(idx, treqs, device="cuda", mode="tf")
+    tpairs = [put(x) for x in stacked.pair_tables(plans)[:8]]
+    boosts = idx.boosts_or_default().copy()
+    boosts[[sf.indexed_field_id for sf in idx.indexed_fields
+            if sf.field not in treqs[0].field_filter]] = 0.0
+    tmw = ds.topk_tiles(
+        functools.partial(lx.tf_scan, boosts=put(boosts)),
+        *stacked.ensure_tf(), arrays[4], *tpairs, N_TF, 16,
+        with_matched=True)[3]
+    shapes.append(("tf scan", tmw, tpairs[0], tpairs[1], codes, fcm, N_TF))
+    # a pair count that is no multiple of K3's chunk, fewer chunks than the
+    # card holds CTAs, and an odd number of facets
+    odd = torch.randint(-2, 19, (3, codes.shape[1]), generator=g,
+                        device="cuda", dtype=torch.int32)
+    shapes.append(("tf scan, 1,021 pairs, 3 facets", tmw[:1021],
+                   tpairs[0][:1021], tpairs[1][:1021], odd, 16, N_TF))
+    return shapes
+
+
+def phase_k3(torch, st, idx, n_queries=N_QUERIES):
+    """K3 against its plain version at the faceted batch's own shapes on
+    both routes, in a shuffled pair order, at one wide code space and at
+    the tf scan's shape; times, bound and share."""
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops.wand_scan import popcount32
+
+    shapes = k3_shapes(torch, st, idx, n_queries)
     rows = {}
     for name, mwords, p_blk, p_row, cod, f, R in shapes:
         got = fh.facet_hist_cuda(mwords, p_blk, p_row, cod, f, R)
@@ -1108,6 +1181,19 @@ def phase_k3(torch, st, idx, n_queries=N_QUERIES):
         except torch.cuda.OutOfMemoryError as e:
             print(f"[K3] {name}: no library time, the unpacked indices do "
                   f"not fit ({e})")
+        # what the walk meets: matched docs a pair, and one pass over the
+        # words alone (a max over them as int64), the stream's own time
+        per_pair = torch.cat([popcount32(mwords[a:a + 4096]).sum(dim=1)
+                              for a in range(0, mwords.shape[0], 4096)])
+        heavy = per_pair > 1000
+        read_ms = _median_ms(torch,
+                             lambda: mwords.view(torch.int64).amax(), n=5)
+        print(f"[K3] {name}: docs a pair: {int((per_pair == 0).sum())} pairs "
+              f"empty, median {int(per_pair.median())}, 99th percentile "
+              f"{int(per_pair.float().quantile(0.99))}, most "
+              f"{int(per_pair.max())}; {int(heavy.sum())} pairs above 1,000 "
+              f"hold {100 * int(per_pair[heavy].sum()) / max(matched, 1):.1f}% "
+              f"of the docs; one torch pass over the words {read_ms:.4f} ms")
         print(f"[K3] {name}: {mwords.shape[0]} pairs, NF={cod.shape[0]}, "
               f"fcm={f}, {matched} matched docs: counts equal; K3 {ms:.4f} "
               f"ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}), "
@@ -1295,6 +1381,124 @@ def phase_facets(torch, st, idx, n_big=N_QUERIES, n_small=64):
                 launches=launches)
 
 
+def phase_tf(torch, st, idx, n=N_TF, n_cpu=64):
+    """field_filter batches: the tf path through search_batch."""
+    import numpy as np
+
+    import bench
+    from seekstorm_tpu_torch import METRICS
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    queries = bench.make_queries(n, np.random.default_rng(100))
+
+    def plain(fields):
+        return [st.SearchRequest(query=q, length=10, realtime=True,
+                                 result_type=st.ResultType.TopkCount,
+                                 query_type_default=st.QueryType(t),
+                                 field_filter=list(fields))
+                for q, t in queries]
+
+    batches = [("title", plain(["title"])), ("body", plain(["body"])),
+               ("facet2 under body", tf_facet_requests(st, n))]
+
+    def run(reqs, device="cuda"):
+        ws.LAUNCHES = ds.LAUNCHES = fh.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = st.search_batch(idx, reqs, device=device)
+        return out, time.perf_counter() - t0, (ws.LAUNCHES, ds.LAUNCHES,
+                                               fh.LAUNCHES)
+
+    served = {}
+    k3_launches = 0
+    for tag, reqs in batches:
+        out, dt, (k1, k2, k3) = run(reqs)
+        faceted = bool(reqs[0].query_facets)
+        snap0 = METRICS.snapshot()
+        lat = [run(reqs)[1] for _ in range(3)]
+        snap1 = METRICS.snapshot()
+        print(f"[tf] field_filter {tag} x {len(reqs)}: {dt:.3f} s (first "
+              f"batch: uploads the tf arrays), warm "
+              f"{[round(x * 1e3, 1) for x in lat]} ms; K1 launches {k1}, K2 "
+              f"{k2}, K3 {k3}")
+        _print_split("tf", lat, snap0, snap1)
+        check(k1 == 0 and k2 == 0,
+              "a tf batch takes neither the WAND route nor K2")
+        check(k3 == (1 if faceted else 0),
+              "a faceted tf batch counts its facets in one K3 launch")
+        k3_launches += k3
+        check(sum(r.result_count_total > 0 for r in out) > len(out) // 2
+              and all(len(r.results) <= 10
+                      and np.isfinite([x.score for x in r.results]).all()
+                      for r in out), f"tf {tag}: most queries match")
+        if faceted:
+            for rs in out:
+                check(sum(c for _, c in rs.facets["brand"])
+                      == rs.result_count_total
+                      and all(lbl in BRANDS[:6]
+                              for lbl, _ in rs.facets["brand"]),
+                      f"tf {tag}: brand counts sum to the match count")
+        served[tag] = out
+        cpu, _, _ = run(reqs[:n_cpu], device="cpu")
+        bad = [(i, why) for i, (a, b) in enumerate(zip(out, cpu))
+               for ok, why in [_facets_equal(a, b, "exact")] if not ok]
+        print(f"[tf]   cuda vs cpu on {n_cpu}: {n_cpu - len(bad)} equal "
+              f"(counts, facet lists, ids, order and scores exactly), first "
+              f"mismatches {bad[:5]}")
+        check(not bad, f"tf {tag}: cuda and cpu differ")
+    # what a tf plan holds: pairs, postings in its ranges, dense-term rows
+    plans, stacked = st.dense_plans(idx, batches[1][1], device="cuda",
+                                    mode="tf")
+    tables = stacked.pair_tables(plans)
+    print(f"[tf] the body batch's plan: {len(tables[0])} pairs, "
+          f"{int(tables[4].sum())} postings in their ranges, "
+          f"{int((tables[5] >= 0).sum())} dense-term rows "
+          f"({len(np.unique(tables[5][tables[5] >= 0]))} distinct)")
+    device_kernels(torch, f"tf body x {n}", lambda: run(batches[1][1]),
+                   top=10)
+    device_kernels(torch, f"tf facet2 under body x {n}",
+                   lambda: run(batches[2][1]), top=10)
+
+    # terms dense enough for the dense-term store (32,768 postings of a
+    # block and up: the corpus's most frequent words), which the tf scan
+    # scores from whole rows of per-field tf, not from posting ranges
+    dense_q = ["w00000 w00100", "+w00001 w00200", "w00002 -w00000", "w00003",
+               "w00000 w00001", "+w00000 +w00002", "w00001 w00350 w00002",
+               "w00150 -w00003"]
+    reqs = [st.SearchRequest(query=q, length=10, realtime=True,
+                             result_type=st.ResultType.TopkCount,
+                             field_filter=["body"]) for q in dense_q]
+    plans, stacked = st.dense_plans(idx, reqs, device="cuda", mode="tf")
+    n_dense = int((stacked.pair_tables(plans)[5] >= 0).sum())
+    out, dt, _ = run(reqs)
+    cpu, _, _ = run(reqs, device="cpu")
+    bad = [(i, why) for i, (a, b) in enumerate(zip(out, cpu))
+           for ok, why in [_facets_equal(a, b, "exact")] if not ok]
+    print(f"[tf] {len(reqs)} queries on dense terms under body: {dt:.3f} s, "
+          f"{n_dense} dense-term rows in the plan; cuda vs cpu: "
+          f"{len(reqs) - len(bad)} equal exactly, first mismatches {bad[:5]}")
+    check(n_dense > 0 and all(r.result_count_total > 0 for r in out),
+          "the dense-term batch reaches the dense-term rows and matches")
+    check(not bad, "tf dense terms: cuda and cpu differ")
+
+    # naming every indexed field is no filter: the impact routes, and the
+    # unfiltered batch's results
+    both, _, (k1, k2, _) = run(plain(["title", "body"]))
+    none, _, _ = run(plain([]))
+    check(k1 + k2 > 0, "field_filter of every field takes the impact routes")
+    bad = [i for i, (a, b) in enumerate(zip(both, none))
+           if not _facets_equal(a, b, "exact")[0]]
+    print(f"[tf] field_filter of both fields vs none: {n - len(bad)} of {n} "
+          f"equal, first mismatches {bad[:5]}")
+    check(not bad, "field_filter of every field differs from no filter")
+    for tag in ("title", "body"):
+        check(all(a.result_count_total <= b.result_count_total
+                  for a, b in zip(served[tag], none)),
+              f"a {tag}-only count exceeds the unfiltered count")
+    return dict(k3_launches=k3_launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -1323,14 +1527,17 @@ def main() -> int:
     k2_launches = phase_dense(torch, st, idx, served)
     k3 = phase_k3(torch, st, idx)
     faceted = phase_facets(torch, st, idx)
+    tf = phase_tf(torch, st, idx)
     shutil.rmtree(WORK / "index", ignore_errors=True)
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")],
           "jax or the JAX package was imported")
 
     # K1's times are those at the serve batch's own shapes, K3's those at
-    # the facet2 batch's on the WAND route; no single PyTorch call computes
-    # K1's or K2's function (library_ms null)
+    # the facet2 batch's on the WAND route, and K3's launches those of the
+    # default-route facet2 batch of 2,048 plus the faceted tf batch's, each
+    # read right after its batch; no single PyTorch call computes K1's or
+    # K2's function (library_ms null)
     k1_main = served["k1"]
     print(json.dumps({"kernels": [{
         "name": "wand_scan_cuda",
@@ -1363,7 +1570,7 @@ def main() -> int:
         "source": "seekstorm_tpu_torch/csrc/facet_hist.cu",
         "replaces": "seekstorm_tpu/ops/wand.py:247, "
                     "seekstorm_tpu/ops/lexical.py:297",
-        "launches": faceted["k3_launches"],
+        "launches": faceted["k3_launches"] + tf["k3_launches"],
         "max_abs_err": k3["err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

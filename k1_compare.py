@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time an earlier commit's kernel K1 against the current one on one GPU.
+"""Time an earlier commit's kernel K1, or K3, against the current one on one
+GPU.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 k1_compare.py build/parent
+    python3 k1_compare.py --k3 build/parent
 
 Both kernels run in this process on the same inputs, in turns (earlier,
 current, current, earlier; each turn the median of 20 CUDA-event launches),
@@ -19,6 +21,11 @@ limit.  Then the device's kernel time by name over one warm default-route
 tree's in this process, the earlier tree's in a subprocess that imports
 that tree's package and loads the native library built here
 (SEEKSTORM_TPU_NATIVE_LIB).
+
+With --k3 the two facet histograms (csrc/facet_hist.cu of each tree; the C
+entry point facet_hist_launch has not changed) run in the same turns at the
+shapes of chip_smoke.k3_shapes, their counts must equal the plain version's,
+and each line gives both times beside chip_smoke.k3_bound.
 
 The earlier K1 is the one whose C entry point is wand_scan_launch(ppool,
 vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk, T, with_counts,
@@ -105,6 +112,54 @@ def compare(torch, lib, args, tag, card):
     return row
 
 
+def compare_k3(torch, tree: Path, card) -> list:
+    """Earlier and current K3 at chip_smoke's K3 shapes, in turns."""
+    import seekstorm_tpu_torch as st
+    from seekstorm_tpu_torch import _build
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+
+    current = _build.load("facet_hist")
+    out = _build.BUILD_DIR / "libfacet_hist_earlier.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(tree / "seekstorm_tpu_torch" / "csrc"
+                        / "facet_hist.cu")],
+                   check=True, capture_output=True, text=True)
+    earlier = ctypes.CDLL(str(out))
+    earlier.facet_hist_launch.argtypes = \
+        _build._SIGNATURES["facet_hist"]["facet_hist_launch"]
+    earlier.facet_hist_launch.restype = ctypes.c_int
+
+    def run(lib, args):
+        _build._LIBS["facet_hist"] = lib     # the wrapper loads it from here
+        return fh.facet_hist_cuda(*args)
+
+    idx = cs.phase_index(st)
+    rows = []
+    for name, *args in cs.k3_shapes(torch, st, idx):
+        want = fh.facet_hist_ref(*args)
+        for tag, lib in (("earlier", earlier), ("current", current)):
+            got = run(lib, args)
+            torch.cuda.synchronize()
+            cs.check(torch.equal(got, want), f"{tag} K3 counts ({name})")
+        turns = [cs._median_ms(torch, lambda lib=lib: run(lib, args))
+                 for lib in (earlier, current, current, earlier)]
+        bound, by, matched = cs.k3_bound(torch, args[0], args[1], args[3],
+                                         args[4], args[5])
+        rows.append(dict(tag=name, earlier_ms=[turns[0], turns[3]],
+                         current_ms=[turns[1], turns[2]], bound_ms=bound,
+                         bound_by=by, matched=matched, card=card))
+        print(f"[compare] K3 {name}: {args[0].shape[0]} pairs, {matched} "
+              f"matched docs, counts equal; earlier {turns[0]:.4f} / "
+              f"{turns[3]:.4f} ms ({100 * bound * 2 / (turns[0] + turns[3]):.1f}"
+              f"% of the bound), current {turns[1]:.4f} / {turns[2]:.4f} ms "
+              f"({100 * bound * 2 / (turns[1] + turns[2]):.1f}%), bound "
+              f"{bound:.4f} ms ({by})")
+        del want
+        torch.cuda.empty_cache()
+    _build._LIBS["facet_hist"] = current
+    return rows
+
+
 def serve_requests(st, queries):
     return [st.SearchRequest(query=q, length=10, realtime=True,
                              result_type=st.ResultType.TopkCount,
@@ -140,6 +195,13 @@ def main() -> int:
         return 1
     if sys.argv[1] == "--profile":
         return profile_tree(torch, Path(sys.argv[2]).resolve())
+    if sys.argv[1] == "--k3":
+        sys.meta_path.insert(0, cs._NoJax())
+        cs.WORK.mkdir(parents=True, exist_ok=True)
+        rows = compare_k3(torch, Path(sys.argv[2]).resolve(),
+                          cs.phase_card(torch))
+        print(json.dumps({"k3_compare": rows}))
+        return 0
     tree = Path(sys.argv[1]).resolve()
     import numpy as np
 

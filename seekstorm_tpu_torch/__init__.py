@@ -61,6 +61,8 @@ from .search import (
     wand_inputs,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Index", "create_index", "open_index", "METRICS", "native_library",
     "dense_plans", "exact_pages", "wand_inputs", "BLOCK_SIZE", "AccessType",

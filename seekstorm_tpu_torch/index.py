@@ -1335,6 +1335,14 @@ class Index:
         }
 
     # ------------------------------------------------------------------
+    def precompile(self, **kw) -> int:
+        """The reference compiles its device scan for a grid of plan shapes
+        here.  Nothing is compiled ahead on this backend: PyTorch runs
+        eagerly, whatever the shapes of a plan, and the CUDA kernels build
+        once at first use (``_build.py``).  Accepts the reference's keywords
+        and returns 0, the number of shapes compiled."""
+        return 0
+
     def warmup(self, k: int = 1000, batch: int = 256) -> None:
         """Precompute cached results for every frequent word present in the
         index (reference warmup index.rs:4006-4058, invoked from commit

@@ -98,6 +98,19 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64).float()
 
 
+def segment_positions(s_off, s_len):
+    """The postings of P ranges laid end to end: s_off i64[P] / s_len
+    i32[P] -> (pid i64[n] the range of each posting, pos i64[n] its place
+    in the posting arrays), or None when every range is empty."""
+    ln = s_len.long()
+    tot = int(ln.sum())
+    if not tot:
+        return None
+    pid = torch.repeat_interleave(torch.arange(len(ln), device=ln.device), ln)
+    first = torch.cumsum(ln, 0) - ln
+    return pid, s_off[pid] + torch.arange(tot, device=ln.device) - first[pid]
+
+
 def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                    s_off, s_len, s_bm, s_w, s_flag, n_queries: int,
                    with_matched: bool = False):
@@ -117,19 +130,14 @@ def dense_scan_ref(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     neg = torch.zeros((P, BLOCK_SIZE), dtype=torch.bool, device=dev)
     wsum = None               # bitmap weights, allocated on first use
     blk = p_blk.long()
-    rows = torch.arange(P, device=dev)
     zero = torch.zeros((), device=dev)
     for t in range(T):
         w = s_w[:, t]
         is_req = (s_flag[:, t] & FLAG_REQ) != 0
         is_neg = (s_flag[:, t] & FLAG_NEG) != 0
-        ln = s_len[:, t].long()
-        tot = int(ln.sum())
-        if tot:
-            pid = torch.repeat_interleave(rows, ln)
-            first = torch.cumsum(ln, 0) - ln
-            pos = (s_off[:, t][pid]
-                   + torch.arange(tot, device=dev) - first[pid])
+        seg = segment_positions(s_off[:, t], s_len[:, t])
+        if seg is not None:
+            pid, pos = seg
             doc = docid[pos].long() & 0xFFFF
             # (pair, doc) is unique within one slot's segment
             score[pid, doc] = fma32(w[pid], imp[pos], score[pid, doc])

@@ -15,7 +15,8 @@ matched), and the facet codes in the global-block layout,
 for every matched doc d and facet f: exact integer counts, with codes
 clipped before counting as both reference forms clip them.  The WAND route
 hands it K1's matched words viewed as ``[Bq*NBLK, NW]`` (``wand_pairs``),
-the dense route K2's with the pair list's blocks and rows.
+the dense route K2's and the tf scan (``ops/lexical.tf_scan``) its own, both
+with the pair list's blocks and rows.  The pairs may come in any order.
 """
 
 from __future__ import annotations

@@ -646,12 +646,30 @@ class WandState:
             self._pend_ioff.clear()
 
 
-def _signature(index) -> tuple:
-    """What a WandState was built from: per shard the committed level
-    object, committed doc count, block count and delete count."""
-    return tuple((id(sh.lexical), sh.committed_doc_count,
-                  sh.lexical.n_blocks, len(sh.deleted))
-                 for sh in index.shards)
+class _Signature:
+    """What a piece of device state was built from: per shard the committed
+    level object, committed doc count, block count and delete count.  The
+    level objects are held and compared by identity, so that a later level
+    (after a commit, a reload or ``Index.clear``) can never pass for the
+    one the state was built from: an address is reused only once its
+    object is gone, and these stay alive as long as the cached entry."""
+
+    __slots__ = ("levels", "numbers")
+    __hash__ = None
+
+    def __init__(self, index):
+        self.levels = [sh.lexical for sh in index.shards]
+        self.numbers = [(sh.committed_doc_count, sh.lexical.n_blocks,
+                         len(sh.deleted)) for sh in index.shards]
+
+    def __eq__(self, other):
+        return (isinstance(other, _Signature)
+                and self.numbers == other.numbers
+                and all(a is b for a, b in zip(self.levels, other.levels)))
+
+
+def _signature(index) -> _Signature:
+    return _Signature(index)
 
 
 def get_state(index, device) -> WandState:

@@ -1,12 +1,14 @@
 """Dense-path device arrays and executor for all shards on one torch device.
 
 Port of ``seekstorm_tpu/parallel/mesh.py::StackedIndex`` (524-1027) for one
-device in impact mode: ``_imp_arrays`` (567), ``build`` (611), ``run``
-(679) with ``_run_imp`` (930) and ``_run_qt_mode`` (840), which both go to
-the pair-list scan of ``ops/lexical.py``, and ``_merge`` with
+device: ``_imp_arrays`` (567), ``build`` (611), ``run`` (679) with
+``_run_imp`` (930) and ``_run_qt_mode`` (840), which both go to the
+pair-list scan of ``ops/lexical.py``, ``_tf_arrays`` (592) and
+``_ensure_tf`` (645) with ``_run_tf`` (977) for plans of mode "tf"
+(``ops/lexical.tf_scan_pairs``), and ``_merge`` with
 ``merge_shard_results`` (400-410), with ``aux_device`` (554) for the facet
-codes, sort keys and filter words of a batch.  No plan packing, tf arrays,
-mesh or join programs.
+codes, sort keys and filter words of a batch.  No plan packing, mesh or join
+programs.
 
 The shards' arrays are laid end to end in one global-block layout (the
 WAND state's), so one K2 launch covers the pairs of every shard: the CSR
@@ -16,7 +18,12 @@ auxiliary columns use the same layout (``search._wand_facet_codes``,
 ``_wand_rank_key``, ``_wand_filter_words``): facet codes
 i32[NF, nblk*BLOCK_SIZE], a sort key f32[nblk*BLOCK_SIZE], and the
 disallowed words of a facet filter, which ``run`` takes already ORed into
-the deleted words (the reference's ``_merge_deleted``, 1031).
+the deleted words (the reference's ``_merge_deleted``, 1031).  The tf arrays
+upload on the first tf plan, in the same layout with bases of their own:
+the full postings (``pl_docid`` as u16 bits in int16, ``pl_tf`` u16 bits
+[P, F]), the doc-length components ``comp`` f32[nblk*BLOCK_SIZE, F] (1.0
+where a shard has none) and the dense-term rows ``dense_tf`` u16 bits
+[ND, BLOCK_SIZE, F].
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ from ..ops.wand import _signature
 from ..schema import BLOCK_SIZE
 
 
+def _tf_plans(plans) -> bool:
+    """Whether the batch's plans range over the tf arrays."""
+    return any(p is not None and p.mode == "tf" for p in plans)
+
+
 class StackedIndex:
     """The dense path's device tensors for one committed index generation
     on one torch device."""
@@ -38,6 +50,7 @@ class StackedIndex:
         self.index = index
         self.device = torch.device(device)
         self._aux: dict = {}
+        self._tf = None         # the tf arrays, uploaded on first use
         self.build()
 
     def aux_device(self, key, make):
@@ -108,10 +121,61 @@ class StackedIndex:
     def arrays(self):
         return self.docid, self.imp, self.bitmaps, self.sat1, self.delw
 
+    def ensure_tf(self):
+        """Upload the tf arrays on first use (the reference's _tf_arrays
+        and _ensure_tf): (pl_docid, pl_tf, dense_tf, comp) on this device,
+        with each shard's posting and dense-row base."""
+        if self._tf is not None:
+            return self._tf
+        F = max(len(self.index.indexed_fields), 1)
+        docid, tf, dense = [], [], []
+        comp = np.ones((self.nblk * BLOCK_SIZE, F), np.float32)
+        self.tf_post_base, self.tf_dense_base = [], []
+        npost = ndense = 0
+        for s, sh in enumerate(self.index.shards):
+            lex = sh.lexical
+            self.tf_post_base.append(npost)
+            self.tf_dense_base.append(ndense)
+            if lex.pl_docid is not None and len(lex.pl_docid):
+                docid.append(np.asarray(lex.pl_docid, np.uint16))
+                tf.append(np.asarray(lex.pl_tf, np.uint16).reshape(-1, F))
+                npost += len(lex.pl_docid)
+            if lex.comp is not None and len(lex.comp):
+                a = self.block_base[s] * BLOCK_SIZE
+                n = min(len(lex.comp), lex.n_blocks * BLOCK_SIZE)
+                comp[a:a + n] = lex.comp[:n]
+            if lex.dense_tf is not None and len(lex.dense_tf):
+                dense.append(np.asarray(lex.dense_tf, np.uint16))
+                ndense += len(lex.dense_tf)
+        self.n_tf_postings = npost
+        self.n_tf_dense = ndense
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        self._tf = (
+            put(np.concatenate(docid).view(np.int16) if docid
+                else np.zeros(1, np.int16)),
+            put(np.concatenate(tf).view(np.int16) if tf
+                else np.zeros((1, F), np.int16)),
+            put(np.concatenate(dense).view(np.int16) if dense
+                else np.zeros((1, BLOCK_SIZE, F), np.int16)),
+            put(comp))
+        return self._tf
+
     def pair_tables(self, plans):
         """The shards' pair lists in one global layout (numpy), shard-major:
         (p_blk, p_q, p_nreq, s_off, s_len, s_bm, s_w, s_flag, shard, local
-        block).  Raises if a segment lies outside the uploaded arrays."""
+        block); for tf plans the ranges lie in the full postings and s_bm
+        holds dense-term rows.  Raises if a segment lies outside the
+        uploaded arrays."""
+        tf = _tf_plans(plans)
+        if tf:
+            self.ensure_tf()
+        post_base = self.tf_post_base if tf else self.post_base
+        bm_base = self.tf_dense_base if tf else self.bm_base
+        n_postings = self.n_tf_postings if tf else self.n_postings
+        n_bitmaps = self.n_tf_dense if tf else self.n_bitmaps
         parts = []
         T = max(p.s_len.shape[1] for p in plans if p is not None)
         for s, p in enumerate(plans):
@@ -129,9 +193,9 @@ class StackedIndex:
                 (self.block_base[s] + p.p_block).astype(np.int32),
                 p.p_query.astype(np.int32),
                 p.nreq[p.p_query].astype(np.int32),
-                wide(p.s_off, 0) + self.post_base[s],
+                wide(p.s_off, 0) + post_base[s],
                 wide(p.s_len, 0),
-                np.where(bm >= 0, bm + self.bm_base[s], -1).astype(np.int32),
+                np.where(bm >= 0, bm + bm_base[s], -1).astype(np.int32),
                 wide(p.s_w, 0),
                 wide(p.s_flag, 0),
                 np.full(P, s, np.int64),
@@ -139,16 +203,19 @@ class StackedIndex:
         out = [np.concatenate(x) for x in zip(*parts)]
         s_off, s_len, s_bm = out[3], out[4], out[5]
         if ((s_len > 0) & ((s_off < 0)
-                           | (s_off + s_len > self.n_postings))).any():
-            raise ValueError("plan segment outside the device CSR")
-        if (s_bm >= self.n_bitmaps).any() or (out[0] >= self.nblk).any():
-            raise ValueError("plan bitmap row or block outside the index")
+                           | (s_off + s_len > n_postings))).any():
+            raise ValueError("plan segment outside the device postings")
+        if (s_bm >= n_bitmaps).any() or (out[0] >= self.nblk).any():
+            raise ValueError("plan bitmap or dense row or block outside "
+                             "the index")
         return out
 
     def run(self, plans, k: int, with_counts: bool, fcod=None, fcm: int = 1,
-            skey=None, sort_desc: bool = True, disallowed=None):
+            skey=None, sort_desc: bool = True, disallowed=None, boosts=None):
         """plans: the per-shard DensePlans (None where a shard selected no
-        block), all of the same batch of B queries.  fcod i32[NF,
+        block), all of the same batch of B queries and of one mode; tf
+        plans are scored from the per-field term frequencies under boosts
+        f32[F] (numpy), the batch's field boosts.  fcod i32[NF,
         nblk*BLOCK_SIZE] facet codes with code space fcm; skey
         f32[nblk*BLOCK_SIZE] a sort key, under which pages order by (key
         desc or asc by sort_desc, doc asc) and ts holds the rank (the key,
@@ -178,14 +245,19 @@ class StackedIndex:
 
         pairs = [put(x) for x in (p_blk, p_q, p_nreq, s_off, s_len, s_bm,
                                   s_w, s_flag)]
-        arrays = self.arrays if disallowed is None else \
-            (*self.arrays[:4], disallowed)
+        delw = self.delw if disallowed is None else disallowed
         rank = None
         if skey is not None:
             rank = skey if sort_desc else -skey
-        vals, docs, cnt, fc = lex_ops.scan_pairs(arrays, pairs, k, B,
-                                                 fcod=fcod, fcm=fcm,
-                                                 rank=rank)
+        if _tf_plans(plans):
+            vals, docs, cnt, fc = lex_ops.tf_scan_pairs(
+                (*self.ensure_tf(), delw), pairs,
+                put(np.asarray(boosts, np.float32)), k, B, fcod=fcod,
+                fcm=fcm, rank=rank)
+        else:
+            vals, docs, cnt, fc = lex_ops.scan_pairs(
+                (*self.arrays[:4], delw), pairs, k, B, fcod=fcod, fcm=fcm,
+                rank=rank)
         gids = ((put(lblk)[:, None] * BLOCK_SIZE + docs) * S
                 + put(shard)[:, None])
         ts_s, gid_s = lex_ops.merge_rows(

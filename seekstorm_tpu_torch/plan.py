@@ -16,6 +16,14 @@ block then query, and per pair the query's slots in ascending slot id with
 each slot's segment in that block: its CSR-remainder range in
 ``lex.dev_docid``/``dev_imp`` and its presence-bitmap row (-1 if none).
 Kernel K2 (``ops/dense_scan.py``) scores each pair over the block's docs.
+
+mode="tf" (the reference's tf branch, search.py:659-662, 668-670: batches
+whose boost profile differs from the commit-time one) emits the same pair
+list over the full postings instead: a slot's range in ``lex.pl_docid``/
+``pl_tf`` where its segment is sparse, its row of ``lex.dense_tf`` where it
+is a dense term; ``ops/lexical.tf_scan_pairs`` scores it.  The reference's
+``P_max`` and its 4096*2^i ladder size an XLA window and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -58,14 +66,19 @@ class DensePlan:
     s_bm: np.ndarray           # i32[P, T] bitmap row, -1 if none
     s_w: np.ndarray            # f32[P, T] W[q, slot]
     s_flag: np.ndarray         # i32[P, T] FLAG_REQ | FLAG_NEG
+    # "imp", or "tf": s_off / s_len then range over the full postings
+    # (pl_docid, pl_tf; length 0 for a dense term) and s_bm holds the
+    # slot's dense_tf row, -1 if none
+    mode: str = "imp"
 
 
 def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
                prune_budget: int, mode: str = "imp") -> DensePlan | None:
     """Select the blocks `specs` are scored on in `shard` and emit the
     pair list.  mode="qt" takes the reference's query-tiled limit
-    (PRUNE_BLOCKS) for full coverage, "imp" FULL_PLAN_BLOCKS.  None when
-    no block is selected."""
+    (PRUNE_BLOCKS) for full coverage, "imp" and "tf" FULL_PLAN_BLOCKS;
+    "tf" emits the segments of the full postings and the dense-term rows.
+    None when no block is selected."""
     lex = shard.lexical
     d = lex.directory
     B = len(specs)
@@ -91,9 +104,19 @@ def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
     flat = np.arange(total_segs, dtype=np.int64) - shift        # dir indices
     fb = d.seg_block[flat]
     fm = d.seg_max_impact[flat]
-    fbm = d.seg_bitmap[flat]
-    fdo = d.seg_dev_offset[flat]
-    fdl = d.seg_dev_len[flat]
+    if mode == "tf":
+        # sparse segments come from the full postings, dense terms from
+        # their dense_tf rows (search.py:660-662, 669-670)
+        fd = (d.seg_dense[flat] if d.seg_dense is not None
+              else np.full(total_segs, -1, np.int32))
+        sparse = (fd < 0) & (d.seg_len[flat] > 0)
+        fdo = d.seg_offset[flat]
+        fdl = np.where(sparse, d.seg_len[flat], 0)
+        fbm = fd
+    else:
+        fbm = d.seg_bitmap[flat]
+        fdo = d.seg_dev_offset[flat]
+        fdl = d.seg_dev_len[flat]
 
     from .search import _shard_idf
 
@@ -185,4 +208,5 @@ def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
         s_bm=np.where(ok, fbm[ec], -1).astype(np.int32),
         s_w=np.where(ps >= 0, W[pq, psc], 0.0).astype(np.float32),
         s_flag=np.where(ps >= 0, flag, 0).astype(np.int32),
+        mode="tf" if mode == "tf" else "imp",
     )

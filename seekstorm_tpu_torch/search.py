@@ -1,7 +1,7 @@
 """Lexical search on a torch device.
 
 Port of the lexical entry points of ``seekstorm_tpu/search.py``
-(``search``/``search_batch`` and ``_lexical_search_batch``, impact mode).
+(``search``/``search_batch`` and ``_lexical_search_batch``).
 The request/result types and the host functions (parsing, idf, the
 realtime tail merge, phrase verification, result assembly and the
 empty-query browse, each with its facet, filter and sort branches) are
@@ -28,8 +28,17 @@ a sorted batch takes the dense path (its unfused scan, ranked by the sort
 key) unless ``SEEKSTORM_TPU_WAND_SORT`` sends a one-key sort to WAND's
 rank-by-key mode.  The auxiliary columns (facet codes, sort key, filter
 words) are laid out by global block, shards end to end, as both routes'
-device state is, and cached on that state.  ``field_filter`` (the tf path)
-is not ported and raises.
+device state is, and cached on that state.
+
+``field_filter`` zeroes the boosts of the fields it leaves out.  Where that
+changes the boost profile the batch takes the tf path, as in the reference
+(search.py:1427-1439): commit-time impacts hold the schema's boosts, so its
+plans (``plan_shard(mode="tf")``) range over the full postings and
+``ops/lexical.tf_scan_pairs`` recombines the per-field term frequencies at
+query time.  Such a batch skips the WAND route and the pruned query-tiled
+plan; counts, facets, a facet filter, a sort and deep pages ride it as they
+ride the dense path.  A ``field_filter`` naming every indexed field leaves
+the profile as it is and takes the routes above.
 
 ``ResultType.Count`` takes WAND's phase-1 popcount on the WAND route and
 the dense path's counts elsewhere.  The device is explicit:
@@ -567,17 +576,18 @@ def exact_pages(index: Index, requests: list[SearchRequest],
 
 
 def dense_plans(index: Index, requests: list[SearchRequest],
-                device="cuda"):
+                device="cuda", mode: str = "imp"):
     """The dense path's full-coverage plans of a batch (every candidate
     block of every query, one DensePlan or None per shard) and the index's
     StackedIndex on `device`.  ``stacked.pair_tables(plans)`` gives the
     (block, query) pairs kernel K2 scans for this batch, a way to hold K2
-    against its plain version at a batch's real shapes."""
+    against its plain version at a batch's real shapes; with mode="tf", the
+    pairs the tf scan scores for a field_filter batch."""
     slots, specs = _build_specs(index, [r.query for r in requests],
                                 [r.query_type_default for r in requests])
     plans = [plan_mod.plan_shard(index, sh, slots, specs,
                                  requests[0].realtime, True,
-                                 plan_mod.PRUNE_BLOCKS)
+                                 plan_mod.PRUNE_BLOCKS, mode=mode)
              for sh in index.shards]
     return plans, mesh.get_stacked(index, resolve_device(device))
 
@@ -606,12 +616,6 @@ def wand_inputs(index: Index, requests: list[SearchRequest],
             tslot, treq, tneg, wsh, sid)
 
 
-def _unsupported(req0: SearchRequest) -> str | None:
-    if req0.field_filter:
-        return "field_filter (ROADMAP A.7 tf path)"
-    return None
-
-
 def _warm_facets_ok(r, entry, warm_k) -> bool:
     """Cached facets serve the request iff every requested facet is a
     plain (no ranges) histogram the warmup computed, shallow enough that
@@ -627,9 +631,6 @@ def _warm_facets_ok(r, entry, warm_k) -> bool:
 def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                           device: torch.device) -> list[ResultSet]:
     req0 = requests[0]
-    what = _unsupported(req0)
-    if what is not None:
-        raise NotImplementedError(f"{what} is not ported yet")
     slots, specs = _build_specs(
         index, [r.query for r in requests],
         [r.query_type_default for r in requests])
@@ -688,6 +689,19 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     k = ceil_pow2(max(need, 10), 16)
     if has_phrase:
         k = ceil_pow2(max(4 * need + 64, 128))
+    # boost profile (seekstorm_tpu/search.py:1427-1439): field_filter zeroes
+    # the fields it leaves out; a profile other than the schema's, which the
+    # commit-time impacts hold, takes the tf path
+    boosts = index.boosts_or_default().copy()
+    mode = "imp"
+    if req0.field_filter:
+        keep = set(req0.field_filter)
+        for sf in index.indexed_fields:
+            if sf.field not in keep:
+                boosts[sf.indexed_field_id] = 0.0
+        if not np.array_equal(boosts, index.boosts_or_default()):
+            mode = "tf"
+
     B = len(live)
     merged_scores = [np.zeros(0, np.float32) for _ in range(B)]
     merged_ids = [np.zeros(0, np.int64) for _ in range(B)]
@@ -750,7 +764,8 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     wand_sort_ok = (not req0.result_sort
                     or bool(os.environ.get("SEEKSTORM_TPU_WAND_SORT")))
     wanded = np.zeros(B, bool)
-    if (need <= MAX_PAGE
+    if (mode == "imp"
+            and need <= MAX_PAGE
             and not (req0.facet_filter and mask is None)
             and len(req0.result_sort) <= 1
             and wand_sort_ok
@@ -798,6 +813,8 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     if rest_rows:
         stacked = mesh.get_stacked(index, device)
         aux = dict(fcm=fcm, sort_desc=sort_desc)
+        if mode == "tf":
+            aux["boosts"] = boosts
         if facet_specs:
             aux["fcod"] = stacked.aux_device(fkey,
                                              lambda: facet_codes(stacked))
@@ -816,7 +833,7 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
         ts, gid, cnt, fcounts, all_full = _dense_rows(
             index, slots, [live_specs[i] for i in rest_rows], req0.realtime,
             need_full, need, k, with_counts, stacked,
-            filtered=bool(req0.facet_filter), aux=aux)
+            filtered=bool(req0.facet_filter), aux=aux, mode=mode)
         if ts is not None:
             for r, qi in enumerate(rest_rows):
                 valid = np.isfinite(ts[r])
@@ -833,7 +850,6 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     # WAND pages are deduped and (score desc, gid asc) ordered; dense
     # pages and a tail merge are not, and _finalize_lexical re-sorts them
     canonical = wanded.copy()
-    boosts = index.boosts_or_default().copy()
     for shard in index.shards:
         if req0.realtime and shard.tail_len() > 0:
             _merge_tail(index, shard, slots, live_specs, boosts,
@@ -846,7 +862,8 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                              counts_exact, with_counts, facet_specs,
                              fc_total, sorting, sort_desc,
                              tail_phrase_counts=tail_phrase_counts,
-                             phrase_escalate_ok=True, canonical=canonical)
+                             phrase_escalate_ok=mode == "imp",
+                             canonical=canonical)
 
 
 def _compact_slots(slots, specs):
@@ -871,12 +888,13 @@ def _compact_slots(slots, specs):
 
 def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
                 need: int, k: int, with_counts: bool, stacked,
-                filtered: bool = False, aux=None):
-    """The dense path for `specs` (search.py:1646-1750, impact mode) on the
-    index's StackedIndex: plan every shard, scan, and re-run in full when a
+                filtered: bool = False, aux=None, mode: str = "imp"):
+    """The dense path for `specs` (search.py:1646-1750) on the index's
+    StackedIndex, in impact mode or, for a batch with a boost profile of
+    its own, tf mode: plan every shard, scan, and re-run in full when a
     pruned plan's k-th score falls below a bound it left unscored.  aux:
-    the batch's facet codes, sort key and filter words for
-    StackedIndex.run.  Returns (ts f32[B, k], gid i64[B, k], cnt i64[B],
+    the batch's facet codes, sort key, filter words and (tf mode) boosts
+    for StackedIndex.run.  Returns (ts f32[B, k], gid i64[B, k], cnt i64[B],
     fcounts i64[NF, B, fcm], all_full), or Nones when no shard selected a
     block."""
     aux = aux or {}
@@ -885,9 +903,10 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
     # Topk batches on large shards plan like the reference's query-tiled
     # kernel, which prunes as soon as candidates pass PRUNE_BLOCKS; a facet
     # filter keeps a batch off that plan, as in the reference
-    mode = ("qt" if not cover_full and not filtered and max(
-        sh.lexical.n_blocks for sh in index.shards) >= plan_mod.QT_MIN_BLOCKS
-        else "imp")
+    if (mode == "imp" and not cover_full and not filtered and max(
+            sh.lexical.n_blocks
+            for sh in index.shards) >= plan_mod.QT_MIN_BLOCKS):
+        mode = "qt"
     slots, specs = _compact_slots(slots, specs)
 
     def plans_for(full: bool):

@@ -437,6 +437,37 @@ def test_facet_hist_matches_facet_update(fcm):
     assert int(got[:, :, 0].sum()) > 0 and int(got[:, :, fcm - 1].sum()) > 0
 
 
+@pytest.mark.parametrize("order", ["shuffled", "one_row_runs"])
+def test_facet_hist_takes_any_pair_order(order):
+    """The histogram depends on the set of pairs, not on their order: the
+    block-major list of test_facet_hist_matches_facet_update shuffled, and
+    the same pairs sorted into runs that share one output row (the WAND
+    view's order, where a kernel keeps its histogram across a run), against
+    lexical._facet_update, and every matched doc counted once a facet."""
+    fcm = 16
+    rng = np.random.default_rng(5)
+    B, NF, NBLK = 6, 2, 3
+    codes = _codes(rng, NF, NBLK, fcm)
+    matched = rng.random((NBLK, B, BLOCK_SIZE)) < 0.01
+    matched[1, 4] = False                       # a pair with no match
+    want = jnp.zeros((NF, B, fcm), jnp.float32)
+    for b in range(NBLK):
+        want = ref_lex._facet_update(want, jnp.asarray(matched[b]),
+                                     jnp.asarray(codes), b, NF, fcm)
+    p = np.arange(NBLK * B)
+    perm = rng.permutation(len(p)) if order == "shuffled" else \
+        np.argsort(p % B, kind="stable")
+    mwords = ds.pack_words(torch.from_numpy(
+        matched.reshape(NBLK * B, -1)[perm]))
+    p_row = (p % B)[perm].astype(np.int32)
+    if order == "one_row_runs":
+        assert (np.diff(p_row) >= 0).all() and len(set(p_row)) == B
+    got = fh.facet_hist(mwords, _t((p // B)[perm].astype(np.int32)),
+                        _t(p_row), _t(codes), fcm, B)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.sum()) == NF * int(matched.sum()) > 0
+
+
 def _ref_wand_scan(d, T, *, fcod=None, fcm=1, skeyb=None):
     """The reference's wand_scan (its XLA step, one block a scan step) on
     _synth inputs: (out, fc)."""

@@ -335,6 +335,75 @@ def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
         monkeypatch.delenv(ROUTE_ENV[route])
 
 
+def test_device_state_follows_clear_and_reingest(tmp_path, monkeypatch):
+    """Clear an index, ingest as many other docs, commit, and search with no
+    search in between: doc, block and delete counts all equal the cleared
+    state's, so only the committed level objects tell the two apart.  The
+    port holds those objects in its cached entries and compares them by
+    identity; a key made of their addresses could serve the old pools, the
+    old dense arrays and the old facet columns, because a new object may
+    get the address of one that is gone.  `id` is pinned below to model
+    exactly that reuse.  Both routes, with facets."""
+    from seekstorm_tpu_torch.ops import wand as pw
+
+    monkeypatch.setattr(pw, "id", lambda obj: 0, raising=False)
+
+    def docs(seed, n=3_000):
+        rng = np.random.default_rng(seed)
+        out = _docs(n, seed)
+        for d, b, p in zip(out, rng.integers(0, 5, n),
+                           rng.integers(1, 300, n)):
+            d["brand"], d["price"] = f"b{b}", int(p)
+        return out
+
+    def request(pkg):
+        return pkg.SearchRequest(
+            query="w001 w002", length=10,
+            result_type=pkg.ResultType.TopkCount,
+            query_facets=[pkg.QueryFacet(field="brand")],
+            facet_filter=[pkg.FacetFilter(field="price", range=(0, 200))])
+
+    both = []
+    for pkg in (st, pt):
+        idx = _create(pkg, tmp_path, _schema(pkg) + [
+            pkg.SchemaField("brand", pkg.FieldType.String16, facet=True),
+            pkg.SchemaField("price", pkg.FieldType.U16, facet=True)])
+        idx.index_documents(docs(7))
+        idx.commit()
+        both.append(idx)
+    idx = _Pair(*both)
+    first = {}
+    for route in ("wand", "dense"):     # builds the port's device state
+        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        first[route] = pt.search_batch(idx.port, [request(pt)],
+                                       device="cpu")[0]
+        monkeypatch.delenv(ROUTE_ENV[route])
+    for i in (idx.ref, idx.port):
+        i.clear()
+        i.index_documents(docs(8))
+        i.commit()
+    for route in ("wand", "dense"):
+        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        ref = st.search_batch(idx.ref, [request(st)])[0]
+        mine = pt.search_batch(idx.port, [request(pt)], device="cpu")[0]
+        monkeypatch.delenv(ROUTE_ENV[route])
+        assert _Page(mine) == _Page(ref), route
+        assert mine.facets == ref.facets, route
+        assert [r.doc_id for r in mine.results] != \
+            [r.doc_id for r in first[route].results], route
+
+
+def test_version_matches_reference():
+    assert pt.__version__ == st.__version__ == "0.1.0"
+
+
+def test_precompile_compiles_nothing(index):
+    """The reference's Index.precompile warms XLA's compile cache; the port
+    has nothing to compile ahead and says so with 0."""
+    assert index.port.precompile() == 0
+    assert index.port.precompile(batch_sizes=(16,), ks=(16,)) == 0
+
+
 def test_warm_cache_and_rewriting_match_reference(tmp_path, monkeypatch):
     """Host paths the port copies: the frequent-word warmup cache (filled
     by commit, through the port's search_batch on the port's side) and
@@ -414,20 +483,21 @@ def test_cuda_without_card_raises(index, tmp_path):
     (dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]),
      ValueError),
     (dict(result_sort=[st.ResultSort(field="title")]), ValueError),
-    (dict(field_filter=["title"]), False),
+    (dict(field_filter=["title"]), True),
     (dict(result_type=st.ResultType.Count), True),
     (dict(offset=1000, length=100), True),
     (dict(query=" ".join(f"w{i:03d}" for i in range(9))), True),
 ], ids=["vector", "facets", "filter", "sort", "field_filter", "count",
         "deep", "slots"])
 def test_out_of_scope_raises(index, kw, served, monkeypatch):
-    """What the port does not serve yet (vector search, field_filter)
-    raises NotImplementedError naming its ROADMAP item.  Count, pages past
-    1024 and more than 8 slots raised too until the dense path came, and
-    facets, facet filters and sorting until their slice; now the port does
-    what the reference does: it serves them, and for a field that is no
-    facet field (this fixture has none; tests/test_torch_facets.py has)
-    it raises the reference's ValueError."""
+    """What the port does not serve yet (vector search) raises
+    NotImplementedError naming its ROADMAP item.  Count, pages past 1024
+    and more than 8 slots raised too until the dense path came, facets,
+    facet filters and sorting until their slice, and field_filter until the
+    tf path (tests/test_torch_tf.py); now the port does what the reference
+    does: it serves them, and for a field that is no facet field (this
+    fixture has none; tests/test_torch_facets.py has) it raises the
+    reference's ValueError."""
     req = st.SearchRequest(**{"query": "w001 w002", **kw})
     if served is True:
         mine = _port(index, [req], monkeypatch)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time an earlier commit's kernel K1, or K3, against the current one on one
-GPU.
+"""Time an earlier commit's kernel K1, K3 or K4 against the current one on
+one GPU.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 k1_compare.py build/parent
     python3 k1_compare.py --k3 build/parent
+    python3 k1_compare.py --k4 build/parent/seekstorm_tpu_torch/csrc/vector_scan.cu
 
 Both kernels run in this process on the same inputs, in turns (earlier,
 current, current, earlier; each turn the median of 20 CUDA-event launches),
@@ -26,6 +27,13 @@ With --k3 the two facet histograms (csrc/facet_hist.cu of each tree; the C
 entry point facet_hist_launch has not changed) run in the same turns at the
 shapes of chip_smoke.k3_shapes, their counts must equal the plain version's,
 and each line gives both times beside chip_smoke.k3_bound.
+
+With --k4 an earlier K4 source (a csrc/vector_scan.cu with the current C
+entry point, vector_scan_launch) and the current one run in the same turns
+at chip_smoke.py's K4 serving shape (64 queries, 1,048,576 i8 rows, d=128,
+Euclidean): all tiles at k=32, 1,024 selected tiles at k=32 and all tiles
+at k=256; both must equal vector_scan_ref bitwise, and each line gives both
+times beside chip_smoke.k4_bound.
 
 The earlier K1 is the one whose C entry point is wand_scan_launch(ppool,
 vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk, T, with_counts,
@@ -160,6 +168,68 @@ def compare_k3(torch, tree: Path, card) -> list:
     return rows
 
 
+def compare_k4(torch, src: Path, card) -> list:
+    """An earlier K4 source and the current one at chip_smoke's K4 serving
+    shape, in turns."""
+    import numpy as np
+
+    from seekstorm_tpu_torch import _build
+    from seekstorm_tpu_torch.ops import vector as V
+    from seekstorm_tpu_torch.ops import vector_scan as vs
+
+    current = _build.load("vector_scan")
+    out = _build.BUILD_DIR / "libvector_scan_earlier.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    earlier = ctypes.CDLL(str(out))
+    earlier.vector_scan_launch.argtypes = \
+        _build._SIGNATURES["vector_scan"]["vector_scan_launch"]
+    earlier.vector_scan_launch.restype = ctypes.c_int
+
+    def run(lib, args, kw):
+        _build._LIBS["vector_scan"] = lib    # the wrapper loads it from here
+        return vs.vector_scan_cuda(*args, **kw)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    n_tiles, d, B = (1 << 20) // 256, 128, 64
+    pool = cs._k4_pool(torch, g, n_tiles, d, True, n_fields=1, p_del=0.01)
+    qargs = cs._k4_queries(torch, g, B, d, True)
+    field_ok = torch.ones(4, dtype=torch.bool, device="cuda")
+    smin = torch.full((B,), float("-inf"), device="cuda")
+    sel = np.sort(np.random.default_rng(10).choice(n_tiles, 1024,
+                                                   replace=False))
+    tid = torch.from_numpy(sel.astype(np.int32)).cuda()
+    rows = []
+    for name, tiles, k in (("all tiles, k=32", None, 32),
+                           ("1,024 selected tiles, k=32", tid, 32),
+                           ("all tiles, k=256", None, 256)):
+        kw = dict(k=k, quantized=True, euclidean=True, with_counts=True,
+                  exhaustive=tiles is None, use_field_filter=False)
+        args = cs._k4_args(pool, tiles, field_ok, qargs, smin)
+        want = V.vector_scan_ref(*args, **kw)
+        for tag, lib in (("earlier", earlier), ("current", current)):
+            got = run(lib, args, kw)
+            torch.cuda.synchronize()
+            cs._check_k4(torch, got, want, None, None, smin, k,
+                         f"{tag} K4, {name}")
+        turns = [cs._median_ms(torch, lambda lib=lib: run(lib, args, kw))
+                 for lib in (earlier, current, current, earlier)]
+        n_rows = (n_tiles if tiles is None else len(sel)) * 256
+        bound, by = cs.k4_bound(n_rows, d, B, k, True,
+                                pool["deleted"].shape[0],
+                                use_field_filter=False)
+        rows.append(dict(tag=name, earlier_ms=[turns[0], turns[3]],
+                         current_ms=[turns[1], turns[2]], bound_ms=bound,
+                         bound_by=by, card=card))
+        print(f"[compare] K4 {name}: bitwise equal; earlier {turns[0]:.4f} "
+              f"/ {turns[3]:.4f} ms, current {turns[1]:.4f} / "
+              f"{turns[2]:.4f} ms, bound {bound:.4f} ms ({by})")
+        del want
+    _build._LIBS["vector_scan"] = current
+    return rows
+
+
 def serve_requests(st, queries):
     return [st.SearchRequest(query=q, length=10, realtime=True,
                              result_type=st.ResultType.TopkCount,
@@ -195,6 +265,15 @@ def main() -> int:
         return 1
     if sys.argv[1] == "--profile":
         return profile_tree(torch, Path(sys.argv[2]).resolve())
+    if sys.argv[1] == "--k4":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+        print(card)
+        rows = compare_k4(torch, Path(sys.argv[2]).resolve(), card)
+        print(json.dumps({"k4_compare": rows}))
+        return 0
     if sys.argv[1] == "--k3":
         sys.meta_path.insert(0, cs._NoJax())
         cs.WORK.mkdir(parents=True, exist_ok=True)

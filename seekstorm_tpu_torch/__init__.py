@@ -1,5 +1,6 @@
-"""seekstorm_tpu_torch — the lexical serving path of seekstorm_tpu on
-PyTorch, with its device kernels written by hand for NVIDIA Hopper.
+"""seekstorm_tpu_torch — the lexical, vector and hybrid serving paths of
+seekstorm_tpu on PyTorch, with their device kernels written by hand for
+NVIDIA Hopper.
 
 The package is self-contained: its index, tokenizer, schema, native C++
 bindings and request/result types are its own copies of the JAX package's

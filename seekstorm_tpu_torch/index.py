@@ -6,7 +6,8 @@ for byte.  What differs: an index is bound to a torch device (``device=`` of
 ``create_index``/``open_index``, default ``"cuda"``), on which commit's
 frequent-word warmup runs through the port's ``search_batch``;
 ``precompile`` is gone (PyTorch compiles nothing per shape);
-``attach_mesh`` (A.9) and vector indexes (A.8) raise NotImplementedError.
+``attach_mesh`` (A.9) raises NotImplementedError.  A vector index's
+commit-time clustering runs on the index's device.
 
 Structure mirrors the reference's lifecycle (reference seekstorm/src/index.rs
 create_index :1886 / open_index :3832 / doc CRUD traits :5081-5299,
@@ -565,6 +566,9 @@ class Index:
             sh.lexical = build_shard_lexical([], self.boosts_or_default())
             self.shards.append(sh)
 
+        # vector engine attached lazily (vector_index.ShardVectors)
+        self.vectors = None
+
         if serialize:
             self.path.mkdir(parents=True, exist_ok=True)
             for sh in self.shards:
@@ -679,6 +683,8 @@ class Index:
                     # concurrent per-shard interleaving)
                     for j, (oi, d) in enumerate(chunk):
                         ids[oi] = (base + first + j) * self.shard_count + si
+                        if self.vectors is not None:
+                            self.vectors.ingest(sh.shard_id, first + j, d)
                     if sh.level0.doc_count >= BLOCK_SIZE:
                         with self._lock:
                             self._commit_shard(sh, reload=False)
@@ -729,6 +735,8 @@ class Index:
                 self._get_native_cfg(), field_texts, facet_vals, blob
             )
             gid = (base + local) * self.shard_count + shard.shard_id
+            if self.vectors is not None:
+                self.vectors.ingest(shard.shard_id, local, doc)
             if shard.level0.doc_count >= BLOCK_SIZE:
                 # bulk-ingest fast path: pack the full level but defer the
                 # O(levels) directory/HBM rebuild until the next search or
@@ -838,6 +846,8 @@ class Index:
                 term_fields, field_lengths, facet_vals, blob
             )
             gid = (base + local) * self.shard_count + shard.shard_id
+            if self.vectors is not None:
+                self.vectors.ingest(shard.shard_id, local, doc)
             if shard.level0.doc_count >= BLOCK_SIZE:
                 self._commit_shard(shard, reload=False)
         return gid
@@ -909,6 +919,7 @@ class Index:
         local = global_id // self.shard_count
         if local < shard.doc_count:
             shard.deleted.add(local)
+            shard._dev = None
             self._warmup_cache = {}
             self._save_deletes(shard)
 
@@ -923,6 +934,7 @@ class Index:
         if touched:
             self._warmup_cache = {}
             for sid in touched:
+                self.shards[sid]._dev = None
                 self._save_deletes(self.shards[sid])
 
     def update_document(self, global_id: int, doc: dict) -> int:
@@ -1022,10 +1034,14 @@ class Index:
             if self.completions is not None:
                 for t, cnt in c.items():
                     self.completions.add(t, cnt)
+        if self.vectors is not None:
+            self.vectors.pack_shard_level(shard, lvl_path, lvl_id)
         if l0.doc_count >= BLOCK_SIZE:
             shard.full_levels += 1
             shard.partial_on_disk = 0
             shard.level0 = self._new_level0()
+            if self.vectors is not None:
+                self.vectors.on_level_complete(shard)
             # seed the immutable-level cache with the level just packed
             # (now id < full_levels, so _reload_shard can reuse it and
             # skip the disk decode it would otherwise pay)
@@ -1081,6 +1097,7 @@ class Index:
             LevelDocStore(shard.path / f"level_{i}", self.meta.doc_compression, mmap)
             for i in range(n_levels)
         ]
+        shard._dev = None
         # concatenated facet columns over committed docs
         shard.facet_cols = {}
         for sf in self.facet_fields:
@@ -1092,6 +1109,8 @@ class Index:
             if cols:
                 shard.facet_cols[sf.facet_id] = np.concatenate(cols)
         shard._needs_reload = False
+        if self.vectors is not None:
+            self.vectors.reload_shard(shard)
 
     # ------------------------------------------------------------------
     # realtime (level-0 tail) oracle postings
@@ -1313,6 +1332,15 @@ class Index:
             len(sh.lexical.directory.hash) if sh.lexical.directory else 0
             for sh in self.shards
         )
+        # committed rows and the uncommitted tail; the reference also adds
+        # the partial level's rows, which are in both
+        vectors = 0
+        if self.vectors is not None:
+            vectors = sum(
+                sum(lv.n for lv in sv.levels)
+                + sum(r[0] >= sh.partial_on_disk for r in sv.level0)
+                for sv, sh in zip(self.vectors.shards, self.shards)
+            )
         return {
             "id": self.meta.id,
             "name": self.meta.name,
@@ -1323,7 +1351,7 @@ class Index:
             "current_doc_count": self.current_doc_count,
             "term_count": int(terms),
             "posting_count": int(postings),
-            "vector_count": 0,
+            "vector_count": int(vectors),
             "levels": [
                 sh.full_levels + (1 if sh.partial_on_disk else 0)
                 for sh in self.shards
@@ -1413,6 +1441,7 @@ class Index:
                 sh.lexical = build_shard_lexical([], self.boosts_or_default())
                 sh.docstores = []
                 sh.facet_cols = {}
+                sh._dev = None
             self.docid_global = 0
             self._facet_tables = {}
             from .rewrite import PruningRadixTrie, SymSpell
@@ -1430,6 +1459,8 @@ class Index:
                     max_entries=self.meta.query_completion.max_completion_entries
                 )
                 (self.path / "completions.csv").unlink(missing_ok=True)
+            if self.vectors is not None:
+                self.vectors.clear()
             self.save_meta()
 
     def close(self) -> None:
@@ -1454,7 +1485,6 @@ def create_index(
     """A new index at `path` whose device work (commit's warmup) runs on
     `device`; "cuda" without a card raises."""
     meta = meta or IndexMeta()
-    _refuse_vectors(meta)
     path = Path(path)
     if (path / "index.json").exists():
         raise FileExistsError(f"index already exists at {path}")
@@ -1462,6 +1492,10 @@ def create_index(
                 device=device)
     if synonyms:
         idx.set_synonyms(synonyms)
+    if meta.vector.enabled:
+        from .vector_index import IndexVectors
+
+        idx.vectors = IndexVectors(idx)
     # persist facet string tables
     _save_facet_tables(idx)
     return idx
@@ -1473,7 +1507,6 @@ def open_index(path, device="cuda") -> Index:
     with open(path / "index.json") as f:
         root = json.load(f)
     meta = IndexMeta.from_json(root["meta"])
-    _refuse_vectors(meta)
     with open(path / "schema.json") as f:
         schema = schema_from_json(f.read())
     idx = Index(path, schema, meta, root["shard_count"], serialize=False,
@@ -1541,13 +1574,12 @@ def open_index(path, device="cuda") -> Index:
             )
         else:
             sh.level0 = idx._new_level0()
-    return idx
-
-
-def _refuse_vectors(meta: IndexMeta) -> None:
     if meta.vector.enabled:
-        raise NotImplementedError(
-            "vector indexes are not ported yet (ROADMAP A.8 vector)")
+        from .vector_index import IndexVectors
+
+        idx.vectors = IndexVectors(idx)
+        idx.vectors.load()
+    return idx
 
 
 def _save_facet_tables(idx: Index) -> None:

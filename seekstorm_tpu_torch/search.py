@@ -1,7 +1,10 @@
-"""Lexical search on a torch device.
+"""Search on a torch device.
 
-Port of the lexical entry points of ``seekstorm_tpu/search.py``
+Port of the entry points of ``seekstorm_tpu/search.py``
 (``search``/``search_batch`` and ``_lexical_search_batch``).
+``SearchMode.Vector`` and ``SearchMode.Hybrid`` batches go to
+``vector_search.py`` (the IVF scan, kernel K4, and RRF fusion), as in the
+reference; what follows is the lexical path.
 The request/result types and the host functions (parsing, idf, the
 realtime tail merge, phrase verification, result assembly and the
 empty-query browse, each with its facet, filter and sort branches) are
@@ -479,7 +482,7 @@ def search(index: Index, request: SearchRequest,
 
 def search_batch(index: Index, requests: list[SearchRequest],
                  device="cuda") -> list[ResultSet]:
-    """Execute a batch of lexical searches on `device`.
+    """Execute a batch of lexical, vector or hybrid searches on `device`.
 
     Requests with different settings are grouped (one dispatch per
     group); queries and paging may differ freely within a group."""
@@ -501,14 +504,11 @@ def search_batch(index: Index, requests: list[SearchRequest],
     index.ensure_loaded()
     t0 = time.perf_counter()
     req0 = requests[0]
-    if req0.search_mode != SearchMode.Lexical:
-        raise NotImplementedError(
-            f"{req0.search_mode.value} search is not ported yet "
-            "(ROADMAP A.8 vector)")
 
     # query rewriting (QAC / spelling, rewrite.py)
     outcomes = None
-    if any(r.query_rewriting not in (None, "SearchOnly") for r in requests):
+    if any(r.query_rewriting not in (None, "SearchOnly") for r in requests
+           ) and req0.search_mode != SearchMode.Vector:
         outcomes = [rewrite_query(index, r.query, r.query_rewriting,
                                   index.analyzer) for r in requests]
         if all(isinstance(r.query_rewriting, dict)
@@ -522,8 +522,18 @@ def search_batch(index: Index, requests: list[SearchRequest],
             return res
         requests = [dataclasses.replace(r, query=oc.query)
                     for r, oc in zip(requests, outcomes)]
+        req0 = requests[0]
 
-    out = _lexical_search_batch(index, requests, dev)
+    if req0.search_mode == SearchMode.Vector:
+        from .vector_search import vector_search_batch
+
+        out = vector_search_batch(index, requests, dev)
+    elif req0.search_mode == SearchMode.Hybrid:
+        from .vector_search import hybrid_search_batch
+
+        out = hybrid_search_batch(index, requests, dev)
+    else:
+        out = _lexical_search_batch(index, requests, dev)
     dt = (time.perf_counter() - t0) * 1e6 / max(len(requests), 1)
     METRICS.observe("search_batch", dt * 1e-6 * max(len(requests), 1))
     for i, r in enumerate(out):

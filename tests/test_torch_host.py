@@ -114,14 +114,10 @@ def _files(root):
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def test_committed_files_byte_identical(built):
-    ref, port = _files(built.ref.path), _files(built.port.path)
+def _assert_same_files(ref, port):
+    """Every file of the two index trees byte-identical (a zip archive that
+    records times member by member).  Returns the file names."""
     assert ref.keys() == port.keys()
-    names = {k.rsplit("/", 1)[-1] for k in ref}
-    assert {"lexcache.npz", "facet_tables.json", "dictionary.csv",
-            "completions.csv", "deleted.npy"} <= names
-    if built.shard_count == 1:
-        assert "shard_0/level_1/level.json" in ref      # a full level
     for name, a in ref.items():
         b = port[name]
         if name.rsplit("/", 1)[-1] in TIME_FIELDS:
@@ -131,6 +127,16 @@ def test_committed_files_byte_identical(built):
                     assert za.read(m) == zb.read(m), (name, m)
         else:
             assert a.read_bytes() == b.read_bytes(), name
+    return {k.rsplit("/", 1)[-1] for k in ref}
+
+
+def test_committed_files_byte_identical(built):
+    ref, port = _files(built.ref.path), _files(built.port.path)
+    names = _assert_same_files(ref, port)
+    assert {"lexcache.npz", "facet_tables.json", "dictionary.csv",
+            "completions.csv", "deleted.npy"} <= names
+    if built.shard_count == 1:
+        assert "shard_0/level_1/level.json" in ref      # a full level
 
 
 def _pages(search, idx, reqs):
@@ -154,6 +160,64 @@ def test_index_opens_in_other_package(built):
     assert _pages(port_search, pt.open_index(built.ref.path, device="cpu"),
                   preqs) == ref
     assert sum(p.count > 0 for p in ref) > len(reqs) // 2
+
+
+def _vector_meta(pkg, i8):
+    return pkg.IndexMeta(vector=pkg.VectorConfig(
+        enabled=True, dim=24, similarity=pkg.VectorSimilarity.Euclidean,
+        precision=pkg.Precision.I8 if i8 else pkg.Precision.F32,
+        quantization=(pkg.Quantization.ScalarQuantizationI8 if i8
+                      else pkg.Quantization.Null),
+        inference=pkg.InferenceType.External,
+        clustering=pkg.ClusteringConfig(
+            mode=pkg.ClusteringMode.Auto if i8 else pkg.ClusteringMode.Null,
+            min_points=100)))
+
+
+@pytest.mark.parametrize("i8", [True, False], ids=["i8_auto", "f32_null"])
+def test_vector_files_byte_identical(tmp_path, i8):
+    """External embeddings (a well-separated Gaussian mixture, one and two
+    chunks a doc) with a text field through both packages, two shards, two
+    commits and deletes: every file byte-identical, the vector files among
+    them (i8 with Auto clustering, where the levels are clustered on each
+    package's device; f32 unclustered); each index opens in the other
+    package with the same vector pages."""
+    rng = np.random.default_rng(31 + i8)
+    centers = rng.standard_normal((12, 24)).astype(np.float32) * 5.0
+    data = (centers[rng.integers(0, 12, 900)]
+            + rng.standard_normal((900, 24))).astype(np.float32)
+    docs = [{"vector": data[i] if i % 7 else [data[i], data[i] * 0.5],
+             "title": f"w{i % 40:03d} w{i % 13:03d}"} for i in range(900)]
+    both = []
+    for pkg in (st, pt):
+        schema = [pkg.SchemaField("vector", pkg.FieldType.Json,
+                                  index_vector=True),
+                  pkg.SchemaField("title", pkg.FieldType.Text, indexed=True,
+                                  stored=True)]
+        idx = _create(pkg, tmp_path, schema, meta=_vector_meta(pkg, i8),
+                      shard_count=2)
+        idx.index_documents(docs[:700])
+        idx.commit()
+        idx.delete_documents([3, 10, 500])
+        idx.index_documents(docs[700:])
+        idx.commit()
+        both.append(idx)
+    ref, port = _files(both[0].path), _files(both[1].path)
+    names = _assert_same_files(ref, port)
+    assert {"vec_data.npy", "vec_offsets.npy", "vec.json"} <= names
+    lv = both[1].vectors.shards[0].levels[0]
+    assert lv.clustered == i8 and lv.data.dtype == (np.int8 if i8
+                                                    else np.float32)
+    reqs = [st.SearchRequest(search_mode=st.SearchMode.Vector,
+                             query_vector=data[i].tolist(), length=5,
+                             ann_mode="Nprobe", nprobe=3)
+            for i in range(0, 900, 97)]
+    want = _pages(st.search_batch, both[0], reqs)
+    assert _pages(st.search_batch, st.open_index(both[1].path), reqs) == want
+    opened = pt.open_index(both[0].path, device="cpu")
+    got = _pages(lambda idx, r: pt.search_batch(idx, r, device="cpu"),
+                 opened, _to_port(reqs))
+    assert [p.ids for p in got] == [p.ids for p in want]
 
 
 _WARMUP = BLOCK_JAX + r"""

@@ -478,11 +478,13 @@ def test_cuda_without_card_raises(index, tmp_path):
 
 
 @pytest.mark.parametrize("kw, served", [
-    (dict(search_mode=st.SearchMode.Vector), False),
-    (dict(query_facets=[st.QueryFacet(field="title")]), ValueError),
+    (dict(search_mode=st.SearchMode.Vector), "requires query_vector"),
+    (dict(query_facets=[st.QueryFacet(field="title")]),
+     "'title' is not a facet"),
     (dict(facet_filter=[st.FacetFilter(field="title", values=["x"])]),
-     ValueError),
-    (dict(result_sort=[st.ResultSort(field="title")]), ValueError),
+     "'title' is not a facet"),
+    (dict(result_sort=[st.ResultSort(field="title")]),
+     "'title' is not a facet"),
     (dict(field_filter=["title"]), True),
     (dict(result_type=st.ResultType.Count), True),
     (dict(offset=1000, length=100), True),
@@ -490,30 +492,27 @@ def test_cuda_without_card_raises(index, tmp_path):
 ], ids=["vector", "facets", "filter", "sort", "field_filter", "count",
         "deep", "slots"])
 def test_out_of_scope_raises(index, kw, served, monkeypatch):
-    """What the port does not serve yet (vector search) raises
-    NotImplementedError naming its ROADMAP item.  Count, pages past 1024
-    and more than 8 slots raised too until the dense path came, facets,
-    facet filters and sorting until their slice, and field_filter until the
-    tf path (tests/test_torch_tf.py); now the port does what the reference
-    does: it serves them, and for a field that is no facet field (this
-    fixture has none; tests/test_torch_facets.py has) it raises the
-    reference's ValueError."""
+    """Requests the port once refused with NotImplementedError: Count,
+    pages past 1024 and more than 8 slots until the dense path came,
+    facets, facet filters and sorting until their slice, field_filter until
+    the tf path (tests/test_torch_tf.py), vector search until its slice
+    (tests/test_torch_vector.py).  Now the port does what the reference
+    does: it serves them, and raises the reference's ValueError for a field
+    that is no facet field (this fixture has none;
+    tests/test_torch_facets.py has) and for a vector request without a
+    query vector on an index without a model (this one has no vectors)."""
     req = st.SearchRequest(**{"query": "w001 w002", **kw})
     if served is True:
         mine = _port(index, [req], monkeypatch)
         assert mine == _reference(index, [req], monkeypatch)
         assert mine[0].count > 0
         return
-    if served is ValueError:
-        for search, idx, r in (
-                (st.search_batch, index.ref, req),
-                (lambda i, rq: pt.search_batch(i, rq, device="cpu"),
-                 index.port, _to_port(req))):
-            with pytest.raises(ValueError, match="'title' is not a facet"):
-                search(idx, [r])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.search_batch(index.port, [_to_port(req)], device="cpu")
+    for search, idx, r in (
+            (st.search_batch, index.ref, req),
+            (lambda i, rq: pt.search_batch(i, rq, device="cpu"),
+             index.port, _to_port(req))):
+        with pytest.raises(ValueError, match=served):
+            search(idx, [r])
 
 
 # refuses jax and the JAX package (seekstorm_tpu, not seekstorm_tpu_torch)

@@ -97,14 +97,21 @@ Phases, each printing what it found:
              tiles and selected tiles with -1 padding, the field filter off
              and on, 10% of the docs deleted, a threshold that cuts half
              the queries, k in 32/256/2,048 and one case with NT*256 < k;
+             then the running list under stress: 1, 65 and 256 queries, 4
+             selected tiles, a tile repeated in two slot ranges, a tile
+             deleted whole, +0 and -0 scores (f32), k 16 and 64; then
+             ties at the shared threshold: 40 copies of one tile, 40
+             queries at all tiles and at 32 selected (G = kk = 32), 1
+             query at 32 selected, 449 queries at k=16 (G = kk = 16);
              i8 bitwise equal (scores, rows, counts), f32 within the bound
              of a different sum order (2.1*d*2^-24*sum|q_i r_i|, doubled
              for Euclidean); at the serving shape (B=64, 1,048,576 rows,
              d=128, i8, Euclidean, k=32) bitwise equal, with K4's time
-             (the kernel and the merge of its per-tile lists), its bound
-             (bytes once at 3.35 TB/s, or the dots at 1,979 int8 TOPS) and
-             share, the plain time, an f32 matmul + torch.topk of the same
-             shapes, and the device's kernel time by name;
+             (the scan and the merge of its lists), its bound (bytes once
+             at 3.35 TB/s, or the dots at 1,979 int8 TOPS) and share, the
+             plain time, an f32 matmul + torch.topk and torch._int_mm +
+             torch.topk of the same shapes, and the device's kernel time by
+             name;
   11. vector: bench_vector.make_proxy("sift", 1,048,576, seed 11) with a
              body field of bench.make_corpus (seed 7) in bench_vector.py's
              configuration (Euclidean, i8, scalar quantization, Auto
@@ -1716,9 +1723,55 @@ def k4_bound(n_rows, d, B, k, quantized, n_deleted, use_field_filter):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _k4_case(torch, pool, tiles, field_ok, qargs, tol, tag, **kw):
+    """One phase-10 case, K4 against vector_scan_ref: a threshold that cuts
+    (the 100th best unmasked score) for the even queries, none for the odd
+    ones.  Returns the largest f32 score difference."""
+    from seekstorm_tpu_torch.ops import vector as V
+    from seekstorm_tpu_torch.ops import vector_scan as vs
+
+    dev = pool["data"].device
+    B = qargs[0].shape[0]
+    none = torch.full((B,), float("-inf"), device=dev)
+    base = V.vector_scan_ref(*_k4_args(pool, tiles, field_ok, qargs, none),
+                             **dict(kw, k=100, with_counts=False))[0][:, -1]
+    smin = torch.where(torch.arange(B, device=dev) % 2 == 0, base, none)
+    args = _k4_args(pool, tiles, field_ok, qargs, smin)
+    got = vs.vector_scan_cuda(*args, **kw)
+    want = V.vector_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    NT = pool["data"].shape[0] if kw["exhaustive"] else tiles.shape[0]
+    band = None
+    if tol is not None:
+        every = V.vector_scan_ref(*_k4_args(pool, tiles, field_ok, qargs,
+                                            none), **dict(kw, k=NT * 256))[0]
+        band = ((every - smin[:, None]).abs() <= tol[:, None]).sum(1)
+    err = _check_k4(torch, got, want, tol, band, smin,
+                    min(kw["k"], NT * 256), tag)
+    check(bool((want[2] > 0).any()), f"K4 case matches nothing ({tag})")
+    return err
+
+
+def _k4_stress_pool(torch, g, n_tiles, d, quantized):
+    """_k4_pool with tile 21 repeating tile 3 (equal scores in two slot
+    ranges) and every row of tile 9 deleted (a range with no admitted
+    row); in f32, rows of tile 3 (and 21) alternate |r|^2 = -0 and +0 in
+    their first 32 rows, which against a zero query with |q|^2 = -0 score
+    +0 and -0 in Euclidean, tied by position."""
+    pool = _k4_pool(torch, g, n_tiles, d, quantized)
+    if not quantized:
+        pool["norm2"][3, 0:32:2] = -0.0
+        pool["norm2"][3, 1:32:2] = 0.0
+    for key in ("data", "scale", "zp", "qsum", "norm2", "fieldid"):
+        pool[key][21] = pool[key][3]
+    pool["deleted"][pool["docid"][9].long()] = True
+    return pool
+
+
 def phase_k4(torch):
-    """K4 against vector_scan_ref on random pools, every mode, and at the
-    serving shape with its time, bound and share."""
+    """K4 against vector_scan_ref on random pools, every mode, the running
+    list under stress, and at the serving shape with its time, bound and
+    share beside the plain version and two PyTorch yardsticks."""
     import numpy as np
 
     from seekstorm_tpu_torch.ops import vector as V
@@ -1729,8 +1782,11 @@ def phase_k4(torch):
     g.manual_seed(10)
     rng = np.random.default_rng(10)
     n_tiles, d, B = 40, 128, 40        # B: one full and one partial block
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0.0
     n_cases = 0
+    small = torch.tensor([2, 7, -1, -1], dtype=torch.int32, device=dev)
+    field_ok = torch.tensor([True, False, True, False], device=dev)
     for quantized in (True, False):
         pool = _k4_pool(torch, g, n_tiles, d, quantized)
         qargs = _k4_queries(torch, g, B, d, quantized)
@@ -1741,50 +1797,19 @@ def phase_k4(torch):
                 sel = np.sort(rng.choice(n_tiles, 13, replace=False))
                 tid = torch.from_numpy(np.concatenate(
                     [sel, [-1, -1, -1]]).astype(np.int32)).to(dev)
-                small = torch.from_numpy(
-                    np.array([2, 7, -1, -1], np.int32)).to(dev)
                 for use_ff in (False, True):
-                    field_ok = torch.tensor([True, False, True, False],
-                                            device=dev)
                     for k in (32, 256, 2048):
                         tiles = tid if k < 2048 or exhaustive else small
-                        # a threshold that cuts: the 100th best unmasked
-                        # score for half the queries, none for the rest
-                        base = V.vector_scan_ref(*_k4_args(
-                            pool, tiles, field_ok, qargs,
-                            torch.full((B,), float("-inf"), device=dev)),
-                            k=100, quantized=quantized, euclidean=euclidean,
-                            with_counts=False, exhaustive=exhaustive,
-                            use_field_filter=use_ff)[0][:, -1]
-                        smin = torch.where(
-                            torch.arange(B, device=dev) % 2 == 0, base,
-                            torch.full_like(base, float("-inf")))
-                        args = _k4_args(pool, tiles, field_ok, qargs, smin)
-                        kw = dict(k=k, quantized=quantized,
-                                  euclidean=euclidean, with_counts=True,
-                                  exhaustive=exhaustive,
-                                  use_field_filter=use_ff)
-                        got = vs.vector_scan_cuda(*args, **kw)
-                        want = V.vector_scan_ref(*args, **kw)
-                        torch.cuda.synchronize()
                         NT = n_tiles if exhaustive else tiles.shape[0]
                         tag = (f"{'i8' if quantized else 'f32'} "
                                f"{'euclid' if euclidean else 'dot'} "
                                f"{'all' if exhaustive else 'sel'} "
                                f"ff={use_ff} k={k} NT={NT}")
-                        band = None
-                        if tol is not None:
-                            every = V.vector_scan_ref(*_k4_args(
-                                pool, tiles, field_ok, qargs,
-                                torch.full_like(smin, float("-inf"))),
-                                **dict(kw, k=NT * 256))[0]
-                            band = ((every - smin[:, None]).abs()
-                                    <= tol[:, None]).sum(1)
-                        err = _check_k4(torch, got, want, tol, band, smin,
-                                        min(k, NT * 256), tag)
-                        check(bool((want[2] > 0).any()),
-                              f"K4 case matches nothing ({tag})")
-                        max_err = max(max_err, err)
+                        max_err = max(max_err, _k4_case(
+                            torch, pool, tiles, field_ok, qargs, tol, tag,
+                            k=k, quantized=quantized, euclidean=euclidean,
+                            with_counts=True, exhaustive=exhaustive,
+                            use_field_filter=use_ff))
                         n_cases += 1
     print(f"[K4] {n_cases} cases (i8 and f32, dot and Euclidean, all tiles "
           f"and selected tiles with -1 padding, field filter off and on, "
@@ -1792,6 +1817,58 @@ def phase_k4(torch):
           f"that cuts): i8 bitwise equal to vector_scan_ref (scores, rows, "
           f"counts); f32 within the sum-order bound, max |diff| "
           f"{max_err:.3g}")
+
+    # the running list under stress: 1, 65 and 256 queries (one slot a
+    # range, or G = 33 < NT ranges of 1-2 slots at 256), 4 selected tiles
+    # (NT < the G an SM count gives), equal scores across ranges, a range
+    # deleted whole, +0 and -0 (f32), pages of 16 and 64
+    n_stress = 0
+    for quantized in (True, False):
+        pool = _k4_stress_pool(torch, g, n_tiles, d, quantized)
+        for Bs in (1, 65, 256):
+            qargs = list(_k4_queries(torch, g, Bs, d, quantized))
+            if not quantized:
+                qargs[0][0] = 0.0
+                qargs[4][0] = -0.0
+            tol = None if quantized else _f32_tol(torch, pool, qargs, True)
+            for exhaustive in (True, False):
+                for k in (16, 64):
+                    tiles = None if exhaustive else small
+                    NT = n_tiles if exhaustive else small.shape[0]
+                    G = vs.n_ranges(NT, Bs, k, n_sm)
+                    tag = (f"stress {'i8' if quantized else 'f32'} B={Bs} "
+                           f"{'all' if exhaustive else 'sel'} k={k} NT={NT} "
+                           f"G={G}")
+                    max_err = max(max_err, _k4_case(
+                        torch, pool, tiles, field_ok, qargs, tol, tag, k=k,
+                        quantized=quantized, euclidean=True,
+                        with_counts=True, exhaustive=exhaustive,
+                        use_field_filter=not exhaustive))
+                    n_stress += 1
+    print(f"[K4] {n_stress} running-list cases (B 1/65/256, all tiles and 4 "
+          f"selected, k 16/64, ties across ranges, a range deleted whole, "
+          f"+0/-0 in f32): i8 bitwise equal, f32 within the bound")
+
+    # ties at the shared threshold: 40 copies of one tile, none deleted, so
+    # every range's first slot holds the same best score and, with G >= kk
+    # ranges, the largest bucket is the kk-th best key itself
+    pool = _k4_pool(torch, g, n_tiles, d, True, p_del=0.0)
+    for key in ("data", "scale", "zp", "qsum", "norm2", "fieldid"):
+        pool[key][:] = pool[key][0].clone()
+    first32 = torch.arange(32, dtype=torch.int32, device=dev)
+    n_ties = 0
+    for Bs, tiles, k in ((40, None, 32), (40, first32, 32), (1, first32, 32),
+                         (449, None, 16)):
+        qargs = _k4_queries(torch, g, Bs, d, True)
+        NT = n_tiles if tiles is None else tiles.shape[0]
+        tag = (f"ties B={Bs} {'all' if tiles is None else 'sel'} k={k} "
+               f"NT={NT} G={vs.n_ranges(NT, Bs, k, n_sm)}")
+        _k4_case(torch, pool, tiles, field_ok, qargs, None, tag, k=k,
+                 quantized=True, euclidean=True, with_counts=True,
+                 exhaustive=tiles is None, use_field_filter=False)
+        n_ties += 1
+    print(f"[K4] {n_ties} cases with ties at the shared threshold (40 copies "
+          f"of one tile; G = kk and G > kk): i8 bitwise equal")
 
     # the serving shape: B=64, 1,048,576 rows, d=128, i8, all tiles, k=32
     B, n_tiles, k = 64, (1 << 20) // 256, 32
@@ -1820,14 +1897,26 @@ def phase_k4(torch):
         lib = _median_ms(torch, lambda: torch.topk(qf @ xf.T, k, dim=1),
                          n=5)
     del xf
+    # and the int8 one: torch._int_mm (i8 x i8 -> i32) and torch.topk
+    xi = pool["data"].reshape(-1, d)
+    try:
+        int_mm = _median_ms(torch, lambda: torch.topk(
+            torch._int_mm(qargs[0], xi.T), k, dim=1), n=5)
+    except RuntimeError as e:
+        int_mm = None
+        print(f"[K4] torch._int_mm does not take these shapes: {e}")
+    G = vs.n_ranges(n_tiles, B, k, n_sm)
     print(f"[K4] serving shape (B={B}, {n_rows} rows, d={d}, i8, Euclidean, "
-          f"all tiles, k={k}): bitwise equal; K4 + merge {ms:.4f} ms, bound "
+          f"all tiles, k={k}, G={G}): bitwise equal; K4 + merge {ms:.4f} "
+          f"ms, bound "
           f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it; plain "
-          f"{plain:.3f} ms; f32 matmul + torch.topk {lib:.4f} ms")
+          f"{plain:.3f} ms; f32 matmul + torch.topk {lib:.4f} ms; "
+          f"torch._int_mm + torch.topk "
+          f"{'n/a' if int_mm is None else f'{int_mm:.4f} ms'}")
     device_kernels(torch, "K4 serving shape",
                    lambda: vs.vector_scan_cuda(*args, **kw))
     return dict(err=max_err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, int_mm_ms=int_mm)
 
 
 class _recording_vector_scans:

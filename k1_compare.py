@@ -28,12 +28,19 @@ entry point facet_hist_launch has not changed) run in the same turns at the
 shapes of chip_smoke.k3_shapes, their counts must equal the plain version's,
 and each line gives both times beside chip_smoke.k3_bound.
 
-With --k4 an earlier K4 source (a csrc/vector_scan.cu with the current C
-entry point, vector_scan_launch) and the current one run in the same turns
-at chip_smoke.py's K4 serving shape (64 queries, 1,048,576 i8 rows, d=128,
-Euclidean): all tiles at k=32, 1,024 selected tiles at k=32 and all tiles
-at k=256; both must equal vector_scan_ref bitwise, and each line gives both
-times beside chip_smoke.k4_bound.
+With --k4 an earlier K4 source and the current one run in the same turns
+on chip_smoke.py's K4 serving pool (1,048,576 i8 rows, d=128, Euclidean):
+64 queries at all tiles k=32, 1,024 selected tiles k=32 and all tiles
+k=256; 1 query at all tiles and at the 1,024 selected, and 4 and 16
+queries at all tiles, k=16.  Where the running scan serves the page (k <=
+32) two variants of the current source run in the same turns: built with
+-DK4_BUCKETS=0 (no buckets: the shared threshold is gthr alone beside
+each CTA's own kk-th) and routed to its per-tile scan (G = 0).  Every run
+must equal vector_scan_ref bitwise, and each line gives the times beside
+chip_smoke.k4_bound.  The earlier source is the per-tile K4 of commit
+ed057dd (its vector_scan_launch writes each tile's top min(k, 256) as
+[B, NT, kk] scores and rows); it is timed with the merge its wrapper ran,
+one stable sort of the [B, NT*kk] lists (ops/vector.merge_candidates).
 
 The earlier K1 is the one whose C entry point is wand_scan_launch(ppool,
 vpool, prow, V, delw, filtw, tcode, wshard, sid, Bq, nblk, T, with_counts,
@@ -168,9 +175,50 @@ def compare_k3(torch, tree: Path, card) -> list:
     return rows
 
 
+# the earlier K4's C entry point: data, scale, zp, qsum, norm2, docid,
+# fieldid, deleted, n_deleted, field_ok, n_field, tile_ids, NT, q_data,
+# q_scale, q_zp, q_qsum, q_norm2, score_min, B, d, kk, quantized,
+# euclidean, use_ff, with_counts, out_vals, out_rows, counts, stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+EARLIER_K4 = [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I] * 7 + [_P] * 4
+
+
+def earlier_k4(torch, lib, args, kw):
+    """The earlier K4 and its wrapper's merge on vector_scan_cuda's
+    arguments."""
+    from seekstorm_tpu_torch.ops import vector as V
+
+    (data, scale, zp, qsum, norm2, docid, fieldid, deleted, tile_ids,
+     field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2, score_min) = args
+    B, d, k = q_data.shape[0], data.shape[2], kw["k"]
+    NT = data.shape[0] if kw["exhaustive"] else tile_ids.shape[0]
+    kt = min(k, 256)
+    vals = torch.empty((B, NT, kt), dtype=torch.float32, device=data.device)
+    rows = torch.empty((B, NT, kt), dtype=torch.int32, device=data.device)
+    counts = torch.zeros(B, dtype=torch.int32, device=data.device)
+    err = lib.vector_scan_launch(
+        data.data_ptr(), scale.data_ptr(), zp.data_ptr(), qsum.data_ptr(),
+        norm2.data_ptr(), docid.data_ptr(), fieldid.data_ptr(),
+        deleted.data_ptr(), deleted.shape[0], field_ok.data_ptr(),
+        field_ok.shape[0], None if kw["exhaustive"] else tile_ids.data_ptr(),
+        NT, q_data.data_ptr(), q_scale.data_ptr(), q_zp.data_ptr(),
+        q_qsum.data_ptr(), q_norm2.data_ptr(), score_min.data_ptr(), B, d,
+        kt, int(kw["quantized"]), int(kw["euclidean"]),
+        int(kw["use_field_filter"]), int(kw["with_counts"]),
+        vals.data_ptr(), rows.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier K4 launch failed (error {err})")
+    ts, out = V.merge_candidates(vals.view(B, NT * kt), rows.view(B, NT * kt),
+                                 k)
+    return ts, out, counts
+
+
 def compare_k4(torch, src: Path, card) -> list:
     """An earlier K4 source and the current one at chip_smoke's K4 serving
-    shape, in turns."""
+    shape, in turns, with two variants of the current one where the
+    running scan serves the page: built without its buckets, and routed
+    to its per-tile scan."""
     import numpy as np
 
     from seekstorm_tpu_torch import _build
@@ -178,55 +226,82 @@ def compare_k4(torch, src: Path, card) -> list:
     from seekstorm_tpu_torch.ops import vector_scan as vs
 
     current = _build.load("vector_scan")
-    out = _build.BUILD_DIR / "libvector_scan_earlier.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, capture_output=True, text=True)
-    earlier = ctypes.CDLL(str(out))
-    earlier.vector_scan_launch.argtypes = \
-        _build._SIGNATURES["vector_scan"]["vector_scan_launch"]
-    earlier.vector_scan_launch.restype = ctypes.c_int
 
-    def run(lib, args, kw):
-        _build._LIBS["vector_scan"] = lib    # the wrapper loads it from here
-        return vs.vector_scan_cuda(*args, **kw)
+    def build(name, source, argtypes, *flags):
+        out = _build.BUILD_DIR / f"libvector_scan_{name}.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+                        str(out), str(source)], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(str(out))
+        lib.vector_scan_launch.argtypes = argtypes
+        lib.vector_scan_launch.restype = ctypes.c_int
+        return lib
+
+    earlier = build("earlier", src, EARLIER_K4)
+    no_buckets = build("no_buckets", _build.CSRC / "vector_scan.cu",
+                       _build._SIGNATURES["vector_scan"]["vector_scan_launch"],
+                       "-DK4_BUCKETS=0")
+    n_ranges = vs.n_ranges
+
+    def run_current(lib, per_tile=False):
+        def run(args, kw):
+            _build._LIBS["vector_scan"] = lib   # the wrapper loads it here
+            vs.n_ranges = (lambda *a: 0) if per_tile else n_ranges
+            try:
+                return vs.vector_scan_cuda(*args, **kw)
+            finally:
+                _build._LIBS["vector_scan"] = current
+                vs.n_ranges = n_ranges
+        return run
+
+    runs = {"earlier": lambda args, kw: earlier_k4(torch, earlier, args, kw),
+            "current": run_current(current),
+            "no buckets": run_current(no_buckets),
+            "per-tile": run_current(current, per_tile=True)}
 
     g = torch.Generator(device="cuda")
     g.manual_seed(10)
-    n_tiles, d, B = (1 << 20) // 256, 128, 64
+    n_tiles, d = (1 << 20) // 256, 128
     pool = cs._k4_pool(torch, g, n_tiles, d, True, n_fields=1, p_del=0.01)
-    qargs = cs._k4_queries(torch, g, B, d, True)
+    qargs = cs._k4_queries(torch, g, 64, d, True)
     field_ok = torch.ones(4, dtype=torch.bool, device="cuda")
-    smin = torch.full((B,), float("-inf"), device="cuda")
     sel = np.sort(np.random.default_rng(10).choice(n_tiles, 1024,
                                                    replace=False))
     tid = torch.from_numpy(sel.astype(np.int32)).cuda()
     rows = []
-    for name, tiles, k in (("all tiles, k=32", None, 32),
-                           ("1,024 selected tiles, k=32", tid, 32),
-                           ("all tiles, k=256", None, 256)):
+    for B, tiles, k in ((64, None, 32), (64, tid, 32), (64, None, 256),
+                        (1, None, 16), (1, tid, 16), (4, None, 16),
+                        (16, None, 16)):
+        name = (f"{'all tiles' if tiles is None else '1,024 selected tiles'}"
+                f", B={B}, k={k}")
         kw = dict(k=k, quantized=True, euclidean=True, with_counts=True,
                   exhaustive=tiles is None, use_field_filter=False)
-        args = cs._k4_args(pool, tiles, field_ok, qargs, smin)
+        smin = torch.full((B,), float("-inf"), device="cuda")
+        args = cs._k4_args(pool, tiles, field_ok, [q[:B] for q in qargs],
+                           smin)
         want = V.vector_scan_ref(*args, **kw)
-        for tag, lib in (("earlier", earlier), ("current", current)):
-            got = run(lib, args, kw)
+        tags = [t for t in runs if k <= vs.RUN_KK or t in ("earlier",
+                                                             "current")]
+        for tag in tags:
+            got = runs[tag](args, kw)
             torch.cuda.synchronize()
             cs._check_k4(torch, got, want, None, None, smin, k,
                          f"{tag} K4, {name}")
-        turns = [cs._median_ms(torch, lambda lib=lib: run(lib, args, kw))
-                 for lib in (earlier, current, current, earlier)]
+        order = tags + tags[::-1]
+        turns = [cs._median_ms(torch, lambda run=runs[tag]: run(args, kw))
+                 for tag in order]
+        ms = {tag: [turns[i], turns[len(order) - 1 - i]]
+              for i, tag in enumerate(tags)}
         n_rows = (n_tiles if tiles is None else len(sel)) * 256
         bound, by = cs.k4_bound(n_rows, d, B, k, True,
                                 pool["deleted"].shape[0],
                                 use_field_filter=False)
-        rows.append(dict(tag=name, earlier_ms=[turns[0], turns[3]],
-                         current_ms=[turns[1], turns[2]], bound_ms=bound,
+        rows.append(dict(tag=name, B=B, k=k, ms=ms, bound_ms=bound,
                          bound_by=by, card=card))
-        print(f"[compare] K4 {name}: bitwise equal; earlier {turns[0]:.4f} "
-              f"/ {turns[3]:.4f} ms, current {turns[1]:.4f} / "
-              f"{turns[2]:.4f} ms, bound {bound:.4f} ms ({by})")
+        print(f"[compare] K4 {name}: bitwise equal; " + ", ".join(
+            f"{tag} {a:.4f} / {b:.4f} ms" for tag, (a, b) in ms.items())
+            + f"; bound {bound:.4f} ms ({by})")
         del want
-    _build._LIBS["vector_scan"] = current
     return rows
 
 

@@ -61,10 +61,11 @@ _SIGNATURES = {
     "vector_scan": {
         # data, scale, zp, qsum, norm2, docid, fieldid, deleted, n_deleted,
         # field_ok, n_field, tile_ids, NT, q_data, q_scale, q_zp, q_qsum,
-        # q_norm2, score_min, B, d, kk, quantized, euclidean, use_ff,
-        # with_counts, out_vals, out_rows, counts, stream
+        # q_norm2, score_min, B, d, k, quantized, euclidean, use_ff,
+        # with_counts, G, list_v, list_p, gthr, P, merge_scratch, out_vals,
+        # out_rows, counts, stream
         "vector_scan_launch": [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 6
-        + [_I] * 7 + [_P] * 4,
+        + [_I] * 8 + [_P] * 3 + [_I] + [_P] * 5,
     },
 }
 

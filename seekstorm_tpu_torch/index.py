@@ -1332,14 +1332,14 @@ class Index:
             len(sh.lexical.directory.hash) if sh.lexical.directory else 0
             for sh in self.shards
         )
-        # committed rows and the uncommitted tail; the reference also adds
-        # the partial level's rows, which are in both
+        # the reference's count (its index.py info): every level's rows
+        # plus level0, so a partial level's rows, which sit in both, count
+        # twice; the port keeps that number
         vectors = 0
         if self.vectors is not None:
             vectors = sum(
-                sum(lv.n for lv in sv.levels)
-                + sum(r[0] >= sh.partial_on_disk for r in sv.level0)
-                for sv, sh in zip(self.vectors.shards, self.shards)
+                sum(lv.n for lv in sv.levels) + len(sv.level0)
+                for sv in self.vectors.shards
             )
         return {
             "id": self.meta.id,

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from .dense_scan import _sort_desc, fma32
@@ -120,6 +121,52 @@ def _take_ok(flags, idx):
     return (idx >= n) | flags[idx.clamp(max=n - 1)]
 
 
+def _candidates(data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field,
+                deleted, field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2,
+                score_min, tids, kk, *, quantized, euclidean, with_counts,
+                gathered, use_field_filter):
+    """Each chunk of the slots ``tids``' top-kk by a stable sort, laid out
+    in slot order: (scores f32[B, M], global rows [B, M], counts i64[B])."""
+    T, d = data.shape[1], data.shape[2]
+    B = q_data.shape[0]
+    dev = data.device
+    step = max(REF_ROWS // max(B, 1) // T, 1)
+    counts = torch.zeros(B, dtype=torch.int64, device=dev)
+    cand_s, cand_r = [], []
+    local = torch.arange(T, dtype=torch.int64, device=dev)
+    for a in range(0, tids.shape[0], step):
+        tsel = tids[a:a + step]
+        tc = tsel.clamp(min=0)
+        rows = data[tc].reshape(-1, d)
+        flat = lambda x: x[tc].reshape(-1)  # noqa: E731
+        docid = flat(row_docid).long()
+        scores = _scores(q_data, q_scale, q_zp, q_qsum, q_norm2, rows,
+                         flat(r_scale), flat(r_zp), flat(r_qsum),
+                         flat(r_norm2), quantized, euclidean,
+                         gathered=gathered)
+        valid = (docid >= 0) & (tsel >= 0).repeat_interleave(T)
+        row_ok = valid & ~_take_ok(deleted, docid.clamp(min=0))
+        if use_field_filter:
+            row_ok &= _take_ok(field_ok, flat(row_field).long().clamp(min=0))
+        mask = row_ok[None, :] & (scores >= score_min[:, None])
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores, float("-inf")))
+        if with_counts:
+            counts += mask.sum(dim=1)
+        ts, ti = _sort_desc(scores)
+        kc = min(kk, scores.shape[1])
+        cand_s.append(ts[:, :kc])
+        cand_r.append((tc[:, None] * T + local).reshape(-1)[ti[:, :kc]])
+    return torch.cat(cand_s, dim=1), torch.cat(cand_r, dim=1), counts
+
+
+def _slots(data, tile_ids, exhaustive):
+    if exhaustive:
+        return torch.arange(data.shape[0], dtype=torch.int64,
+                            device=data.device)
+    return tile_ids.long()
+
+
 def vector_scan_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
                     row_field, deleted, tile_ids, field_ok, q_data, q_scale,
                     q_zp, q_qsum, q_norm2, score_min, *, k: int,
@@ -137,45 +184,147 @@ def vector_scan_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     and each chunk's top-kk kept by a stable sort, so ties keep the lower
     position as ``lax.top_k`` does; -inf entries past the matches and the
     ``kk < k`` padding (-inf, row 0) are the reference's too."""
-    n_tiles, T, d = data.shape
-    B = q_data.shape[0]
-    dev = data.device
-    if exhaustive:
-        tids = torch.arange(n_tiles, dtype=torch.int64, device=dev)
-    else:
-        tids = tile_ids.long()
+    tids = _slots(data, tile_ids, exhaustive)
     NT = tids.shape[0]
-    kk = min(k, NT * T)
-    step = max(REF_ROWS // max(B, 1) // T, 1)
-    counts = torch.zeros(B, dtype=torch.int64, device=dev)
-    cand_s, cand_r = [], []
-    local = torch.arange(T, dtype=torch.int64, device=dev)
-    for a in range(0, NT, step):
-        tsel = tids[a:a + step]
-        tc = tsel.clamp(min=0)
-        rows = data[tc].reshape(-1, d)
-        flat = lambda x: x[tc].reshape(-1)  # noqa: E731
-        docid = flat(row_docid).long()
-        scores = _scores(q_data, q_scale, q_zp, q_qsum, q_norm2, rows,
-                         flat(r_scale), flat(r_zp), flat(r_qsum),
-                         flat(r_norm2), quantized, euclidean,
-                         gathered=not exhaustive and NT > 1)
-        valid = (docid >= 0) & (tsel >= 0).repeat_interleave(T)
-        row_ok = valid & ~_take_ok(deleted, docid.clamp(min=0))
-        if use_field_filter:
-            row_ok &= _take_ok(field_ok, flat(row_field).long().clamp(min=0))
-        mask = row_ok[None, :] & (scores >= score_min[:, None])
-        scores = torch.where(mask, scores,
-                             torch.full_like(scores, float("-inf")))
-        if with_counts:
-            counts += mask.sum(dim=1)
-        ts, ti = _sort_desc(scores)
-        kc = min(kk, scores.shape[1])
-        cand_s.append(ts[:, :kc])
-        cand_r.append((tc[:, None] * T + local).reshape(-1)[ti[:, :kc]])
-    ts, rows = merge_candidates(torch.cat(cand_s, dim=1),
-                                torch.cat(cand_r, dim=1), k)
+    s, r, counts = _candidates(
+        data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field, deleted,
+        field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2, score_min, tids,
+        min(k, NT * data.shape[1]), quantized=quantized, euclidean=euclidean,
+        with_counts=with_counts, gathered=not exhaustive and NT > 1,
+        use_field_filter=use_field_filter)
+    ts, rows = merge_candidates(s, r, k)
     return ts, rows, counts.to(torch.int32)
+
+
+def vector_scan_split_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
+                          row_field, deleted, tile_ids, field_ok, q_data,
+                          q_scale, q_zp, q_qsum, q_norm2, score_min, *,
+                          k: int, n_ranges: int, quantized: bool,
+                          euclidean: bool, with_counts: bool,
+                          exhaustive: bool, use_field_filter: bool):
+    """The plain form of K4's split, same arguments and returns as
+    vector_scan_ref (and equal to it): each of ``n_ranges`` contiguous slot
+    ranges [g*NT//G, (g+1)*NT//G) keeps its own top kk = min(k, NT*T) by
+    (score desc, position asc), then the ranges' lists, in range order,
+    are merged by one stable sort.  A range's rows keep the position order
+    inside it, and range order is position order across ranges, so ties
+    resolve as in one scan.  Empty ranges (G > NT) add nothing."""
+    tids = _slots(data, tile_ids, exhaustive)
+    NT, T = tids.shape[0], data.shape[1]
+    kk = min(k, NT * T)
+    G = n_ranges
+    lists_s, lists_r = [], []
+    counts = torch.zeros(q_data.shape[0], dtype=torch.int64,
+                         device=data.device)
+    for g in range(G):
+        a, b = g * NT // G, (g + 1) * NT // G
+        if a == b:
+            continue
+        s, r, c = _candidates(
+            data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field,
+            deleted, field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2,
+            score_min, tids[a:b], kk, quantized=quantized,
+            euclidean=euclidean, with_counts=with_counts,
+            gathered=not exhaustive and NT > 1,
+            use_field_filter=use_field_filter)
+        s, r = merge_candidates(s, r, min(kk, (b - a) * T))
+        lists_s.append(s)
+        lists_r.append(r.long())
+        counts += c
+    ts, rows = merge_candidates(torch.cat(lists_s, dim=1),
+                                torch.cat(lists_r, dim=1), k)
+    return ts, rows, counts.to(torch.int32)
+
+
+KEY_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _keys(v, pos):
+    """K4's 64-bit ranking keys, ascending: the order-mapped score above the
+    position, -0 tied with +0 (numpy, v f32 and pos uint64 of one shape)."""
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    order = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return ((~order).astype(np.uint64) << np.uint64(32)) | pos
+
+
+def vector_scan_running_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
+                            row_field, deleted, tile_ids, field_ok, q_data,
+                            q_scale, q_zp, q_qsum, q_norm2, score_min, *,
+                            k: int, n_ranges: int, quantized: bool,
+                            euclidean: bool, with_counts: bool,
+                            exhaustive: bool, use_field_filter: bool):
+    """The plain form of K4's running scan (k <= 32), its thresholds
+    included; same arguments and returns as vector_scan_ref, and equal to
+    it when the thresholds are exact.  G = n_ranges (1 <= G <= NT)
+    contiguous slot ranges walk their slots in turns, one slot each a turn
+    (one order the CTAs may take).  A range admits a row only if its key
+    is below the smallest of: its own list's kk-th key; gthr, the kk-th
+    smallest of the ranges' first-slot best keys plus one (the probe pass),
+    lowered to every range's kk-th; and the largest of kk buckets plus one,
+    bucket b the best key found by the ranges g = b (mod kk).  The merge
+    takes the lists' entries at or below min(gthr, largest bucket).  A
+    query whose merge finds fewer than kk entries gets NaN scores and row
+    -1 there, which no scan returns."""
+    tids = _slots(data, tile_ids, exhaustive)
+    NT, T = tids.shape[0], data.shape[1]
+    B, G, kk = q_data.shape[0], n_ranges, k
+    if not (k <= 32 and 1 <= G <= NT):
+        raise ValueError(f"the running scan takes k <= 32 and 1 <= G <= NT, "
+                         f"got k={k}, G={G}, NT={NT}")
+    vals = np.empty((B, NT * T), np.float32)
+    counts = torch.zeros(B, dtype=torch.int64)
+    for i in range(NT):
+        s, r, c = _candidates(
+            data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field,
+            deleted, field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2,
+            score_min, tids[i:i + 1], T, quantized=quantized,
+            euclidean=euclidean, with_counts=with_counts,
+            gathered=not exhaustive and NT > 1,
+            use_field_filter=use_field_filter)
+        at = i * T + (r % T).cpu().numpy()
+        np.put_along_axis(vals, at, s.cpu().numpy(), axis=1)
+        counts += c.cpu()
+    keys = _keys(vals, np.arange(NT * T, dtype=np.uint64)[None, :])
+    one = np.uint64(1)
+
+    def plus_one(x):
+        return np.where(x == KEY_MAX, KEY_MAX, x + one)
+
+    bounds = [(g * NT // G, (g + 1) * NT // G) for g in range(G)]
+    best = np.stack([keys[:, a * T:(a + 1) * T].min(1) for a, _ in bounds],
+                    1)
+    gthr = (plus_one(np.sort(best, 1)[:, kk - 1]) if G >= kk
+            else np.full(B, KEY_MAX))
+    bucket = np.full((B, kk), KEY_MAX)
+    for g in range(G):
+        bucket[:, g % kk] = np.minimum(bucket[:, g % kk], best[:, g])
+    lists = np.full((B, G, kk), KEY_MAX)
+    own_thr = np.full((B, G), KEY_MAX)
+    for step in range(max(b - a for a, b in bounds)):
+        for g, (a, b) in enumerate(bounds):
+            if a + step >= b:
+                continue
+            thr = np.minimum(np.minimum(own_thr[:, g], gthr),
+                             plus_one(bucket.max(1)))
+            slot = keys[:, (a + step) * T:(a + step + 1) * T]
+            admit = np.where(slot < thr[:, None], slot, KEY_MAX)
+            lst = np.sort(np.concatenate([lists[:, g], admit], 1), 1)[:, :kk]
+            lists[:, g] = lst
+            gthr = np.minimum(gthr, lst[:, kk - 1])
+            bucket[:, g % kk] = np.minimum(bucket[:, g % kk], lst[:, 0])
+            own_thr[:, g] = np.minimum(thr, lst[:, kk - 1])
+    bound = plus_one(np.minimum(gthr, bucket.max(1)))
+    flat = lists.reshape(B, -1)
+    top = np.sort(np.where(flat < bound[:, None], flat, KEY_MAX), 1)[:, :kk]
+    found = top != KEY_MAX
+    pos = np.where(found, top & np.uint64(0xFFFFFFFF), 0).astype(np.int64)
+    scores = np.where(found, np.take_along_axis(vals, pos, 1), np.nan)
+    tile = tids.cpu().numpy()[pos // T].clip(min=0)
+    rows = np.where(found, tile * T + pos % T, -1)
+    dev = data.device
+    return (torch.from_numpy(scores.astype(np.float32)).to(dev),
+            torch.from_numpy(rows.astype(np.int32)).to(dev),
+            counts.to(torch.int32).to(dev))
 
 
 def merge_candidates(vals, rows, k: int):

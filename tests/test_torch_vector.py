@@ -326,7 +326,8 @@ def test_external_lifecycle(tmp_path):
                  [{"vector": v.tolist(), "label": str(i)}
                   for i, v in enumerate(vecs)], shard_count=2)
     assert pair.port.indexed_doc_count == 3
-    assert pair.port.info()["vector_count"] == 3
+    assert pair.port.info()["vector_count"] == \
+        pair.ref.info()["vector_count"]
     rs, = _search(pair, [_vreq(vecs[0], result_type=st.ResultType.TopkCount)],
                   bound=_bound_of(vecs, vecs))
     assert len(rs.results) == rs.result_count == rs.result_count_total == 3
@@ -637,6 +638,137 @@ def test_text_vector_index_end_to_end(tmp_path, model_dir):
     rs, = _search(pair, [st.SearchRequest(
         query="cat", search_mode=st.SearchMode.Hybrid, length=3)])
     assert rs.results
+
+
+# ---------------------------------------------------------------------------
+# K4's split: the top-kk of each contiguous slot range, then the merge
+
+
+def _split_inputs(rng, quantized, euclidean, n_tiles=7, d=128, B=12):
+    """A pool where tile 4 repeats tile 1 (equal scores in two ranges),
+    every row of tile 2 is deleted (a range with no admitted row), and in
+    f32 query 0 is zero with |q|^2 = -0 against tile 3's |r|^2 of -0 and
+    +0 in its first 32 rows (Euclidean scores +0 and -0, tied by
+    position, at the top of every query's page)."""
+    pool = _pool(rng, n_tiles, d, quantized)
+    data, scale, zp, qsum, norm2, docid, fieldid, deleted = pool
+    for x in (data, scale, zp, qsum, norm2, fieldid):
+        x[4] = x[1]
+    deleted[docid[2]] = True
+    qargs = _queries(rng, B, d, quantized)
+    if not quantized:
+        qargs[0][0] = 0.0
+        qargs[4] = qargs[4].copy()
+        qargs[4][0] = -0.0
+        norm2[3, :32:2] = -0.0
+        norm2[3, 1:32:2] = 0.0
+    # a threshold at the 100th best score for half the queries
+    smin = np.full(B, -np.inf, np.float32)
+    return pool, qargs, smin
+
+
+def _split_args(mode, k):
+    """_split_inputs as tensors with their keywords and NT: tiles 0-6 (all)
+    or 0, 1, 2, 4, 6 and three -1 slots (sel), a field filter on the
+    selected ones, and a threshold at the 100th best score for the odd
+    queries."""
+    quantized = mode.startswith("i8")
+    exhaustive = "_all_" in mode
+    euclidean = mode.endswith("euclid")
+    rng = np.random.default_rng([quantized, exhaustive, k])
+    pool, qargs, smin = _split_inputs(rng, quantized, euclidean)
+    tid = np.array([0, 1, 2, 4, 6, -1, -1, -1], np.int32)
+    field_ok = np.array([True, False, True, True])
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in pool + [tid, field_ok] + qargs + [smin]]
+    kw = dict(quantized=quantized, euclidean=euclidean, with_counts=True,
+              exhaustive=exhaustive, use_field_filter=not exhaustive)
+    cut = V.vector_scan_ref(*t, k=100, **kw)[0][:, -1]
+    t[-1] = torch.where(torch.arange(len(smin)) % 2 == 1, cut, t[-1])
+    return t, kw, 7 if exhaustive else len(tid)
+
+
+def _assert_bitwise(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("k", [16, 300])
+@pytest.mark.parametrize("G", ["one", "three", "over_NT"])
+@pytest.mark.parametrize("mode", ["i8_all_euclid", "i8_sel_dot",
+                                  "f32_all_euclid", "f32_sel_euclid"])
+def test_split_ref_equals_one_scan(mode, G, k):
+    """vector_scan_split_ref (each of G slot ranges' top kk, merged in
+    range order) equals one vector_scan_ref bitwise: scores, rows, counts,
+    with ties across ranges, -0 and +0, a range of deleted rows, a
+    threshold that cuts half the queries, -1 padding slots and G > NT."""
+    t, kw, NT = _split_args(mode, k)
+    n = {"one": 1, "three": 3, "over_NT": NT + 2}[G]
+    want = V.vector_scan_ref(*t, k=k, **kw)
+    _assert_bitwise(V.vector_scan_split_ref(*t, k=k, n_ranges=n, **kw), want)
+    # the cases hold what they claim: equal scores from tiles 1 and 4,
+    # fewer admitted rows than kk for the cut queries, and (f32) both zeros
+    s, r = want[0], want[1].long()
+    assert (want[2][1::2] <= 102).all()        # 100 and its ties
+    if k > 100:
+        assert torch.isinf(s[1::2, -1]).all()
+        assert ((r // T == 1).any(dim=1) & (r // T == 4).any(dim=1)).any()
+    if not kw["quantized"] and kw["euclidean"] and kw["exhaustive"]:
+        zeros = s[0][s[0] == 0]
+        assert (zeros.view(torch.int32) == 0).any()
+        assert (zeros.view(torch.int32) != 0).any()
+
+
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("G", ["one", "three", "NT"])
+@pytest.mark.parametrize("mode", ["i8_all_euclid", "i8_sel_dot",
+                                  "f32_all_euclid", "f32_sel_euclid"])
+def test_running_ref_equals_one_scan(mode, G, k):
+    """vector_scan_running_ref (the running scan's ranges walked in turns
+    under its three thresholds, then the merge under the shared one)
+    equals one vector_scan_ref bitwise on the split cases."""
+    t, kw, NT = _split_args(mode, k)
+    n = {"one": 1, "three": 3, "NT": NT}[G]
+    _assert_bitwise(V.vector_scan_running_ref(*t, k=k, n_ranges=n, **kw),
+                    V.vector_scan_ref(*t, k=k, **kw))
+
+
+@pytest.mark.parametrize("B,n_sel,k,G", [
+    (3, 0, 32, 40), (1, 32, 32, 32), (5, 0, 16, 16), (2, 36, 32, 36)])
+def test_running_ref_ties_at_the_threshold(B, n_sel, k, G):
+    """Forty copies of one tile (no row deleted): every range's first slot
+    holds the same best score, so the largest bucket is the kk-th best key
+    itself when G >= kk, and that row must still enter its list.  All
+    tiles or the first n_sel, G ranges (G == kk, G > kk), bitwise equal to
+    vector_scan_ref."""
+    rng = np.random.default_rng([B, n_sel, k, G])
+    pool = _pool(rng, 40, 128, True)
+    for x in (pool[0], pool[1], pool[2], pool[3], pool[4], pool[6]):
+        x[:] = x[0]
+    pool[7][:] = False
+    tid = np.arange(max(n_sel, 1), dtype=np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in pool + [tid, np.ones(4, bool)] + _queries(rng, B, 128, True)
+         + [np.full(B, -np.inf, np.float32)]]
+    kw = dict(quantized=True, euclidean=True, with_counts=True,
+              exhaustive=n_sel == 0, use_field_filter=False)
+    want = V.vector_scan_ref(*t, k=k, **kw)
+    _assert_bitwise(V.vector_scan_running_ref(*t, k=k, n_ranges=G, **kw),
+                    want)
+    # the page's first score comes from the first kk tiles, one row each
+    assert (want[0] == want[0][:, :1]).all()
+    assert torch.equal(want[1] // T, torch.arange(k).expand(B, k).int())
+
+
+@pytest.mark.parametrize("NT,B,k,n_sm,G", [
+    (4096, 64, 32, 132, 132), (4096, 256, 16, 132, 33), (4, 1, 32, 132, 4),
+    (4, 65, 16, 132, 4), (100, 1000, 32, 132, 8), (3, 9000, 32, 132, 1),
+    (4096, 64, 32, 300, 256), (4096, 64, 33, 132, 0), (4, 1, 256, 132, 0)])
+def test_k4_ranges(NT, B, k, n_sm, G):
+    """The running scan's G: one CTA an SM over the query blocks, at least
+    one, at most one range a slot and 256 in all; 0, the per-tile scan, for
+    pages deeper than 32."""
+    assert vs.n_ranges(NT, B, k, n_sm) == G
 
 
 # ---------------------------------------------------------------------------

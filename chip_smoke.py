@@ -131,7 +131,28 @@ Phases, each printing what it found:
              "cpu" exactly, recall at nprobe 16 and 33 within 0.02 of
              "cpu"'s (the global re-cluster runs on each device); 64
              hybrid requests (bench.make_queries text with the proxy's
-             vectors) equal to "cpu" exactly.
+             vectors) equal to "cpu" exactly;
+  12. server: python -m seekstorm_tpu_torch.server device=cuda as a
+             subprocess over a tenancy root (one API key) holding copies of
+             phase 4's and phase 11's committed indexes (nvidia-smi lists
+             one more compute process while it runs, none after it stops,
+             and its pid holds the card's device file open); the same
+             5,000 + 5,000 uncommitted docs POSTed, then
+             from 8 client threads, one request an HTTP call: 256 TopkCount
+             top-10 queries, 16 at offset 1990, 16 of 10-12 terms, 64
+             facet2 and 64 geosort (phase 8's), 32 under
+             field_filter=["body"], 64 vector All, 64 Nprobe 16, 64 /v2
+             binary queries and 64 hybrid; K1, K2, K3 and K4 launch counts
+             rise in the server's /metrics; every response equal to this
+             process's answer on the card (ids, order, counts, facets;
+             scores within rtol 3e-5), Nprobe and /v2 pages counted where
+             they differ and their recall@10 within 0.005 of in-process;
+             the REST write flow of tests/test_server.py (create, 1,000
+             docs, commit, query, get, update, delete by query); client
+             p50/p99 latency per class beside the card's name and power
+             limit, with each class's latency in this process alone, the
+             top-10 class again from one client thread and a cProfile of
+             64 top-10 requests one at a time.
 
 The script imports the port (seekstorm_tpu_torch), bench.py,
 bench_vector.py (numpy alone at import) and torch;
@@ -2155,11 +2176,431 @@ def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
           f"{bad[:5]}")
     check(k4 == 1 and not bad and all(rs.results for rs in hyb),
           "hybrid: one K4 launch, full pages, cuda equal to cpu")
-    del X, Qd
-    shutil.rmtree(path, ignore_errors=True)
+    # phase 12 serves this index's committed files from a server and holds
+    # its answers against this in-process index (same committed vectors,
+    # same tail) and this ground truth
+    served = dict(idx=idx, path=path, recall=recall, queries=queries,
+                  tail=[{"vector": tail[i].tolist(),
+                         "body": corpus[n_vec + i]["body"]}
+                        for i in range(n_tail)])
     return dict(k4_launches=launches, recall={
         tag: results[tag][1] for tag in ("All", "Nprobe 16", "Nprobe 33")},
-        n_queries=n_queries)
+        n_queries=n_queries, served=served)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the server
+
+N_SRV_THREADS = 8            # client threads, one request per HTTP call
+SRV_VEC = 64                 # requests of each vector class
+
+
+def _wire(st, r):
+    """The REST JSON body of a SearchRequest (api_types' wire form)."""
+    body = {"query": r.query, "query_type_default": r.query_type_default.value,
+            "offset": r.offset, "length": r.length,
+            "result_type": r.result_type.value, "realtime": r.realtime}
+    if r.field_filter:
+        body["field_filter"] = list(r.field_filter)
+    if r.query_facets:
+        body["query_facets"] = [dict(
+            field=qf.field, length=qf.length,
+            **({"ranges": {"field": qf.ranges.field,
+                           "range_type": qf.ranges.range_type,
+                           "ranges": [list(x) for x in qf.ranges.ranges]}}
+               if qf.ranges is not None else {}))
+            for qf in r.query_facets]
+    if r.facet_filter:
+        body["facet_filter"] = [
+            {"field": f.field, "values": f.values,
+             "range": list(f.range) if f.range is not None else None}
+            for f in r.facet_filter]
+    if r.result_sort:
+        body["result_sort"] = [{"field": x.field, "order": x.order,
+                                "base": x.base} for x in r.result_sort]
+    if r.search_mode == st.SearchMode.Vector:
+        ann = ({"Nprobe": r.nprobe} if r.ann_mode == "Nprobe"
+               else r.ann_mode)
+        body["search_mode"] = {"Vector": {"ann_mode": ann}}
+    elif r.search_mode == st.SearchMode.Hybrid:
+        body["search_mode"] = "Hybrid"
+    if r.query_vector is not None:
+        body["query_vector"] = list(r.query_vector)
+    return body
+
+
+def _server_requests(st, vec):
+    """(class, index id, request) of phase 12's traffic: index 0 is phase
+    4's lexical index, index 1 phase 11's vector index; a request is a
+    SearchRequest (sent as its JSON body) or, for /v2, a vector."""
+    import numpy as np
+
+    import bench
+
+    qs = bench.make_queries(256, np.random.default_rng(100))
+
+    def lex(q, t, **kw):
+        return st.SearchRequest(query=q, query_type_default=st.QueryType(t),
+                                length=10, result_type=st.ResultType.TopkCount,
+                                realtime=True, **kw)
+
+    out = [("topk", 0, lex(q, t)) for q, t in qs]
+    out += [("offset 1990", 0, dataclasses.replace(lex(q, t), offset=1990,
+                                                  length=20))
+            for q, t in qs[:16]]
+    out += [("10-12 terms", 0, lex(q, "Union")) for q in
+            _long_queries(16, np.random.default_rng(5))]
+    out += [("facet2", 0, r) for r in facet_requests(st, "facet2", 64)]
+    out += [("geosort", 0, r) for r in facet_requests(st, "geosort", 64)]
+    out += [("field_filter", 0, lex(q, t, field_filter=["body"]))
+            for q, t in qs[:32]]
+    qv = vec["queries"][:SRV_VEC]
+    out += [("vector All", 1, r) for r in _vec_reqs(st, qv)]
+    out += [("vector Nprobe 16", 1, r)
+            for r in _vec_reqs(st, qv, "Nprobe", 16)]
+    out += [("v2 binary", 1, v.astype("<f4")) for v in qv]
+    out += [("hybrid", 1, r) for r in _vec_reqs(
+        st, qv, queries=bench.make_queries(SRV_VEC,
+                                           np.random.default_rng(100)))]
+    return out
+
+
+def _v2_request(st, v):
+    """The request the server's /v2 endpoint builds (app.py _v2_query)."""
+    import numpy as np
+
+    return st.SearchRequest(
+        search_mode=st.SearchMode.Vector,
+        query_vector=np.frombuffer(v.tobytes(), dtype="<f4").tolist(),
+        length=10, ann_mode="Nprobe", nprobe=15,
+        result_type=st.ResultType.Topk)
+
+
+def _launch_counts(base_url):
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(base_url + "/metrics") as r:
+        text = r.read().decode()
+    got = {f"k{k}": 0.0 for k in range(1, 5)}
+    for m in re.finditer(r"^seekstorm_(k[1-4])_launches_total (\S+)$", text,
+                         re.M):
+        got[m.group(1)] = float(m.group(2))
+    return got
+
+
+def _boot_server(root):
+    """The port's server on the card as a subprocess: (process, port,
+    stdout lines so far).  A thread drains its stdout into the list."""
+    import re
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seekstorm_tpu_torch.server",
+         f"index_path={root}", "local_ip=127.0.0.1", "local_port=0",
+         "device=cuda", "--no-console"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+
+    def drain():
+        for ln in proc.stdout:
+            lines.append(ln)
+
+    threading.Thread(target=drain, daemon=True).start()
+    deadline = time.time() + 300
+    port = None
+    while port is None and time.time() < deadline and proc.poll() is None:
+        time.sleep(0.2)
+        for ln in list(lines):
+            m = re.search(r"listening on http://127\.0\.0\.1:(\d+)", ln)
+            if m:
+                port = int(m.group(1))
+    if port is None:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("check failed: the server did not start: "
+                           + "".join(lines[-20:]))
+    return proc, port, lines
+
+
+def _compute_apps():
+    """The compute processes nvidia-smi lists: [(pid, used memory)]."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    return [tuple(x.strip() for x in ln.split(","))
+            for ln in out.strip().splitlines() if ln.strip()]
+
+
+def _device_files(pid):
+    """The NVIDIA device files process `pid` holds open."""
+    out = set()
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            target = os.readlink(fd)
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_server(torch, st, card, vec, lex_path=WORK / "index"):
+    """The port's server (python -m seekstorm_tpu_torch.server device=cuda)
+    over phase 4's and phase 11's committed indexes, driven over REST from
+    8 client threads and held against this process's answers on the card."""
+    import concurrent.futures as cf
+    import types
+
+    import numpy as np
+
+    import bench
+    from seekstorm_tpu_torch.api_types import (result_set_to_json,
+                                               search_request_from_json)
+    from seekstorm_tpu_torch.client import RestClient
+    from seekstorm_tpu_torch.server import tenancy
+
+    t_phase = time.perf_counter()
+    root = WORK / "server_root"
+    shutil.rmtree(root, ignore_errors=True)
+    key = tenancy.generate_apikey()
+    ak = tenancy.ApikeyObject(apikey_hash=tenancy.hash_apikey(key),
+                              quota=tenancy.ApikeyQuota())
+    ak.save(root)
+    # copies, never links: the server commits its indexes when it stops
+    for iid, src in ((0, lex_path), (1, vec["path"])):
+        subprocess.run(["cp", "-r", str(src), str(root / ak.apikey_hash
+                                                  / str(iid))], check=True)
+    apps0 = _compute_apps()
+    t0 = time.perf_counter()
+    proc, port, lines = _boot_server(root)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        client = RestClient(base, key)
+        check(client.live() == {"status": "ok"}, "the server is live")
+        info = client.get_apikey_indices()
+        check(info["0"]["indexed_doc_count"] == N_DOCS
+              and info["1"]["indexed_doc_count"] == N_VEC,
+              f"the server opened both committed indexes: {info}")
+        print(f"[server] pid {proc.pid} on port {port}, device "
+              f"{[ln.split()[-1] for ln in lines if ln.startswith('device')]}"
+              f", both indexes open in {time.perf_counter() - t0:.1f} s")
+        launches0 = _launch_counts(base)
+
+        # the same uncommitted tails as phases 4 and 11, in the same order
+        tail = _add_facets(
+            bench.make_corpus(N_TAIL, 30_000, np.random.default_rng(8)),
+            np.random.default_rng(9))
+        t = time.perf_counter()
+        ids0 = client.index_documents(0, tail)
+        ids1 = client.index_documents(1, vec["tail"])
+        check(ids0 == list(range(N_DOCS, N_DOCS + N_TAIL))
+              and ids1 == list(range(N_VEC, N_VEC + N_VEC_TAIL)),
+              "the tails take the ids they take in process")
+        print(f"[server] POST {N_TAIL} + {N_VEC_TAIL} uncommitted docs: "
+              f"{time.perf_counter() - t:.1f} s")
+
+        reqs = _server_requests(st, vec)
+        for cls, _, r in reqs:
+            if not isinstance(r, np.ndarray):
+                check(search_request_from_json(_wire(st, r))[0] == r,
+                      f"{cls}: the JSON body is the phase's request")
+
+        def send(i):
+            cls, iid, r = reqs[i]
+            t = time.perf_counter()
+            if isinstance(r, np.ndarray):
+                got = client.query_binary(iid, r)
+            else:
+                got = client.query(iid, _wire(st, r))
+            return i, got, time.perf_counter() - t
+
+        # first requests of every class at once: the first-use builds
+        # (WAND state, dense arrays, facet runtime, the vector index's
+        # global re-cluster and upload) race and run once
+        first = {}
+        for i, (cls, _, _) in enumerate(reqs):
+            first.setdefault(cls, i)
+        t = time.perf_counter()
+        with cf.ThreadPoolExecutor(N_SRV_THREADS) as ex:
+            list(ex.map(send, first.values()))
+        warm_s = time.perf_counter() - t
+        order = np.random.default_rng(3).permutation(len(reqs))
+        answers, lat = {}, {}
+        t = time.perf_counter()
+        with cf.ThreadPoolExecutor(N_SRV_THREADS) as ex:
+            for i, got, dt in ex.map(send, order.tolist()):
+                answers[i] = got
+                lat.setdefault(reqs[i][0], []).append(dt)
+        traffic_s = time.perf_counter() - t
+        # the top-10 class again from one client thread: what 8 threads
+        # change in the latency and the rate
+        t = time.perf_counter()
+        one = [send(i)[2] * 1e3 for i, (cls, _, _) in enumerate(reqs)
+               if cls == "topk"]
+        one_s = time.perf_counter() - t
+        launches1 = _launch_counts(base)
+        # nvidia-smi lists processes by their pid in the host's namespace
+        # (in a container it may show another number), so the server is
+        # found as the one more compute process it lists while the server
+        # runs, and by the NVIDIA device files the server's pid holds open
+        apps1 = _compute_apps()
+        devs = _device_files(proc.pid)
+        print(f"[server] nvidia-smi compute apps (pid, used memory) before "
+              f"the server {apps0}, with it {apps1}; the server's pid "
+              f"{proc.pid} holds {devs}")
+        check(str(proc.pid) in [a[0] for a in apps1]
+              or len(apps1) == len(apps0) + 1,
+              "nvidia-smi lists the server as a compute process")
+        check(any(d.startswith("/dev/nvidia") and d[11:].isdigit()
+                  for d in devs), "the server process holds the card open")
+        delta = {k: launches1[k] - launches0[k] for k in launches1}
+        print(f"[server] first request of each of {len(first)} classes at "
+              f"once: {warm_s:.2f} s; {len(reqs)} requests from "
+              f"{N_SRV_THREADS} threads: {traffic_s:.2f} s "
+              f"({len(reqs) / traffic_s:.1f} requests/s); kernel launches "
+              f"in the server process: "
+              + ", ".join(f"{k.upper()} {int(v)}" for k, v in delta.items()))
+        print(f"[server] topk x {len(one)} again from 1 client thread: "
+              f"{len(one) / one_s:.1f} requests/s, client latency p50 "
+              f"{_pct(one, 0.5):.2f} ms, p99 {_pct(one, 0.99):.2f} ms")
+        check(all(v > 0 for v in delta.values()),
+              f"K1, K2, K3 and K4 each launched in the server: {delta}")
+
+        # the REST write flow of tests/test_server.py's lexical roundtrip
+        t = time.perf_counter()
+        iid = client.create_index({
+            "index_name": "flow", "schema": [
+                {"field": "title", "field_type": "Text", "store": True,
+                 "index_lexical": True, "boost": 10.0},
+                {"field": "body", "field_type": "Text", "store": True,
+                 "index_lexical": True},
+                {"field": "year", "field_type": "U16", "store": True,
+                 "facet": True}]})
+        flow = [{"title": f"w{i % 7:05d} w{i % 11:05d}",
+                 "body": f"w{i % 13:05d} text", "year": 2000 + i % 20}
+                for i in range(1000)]
+        check(client.index_documents(iid, flow) == list(range(1000)),
+              "the write flow's ids")
+        client.commit_index(iid)
+        r = client.query(iid, {"query": "w00003", "query_type_default":
+                               "Union", "length": 1000,
+                               "query_facets": [{"field": "year",
+                                                 "length": 20}]})
+        want = [i for i, d in enumerate(flow) if "w00003" in
+                d["title"] + " " + d["body"]]
+        check(r["count_total"] == len(want)
+              and sorted(x["_id"] for x in r["results"]) == want,
+              "the write flow's query finds every doc with the term")
+        check(sum(c for _, c in r["facets"]["year"]) == len(want),
+              "the write flow's year counts sum to its count")
+        check(client.get_document(iid, 5) == flow[5], "get a doc")
+        check(client.update_document(iid, 5, {"title": "updated w00003",
+                                              "body": "x", "year": 1999})
+              == 1000, "an update takes a new id")
+        n_del = client.delete_documents_by_query(
+            iid, {"query": "w00003", "query_type_default": "Union",
+                  "realtime": True})["deleted"]
+        after = client.query(iid, {"query": "w00003", "realtime": True,
+                                   "query_type_default": "Union"})
+        check(n_del == len(want) + 1 and after["count_total"] == 0,
+              f"delete by query removed {n_del} docs, "
+              f"{after['count_total']} left")
+        check(client.query(iid, {"query": "w00004", "realtime": True,
+                                 "query_type_default": "Union",
+                                 "length": 1000})["count_total"]
+              == sum("w00004" in d["title"] + " " + d["body"]
+                     for i, d in enumerate(flow) if i != 5
+                     and "w00003" not in d["title"] + " " + d["body"]),
+              "the count of another term drops by its deleted docs")
+        print(f"[server] REST write flow (create, 1,000 docs, commit, "
+              f"query, get, update, delete by query {n_del}): "
+              f"{time.perf_counter() - t:.1f} s")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    shutil.rmtree(root, ignore_errors=True)
+    for _ in range(20):          # a context goes shortly after its process
+        apps2 = _compute_apps()
+        if len(apps2) == len(apps0):
+            break
+        time.sleep(0.5)
+    print(f"[server] stopped; nvidia-smi compute apps {apps2}")
+    check(len(apps2) == len(apps0), "the server's context is gone")
+
+    # this process's answers on the card: a fresh open of phase 4's
+    # committed index with the same tail, and phase 11's index
+    t = time.perf_counter()
+    lex = st.open_index(lex_path, device="cuda")
+    lex.index_documents(tail)
+    vidx = vec["idx"]
+    mism, approx, alone = {}, {}, {}
+    for i, (cls, iid, r) in enumerate(reqs):
+        ix = lex if iid == 0 else vidx
+        t1 = time.perf_counter()
+        if isinstance(r, np.ndarray):
+            req = _v2_request(st, r)
+            mine = [x.doc_id for x in st.search(ix, req, "cuda").results]
+            alone.setdefault(cls, []).append(time.perf_counter() - t1)
+            approx.setdefault(cls, []).append((answers[i], mine))
+            continue
+        rs = st.search(ix, r, "cuda")
+        alone.setdefault(cls, []).append(time.perf_counter() - t1)
+        if cls == "vector Nprobe 16":
+            approx.setdefault(cls, []).append(
+                ([x["_id"] for x in answers[i]["results"]],
+                 [x.doc_id for x in rs.results]))
+            continue
+        a = dict(answers[i])
+        b = result_set_to_json(rs, r, r.query)
+        a.pop("time")
+        b.pop("time")
+        ra, rb = a.pop("results"), b.pop("results")
+        ok = (a == b and [x["_id"] for x in ra] == [x["_id"] for x in rb]
+              and all(abs(x["_score"] - y["_score"]) <= PAGE_RTOL * max(
+                  abs(x["_score"]), abs(y["_score"]), 1e-9)
+                      for x, y in zip(ra, rb)))
+        if not ok:
+            mism.setdefault(cls, []).append(i)
+    print(f"[server] in-process answers on the card, one request at a "
+          f"time: {time.perf_counter() - t:.1f} s")
+    print("[server] in-process, 64 top-10 requests one at a time:")
+    topk = [r for cls, _, r in reqs if cls == "topk"][:64]
+    _profile(lambda: [st.search(lex, r, "cuda") for r in topk])
+    for cls in dict.fromkeys(c for c, _, _ in reqs):
+        xs = [x * 1e3 for x in lat[cls]]
+        extra = ""
+        if cls in approx:
+            pairs = approx[cls]
+            n_diff = sum(a != b for a, b in pairs)
+
+            def as_rs(ids):
+                return types.SimpleNamespace(results=[
+                    types.SimpleNamespace(doc_id=d) for d in ids])
+            r_srv = vec["recall"]([as_rs(a) for a, _ in pairs])
+            r_mine = vec["recall"]([as_rs(b) for _, b in pairs])
+            extra = (f"; pages differing from in-process {n_diff}, recall@10 "
+                     f"server {r_srv:.4f} in-process {r_mine:.4f}")
+            check(abs(r_srv - r_mine) <= 0.005,
+                  f"{cls}: server recall {r_srv:.4f} vs {r_mine:.4f}")
+        else:
+            extra = f"; equal to in-process {len(xs) - len(mism.get(cls, []))}"
+        print(f"[server] {cls} x {len(xs)}: client latency p50 "
+              f"{_pct(xs, 0.5):.2f} ms, p99 {_pct(xs, 0.99):.2f} ms "
+              f"(in process alone: p50 "
+              f"{_pct([x * 1e3 for x in alone[cls]], 0.5):.2f} ms){extra}")
+    check(not mism, f"server answers differ from in-process: "
+          + ", ".join(f"{c}: {v[:5]}" for c, v in mism.items()))
+    secs = time.perf_counter() - t_phase
+    print(f"[server] phase 12: {secs:.1f} s on {card}")
+    del lex
+    return dict(launches={k: int(v) for k, v in delta.items()}, seconds=secs)
 
 
 def main() -> int:
@@ -2180,7 +2621,7 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     import seekstorm_tpu_torch as st
 
-    phase_card(torch)
+    card = phase_card(torch)
     phase_build()
     k1 = phase_k1(torch)
     idx = phase_index(st)
@@ -2191,12 +2632,15 @@ def main() -> int:
     k3 = phase_k3(torch, st, idx)
     faceted = phase_facets(torch, st, idx)
     tf = phase_tf(torch, st, idx)
-    shutil.rmtree(WORK / "index", ignore_errors=True)
+    # the index's committed files stay for phase 12; its device state goes
     del idx
     gc.collect()
     torch.cuda.empty_cache()
     k4 = phase_k4(torch)
     vec = phase_vector(torch, st)
+    srv = phase_server(torch, st, card, vec["served"])
+    shutil.rmtree(WORK / "index", ignore_errors=True)
+    shutil.rmtree(vec.pop("served")["path"], ignore_errors=True)
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")],
           "jax or the JAX package was imported")
@@ -2207,7 +2651,9 @@ def main() -> int:
     # read right after its batch; K4's times are those at the serving shape
     # (B=64, 1M rows, i8) and its launches those of phase 11's vector
     # batches on the card; no single PyTorch call computes K1's or K2's
-    # function (library_ms null), K4's yardstick is a matmul and topk
+    # function (library_ms null), K4's yardstick is a matmul and topk;
+    # server_launches are each kernel's launches in phase 12's server
+    # process, read from its /metrics before and after the traffic
     k1_main = served["k1"]
     print(f"[summary] vector recall@10 on {vec['n_queries']} queries: "
           + ", ".join(f"{tag} {r:.4f}" for tag, r in vec["recall"].items())
@@ -2224,6 +2670,7 @@ def main() -> int:
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
+        "server_launches": srv["launches"]["k1"],
     }, {
         "name": "dense_scan_cuda",
         "route": "cuda",
@@ -2237,6 +2684,7 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+        "server_launches": srv["launches"]["k2"],
     }, {
         "name": "facet_hist_cuda",
         "route": "cuda",
@@ -2250,6 +2698,7 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+        "server_launches": srv["launches"]["k3"],
     }, {
         "name": "vector_scan_cuda",
         "route": "cuda",
@@ -2262,6 +2711,7 @@ def main() -> int:
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+        "server_launches": srv["launches"]["k4"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -234,14 +234,15 @@ class FacetRuntime:
 
 def get_runtime(index) -> FacetRuntime:
     """The index's FacetRuntime, rebuilt after an ingest, commit or
-    delete."""
-    from .ops.wand import _signature
+    delete; concurrent first callers build it once."""
+    from .ops.wand import _signature, index_lock
 
     sig = (_signature(index), tuple(sh.doc_count for sh in index.shards))
-    hit = index.__dict__.get("_torch_facet_runtime")
-    if hit is None or hit[0] != sig:
-        hit = index.__dict__["_torch_facet_runtime"] = (
-            sig, FacetRuntime(index))
+    with index_lock(index, "_torch_facet_lock"):
+        hit = index.__dict__.get("_torch_facet_runtime")
+        if hit is None or hit[0] != sig:
+            hit = index.__dict__["_torch_facet_runtime"] = (
+                sig, FacetRuntime(index))
     return hit[1]
 
 

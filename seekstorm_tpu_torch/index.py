@@ -5,7 +5,8 @@ The port's copy of ``seekstorm_tpu/index.py``: the same on-disk format, byte
 for byte.  What differs: an index is bound to a torch device (``device=`` of
 ``create_index``/``open_index``, default ``"cuda"``), on which commit's
 frequent-word warmup runs through the port's ``search_batch``;
-``precompile`` is gone (PyTorch compiles nothing per shape);
+``precompile`` is gone (PyTorch compiles nothing per shape); a delete during
+commit's warmup leaves the warmup cache empty instead of stale (``warmup``);
 ``attach_mesh`` (A.9) raises NotImplementedError.  A vector index's
 commit-time clustering runs on the index's device.
 
@@ -549,6 +550,9 @@ class Index:
         )
         self._native_cfg = None
         self._facet_tab_lock = threading.Lock()
+        # orders a delete's reset of the warmup cache against a commit's
+        # install of it (see warmup)
+        self._warm_lock = threading.Lock()
         # Bm25f scores n-gram postings with per-constituent tfs/idfs
         # (reference add_result.rs:868-915); Bm25fProximity scores the
         # n-gram as a single term with its own idf (add_result.rs:917-919)
@@ -920,7 +924,8 @@ class Index:
         if local < shard.doc_count:
             shard.deleted.add(local)
             shard._dev = None
-            self._warmup_cache = {}
+            with self._warm_lock:
+                self._warmup_cache = {}
             self._save_deletes(shard)
 
     def delete_documents(self, ids: list[int]) -> None:
@@ -932,7 +937,8 @@ class Index:
                 shard.deleted.add(local)
                 touched.add(shard.shard_id)
         if touched:
-            self._warmup_cache = {}
+            with self._warm_lock:
+                self._warmup_cache = {}
             for sid in touched:
                 self.shards[sid]._dev = None
                 self._save_deletes(self.shards[sid])
@@ -1379,9 +1385,13 @@ class Index:
         caches `facets` alongside the result page, index.rs:4035-4050),
         served to single-term queries, faceted or not, without a device
         dispatch.  Runs through the port's search_batch on the index's
-        device."""
+        device.  A delete while it runs leaves the cache empty: the pages
+        it computed may hold the deleted doc."""
+        from .ops.wand import _signature
         from .search import (QueryFacet, ResultType, SearchRequest,
                              search_batch)
+
+        sig = _signature(self)
 
         present = []
         for w in sorted(self._frequent_words):
@@ -1413,8 +1423,10 @@ class Index:
                     rs.result_count_total,
                     dict(rs.facets),
                 )
-        self._warmup_cache = cache
-        self._warmup_k = k
+        with self._warm_lock:
+            if _signature(self) == sig:
+                self._warmup_k = k
+                self._warmup_cache = cache
 
     # ------------------------------------------------------------------
     def attach_mesh(self, mesh=None) -> None:

@@ -7,12 +7,21 @@ repository's `native/` sources on first use.  The build never runs the
 table generators (`native/gen_*.py` import the JAX package): it compiles
 from the generated headers the repository tracks, and raises when one of
 them is missing.
+
+Several processes may need the library at once (test workers, a server
+beside a script), and the JAX package's loader may run `make` in `native/`
+at the same time.  So the port builds under a file lock, in a private copy
+of the sources, and moves the finished library into `native/` in one
+rename; a build that fails is retried, and a library another process
+finished meanwhile is taken (see build_library).
 """
 
 from __future__ import annotations
 
 import ctypes as C
 import os
+import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -109,21 +118,61 @@ def make_command(native_dir: Path) -> list[str]:
             + ["libseekstorm_native.so"])
 
 
+_SOURCES = ("Makefile", "seekstorm_native.cpp", "snowball.cpp",
+            "light_stemmers.cpp") + _TABLES
+_LIB_NAME = "libseekstorm_native.so"
+
+
+def build_library(native_dir: Path) -> Path | None:
+    """`native_dir`'s library, built first if it is missing; None if it
+    cannot be built.
+
+    Callers in the port exclude each other by a lock file beside the
+    sources, so the library is built once.  The build runs make_command in
+    a private copy of the sources and renames the result into place, so it
+    never shares the Makefile's temporary output with a concurrent `make`
+    in `native_dir` (the JAX package's loader runs one).  A failed build is
+    retried: a header read while that `make` regenerated it fails one
+    compile, not the process's library for good."""
+    import fcntl
+    import subprocess
+    import tempfile
+
+    out = native_dir / _LIB_NAME
+    if out.exists():
+        return out
+    with open(native_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for attempt in range(3):
+            if out.exists():
+                return out
+            if attempt:
+                time.sleep(1.0)
+            with tempfile.TemporaryDirectory(dir=native_dir,
+                                             prefix=".build-") as tmp:
+                work = Path(tmp)
+                for f in _SOURCES:
+                    if (native_dir / f).exists():
+                        shutil.copy2(native_dir / f, work / f)
+                try:
+                    subprocess.run(make_command(work), check=True,
+                                   capture_output=True, timeout=300)
+                    os.replace(work / _LIB_NAME, out)
+                except (OSError, subprocess.SubprocessError):
+                    continue
+            return out
+    return out if out.exists() else None
+
+
 def _find_lib() -> Path | None:
     env = os.environ.get("SEEKSTORM_TPU_NATIVE_LIB")
     if env:
         return Path(env)
     here = Path(__file__).resolve().parent.parent / "native"
-    p = here / "libseekstorm_native.so"
-    if not p.exists() and (here / "seekstorm_native.cpp").exists():
-        # build on first use (the binary is not checked in)
-        import subprocess
-
-        cmd = make_command(here)
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        except (OSError, subprocess.SubprocessError):
-            return None
+    if (here / "seekstorm_native.cpp").exists():
+        # built on first use (the binary is not checked in)
+        return build_library(here)
+    p = here / _LIB_NAME
     return p if p.exists() else None
 
 

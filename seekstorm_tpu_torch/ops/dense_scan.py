@@ -40,8 +40,11 @@ words u32 bit patterns in int32 (torch has no u32 shifts on the CPU).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..metrics import METRICS
 from ..plan import FLAG_NEG, FLAG_REQ
 from ..schema import BLOCK_SIZE
 from .wand_scan import _check
@@ -62,6 +65,16 @@ TOPK_BUCKETS = BLOCK_SIZE // CHUNK
 # launches of K2, in either mode, since the last reset (the count a run
 # reads to show that its dense path went through the kernel)
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more K2 launch: in LAUNCHES and in METRICS' k2_launches_total
+    (a server's /metrics shows which kernels its requests ran)."""
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    METRICS.inc("k2_launches_total")
 
 _BIT = torch.arange(32, dtype=torch.int32)
 
@@ -202,7 +215,6 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
                     with_matched: bool = False):
     """K2's unfused mode on CUDA tensors: same contract as
     dense_scan_ref."""
-    global LAUNCHES
     from .. import _build
 
     ins = (docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq, s_off,
@@ -214,7 +226,7 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
         if with_matched else None
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
+    _count_launch()
     err = lib.dense_scan_launch(*_pointers(*ins), P, T, out.data_ptr(),
                                 cnt.data_ptr(),
                                 mwords.data_ptr() if with_matched else None,
@@ -334,7 +346,6 @@ def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     contract as dense_topk_ref.  split: CTAs a pair (a cluster), one of
     SPLITS; by default SMALL_SPLIT below SPLIT_BELOW_SMS pairs an SM,
     else 1."""
-    global LAUNCHES
     from .. import _build
 
     _check_kk(kk)
@@ -353,7 +364,7 @@ def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
         if with_matched else None
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
+    _count_launch()
     err = lib.dense_topk_launch(*_pointers(*ins), P, T, kk, split,
                                 vals.data_ptr(), docs.data_ptr(),
                                 cnt.data_ptr(),

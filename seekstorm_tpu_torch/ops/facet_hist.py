@@ -21,8 +21,11 @@ with the pair list's blocks and rows.  The pairs may come in any order.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..metrics import METRICS
 from ..schema import BLOCK_SIZE
 from .dense_scan import unpack_words
 from .wand_scan import NW, _check
@@ -33,6 +36,16 @@ REF_CHUNK = 256
 # launches of K3 since the last reset (the count a run reads to show that
 # its faceted batches went through the kernel)
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more K3 launch: in LAUNCHES and in METRICS' k3_launches_total
+    (a server's /metrics shows which kernels its requests ran)."""
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    METRICS.inc("k3_launches_total")
 
 
 def wand_pairs(n_rows: int, nblk: int, device):
@@ -68,7 +81,6 @@ def facet_hist_ref(mwords, p_blk, p_row, codes, fcm: int, n_rows: int):
 
 def facet_hist_cuda(mwords, p_blk, p_row, codes, fcm: int, n_rows: int):
     """K3 on CUDA tensors: same contract as facet_hist_ref."""
-    global LAUNCHES
     from .. import _build
 
     dev = mwords.device
@@ -93,7 +105,7 @@ def facet_hist_cuda(mwords, p_blk, p_row, codes, fcm: int, n_rows: int):
     out = torch.zeros((NF, n_rows, fcm), dtype=torch.int32, device=dev)
     lib = _build.load("facet_hist")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
+    _count_launch()
     err = lib.facet_hist_launch(
         mwords.data_ptr(), p_blk.data_ptr(), p_row.data_ptr(),
         codes.data_ptr(), ncode // BLOCK_SIZE, P, NF, fcm, n_rows,

@@ -33,6 +33,7 @@ is the same either way (2*dots is exact).
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -44,18 +45,29 @@ from .dense_scan import _sort_desc, fma32
 REF_ROWS = 1 << 22
 
 
+_F32 = {"lock": threading.Lock(), "depth": 0, "prev": False}
+
+
 @contextlib.contextmanager
 def full_f32():
     """float32 matmuls in full float32 on CUDA (TF32 off) inside the block.
     The reference asks ``Precision.HIGHEST`` (its ops/vector.py:37-47): a
     product in fewer mantissa bits flips near-tie ranks, and the f32 scan
-    and the medoid scores exist for exact scoring."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    and the medoid scores exist for exact scoring.  The switch is global to
+    the process, so blocks of several threads nest: TF32 stays off until
+    the last of them ends, and then gets its earlier setting back."""
+    with _F32["lock"]:
+        if _F32["depth"] == 0:
+            _F32["prev"] = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _F32["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _F32["lock"]:
+            _F32["depth"] -= 1
+            if _F32["depth"] == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _F32["prev"]
 
 
 def _dots(q_data, rows, quantized: bool):

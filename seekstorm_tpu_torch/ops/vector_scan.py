@@ -17,8 +17,11 @@ One call is one K4 launch in ``LAUNCHES``, whatever it enqueues.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..metrics import METRICS
 from ..utils import ceil_pow2
 from .wand_scan import _check
 
@@ -30,6 +33,16 @@ MERGE_SMEM_P = 4096     # largest running top-P the merge keeps on chip
 # launches of K4 (scan and merge together) since the last reset (the count
 # a run reads to show that its vector batches went through the kernel)
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more K4 launch: in LAUNCHES and in METRICS' k4_launches_total
+    (a server's /metrics shows which kernels its requests ran)."""
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    METRICS.inc("k4_launches_total")
 
 
 def n_ranges(NT: int, B: int, k: int, n_sm: int) -> int:
@@ -49,7 +62,6 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
                      quantized: bool, euclidean: bool, with_counts: bool,
                      exhaustive: bool, use_field_filter: bool):
     """K4 on CUDA tensors: same contract as vector_scan_ref."""
-    global LAUNCHES
     from .. import _build
 
     dev = data.device
@@ -111,7 +123,7 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
     lib = _build.load("vector_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
+    _count_launch()
     err = lib.vector_scan_launch(
         data.data_ptr(), r_scale.data_ptr(), r_zp.data_ptr(),
         r_qsum.data_ptr(), r_norm2.data_ptr(), row_docid.data_ptr(),

@@ -672,15 +672,22 @@ def _signature(index) -> _Signature:
     return _Signature(index)
 
 
+def index_lock(index, name: str) -> threading.Lock:
+    """The lock `name` of `index`, made on first use (dict.setdefault is
+    atomic, so concurrent first callers get the same lock)."""
+    return index.__dict__.setdefault(name, threading.Lock())
+
+
 def get_state(index, device) -> WandState:
     """The index's WandState on `device`, rebuilt after a commit or
-    delete."""
+    delete; concurrent first callers build it once."""
     device = torch.device(device)
-    states = index.__dict__.setdefault("_torch_wand_states", {})
     sig = _signature(index)
-    hit = states.get(str(device))
-    if hit is None or hit[0] != sig:
-        hit = states[str(device)] = (sig, WandState(index, device))
+    with index_lock(index, "_torch_wand_lock"):
+        states = index.__dict__.setdefault("_torch_wand_states", {})
+        hit = states.get(str(device))
+        if hit is None or hit[0] != sig:
+            hit = states[str(device)] = (sig, WandState(index, device))
     return hit[1]
 
 

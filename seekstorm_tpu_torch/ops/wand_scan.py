@@ -35,8 +35,11 @@ every shift is masked.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..metrics import METRICS
 from ..schema import BLOCK_SIZE
 
 NW = BLOCK_SIZE // 32          # words (32-doc buckets) per 64K-doc block
@@ -45,6 +48,16 @@ T_TIERS = (2, 4, 8)            # slot-column counts K1 is compiled for
 # launches of K1 since the last reset (the count a run reads to show that
 # its main path went through the kernel)
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more K1 launch: in LAUNCHES and in METRICS' k1_launches_total
+    (a server's /metrics shows which kernels its requests ran)."""
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    METRICS.inc("k1_launches_total")
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -167,7 +180,6 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
                    wshard, sid, *, with_counts: bool = True,
                    with_matched: bool = False):
     """K1 on CUDA tensors: same contract as scan_blocks_ref."""
-    global LAUNCHES
     from .. import _build
 
     dev = ppool.device
@@ -203,7 +215,7 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
         if with_matched else None
     lib = _build.load("wand_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
+    _count_launch()
     err = lib.wand_scan_launch(
         ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
         delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,

@@ -28,12 +28,14 @@ where a shard has none) and the dense-term rows ``dense_tf`` u16 bits
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from ..ops import lexical as lex_ops
 from ..ops.dense_scan import NWORDS
-from ..ops.wand import _signature
+from ..ops.wand import _signature, index_lock
 from ..schema import BLOCK_SIZE
 
 
@@ -51,6 +53,7 @@ class StackedIndex:
         self.device = torch.device(device)
         self._aux: dict = {}
         self._tf = None         # the tf arrays, uploaded on first use
+        self._tf_lock = threading.Lock()
         self.build()
 
     def aux_device(self, key, make):
@@ -124,18 +127,23 @@ class StackedIndex:
     def ensure_tf(self):
         """Upload the tf arrays on first use (the reference's _tf_arrays
         and _ensure_tf): (pl_docid, pl_tf, dense_tf, comp) on this device,
-        with each shard's posting and dense-row base."""
-        if self._tf is not None:
+        with each shard's posting and dense-row base.  Concurrent first
+        callers upload once, and the bases are set before the arrays."""
+        with self._tf_lock:
+            if self._tf is None:
+                self._tf = self._upload_tf()
             return self._tf
+
+    def _upload_tf(self):
         F = max(len(self.index.indexed_fields), 1)
         docid, tf, dense = [], [], []
         comp = np.ones((self.nblk * BLOCK_SIZE, F), np.float32)
-        self.tf_post_base, self.tf_dense_base = [], []
+        post_base, dense_base = [], []
         npost = ndense = 0
         for s, sh in enumerate(self.index.shards):
             lex = sh.lexical
-            self.tf_post_base.append(npost)
-            self.tf_dense_base.append(ndense)
+            post_base.append(npost)
+            dense_base.append(ndense)
             if lex.pl_docid is not None and len(lex.pl_docid):
                 docid.append(np.asarray(lex.pl_docid, np.uint16))
                 tf.append(np.asarray(lex.pl_tf, np.uint16).reshape(-1, F))
@@ -147,13 +155,14 @@ class StackedIndex:
             if lex.dense_tf is not None and len(lex.dense_tf):
                 dense.append(np.asarray(lex.dense_tf, np.uint16))
                 ndense += len(lex.dense_tf)
+        self.tf_post_base, self.tf_dense_base = post_base, dense_base
         self.n_tf_postings = npost
         self.n_tf_dense = ndense
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-        self._tf = (
+        return (
             put(np.concatenate(docid).view(np.int16) if docid
                 else np.zeros(1, np.int16)),
             put(np.concatenate(tf).view(np.int16) if tf
@@ -161,7 +170,6 @@ class StackedIndex:
             put(np.concatenate(dense).view(np.int16) if dense
                 else np.zeros((1, BLOCK_SIZE, F), np.int16)),
             put(comp))
-        return self._tf
 
     def pair_tables(self, plans):
         """The shards' pair lists in one global layout (numpy), shard-major:
@@ -274,11 +282,13 @@ class StackedIndex:
 
 def get_stacked(index, device) -> StackedIndex:
     """The index's StackedIndex on `device`, rebuilt after a commit or
-    delete (keyed on ops/wand._signature, as the WAND state is)."""
+    delete (keyed on ops/wand._signature, as the WAND state is);
+    concurrent first callers build it once."""
     device = torch.device(device)
-    states = index.__dict__.setdefault("_torch_dense_states", {})
     sig = _signature(index)
-    hit = states.get(str(device))
-    if hit is None or hit[0] != sig:
-        hit = states[str(device)] = (sig, StackedIndex(index, device))
+    with index_lock(index, "_torch_dense_lock"):
+        states = index.__dict__.setdefault("_torch_dense_states", {})
+        hit = states.get(str(device))
+        if hit is None or hit[0] != sig:
+            hit = states[str(device)] = (sig, StackedIndex(index, device))
     return hit[1]

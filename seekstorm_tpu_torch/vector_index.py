@@ -4,8 +4,10 @@ persist), and the device tensors.
 The port's copy of ``seekstorm_tpu/vector_index.py``, with the same files
 on disk.  What differs: clustering runs on a torch device (the index's at
 commit, the searching one at the device build), the device tensors are
-torch tensors uploaded in one piece and cached per device, and the
-mesh-stacked build (``device_stacked``) is not ported (ROADMAP A.9).
+torch tensors uploaded in one piece and cached per device and shard (built
+once under the shard's lock, so concurrent first searches re-cluster and
+upload once), and the mesh-stacked build (``device_stacked``) is not ported
+(ROADMAP A.9).
 
 Mirrors the reference's vector core storage (reference seekstorm/src/
 vector.rs:34-1100 — VectorHeader SoA, per-level cluster layout with
@@ -23,6 +25,7 @@ medoid-first records) restated as fixed-layout numpy/HBM tensors:
 from __future__ import annotations
 
 import json
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -72,6 +75,9 @@ class ShardVectors:
         self.level0: list[tuple[int, int, int, np.ndarray]] = []
         self.levels: list[VecLevel] = []
         self._dev: dict = {}      # torch device -> device tensors
+        # held while the device tensors are built and while a reload swaps
+        # the levels and drops the cache
+        self._dev_lock = threading.Lock()
 
 
 class IndexVectors:
@@ -180,7 +186,7 @@ class IndexVectors:
 
     def reload_shard(self, shard) -> None:
         sv = self.shards[shard.shard_id]
-        sv.levels = []
+        levels = []
         n_levels = shard.full_levels + (1 if shard.partial_on_disk else 0)
         for i in range(n_levels):
             lp = shard.path / f"level_{i}"
@@ -188,7 +194,7 @@ class IndexVectors:
                 continue
             with open(lp / "vec.json") as f:
                 meta = json.load(f)
-            sv.levels.append(
+            levels.append(
                 VecLevel(
                     data=np.load(lp / "vec_data.npy"),
                     scale=np.load(lp / "vec_scale.npy"),
@@ -203,7 +209,9 @@ class IndexVectors:
                     clustered=meta["clustered"],
                 )
             )
-        sv._dev = {}
+        with sv._dev_lock:
+            sv.levels = levels
+            sv._dev = {}
 
     def load(self) -> None:
         for shard in self.index.shards:
@@ -362,17 +370,18 @@ class IndexVectors:
 
     def device(self, shard, device) -> dict:
         """Per-shard tensors on `device` for the committed vectors, built
-        and uploaded once a device, and again after the shard reloads."""
+        and uploaded once a device, and again after the shard reloads.
+        Concurrent first calls build once: the rest wait for it."""
         sv = self.shards[shard.shard_id]
         dev = torch.device(device)
-        cached = sv._dev.get(dev)
-        if cached is not None:
-            return cached
-        h = self._host_arrays(shard, dev)
-        sv._dev[dev] = out = {
-            k: torch.from_numpy(np.ascontiguousarray(h[k])).to(dev)
-            if k in self._DEV_KEYS else h[k] for k in h}
-        return out
+        with sv._dev_lock:
+            out = sv._dev.get(dev)
+            if out is None:
+                h = self._host_arrays(shard, dev)
+                sv._dev[dev] = out = {
+                    k: torch.from_numpy(np.ascontiguousarray(h[k])).to(dev)
+                    if k in self._DEV_KEYS else h[k] for k in h}
+            return out
 
     def device_stacked(self, mesh):
         raise NotImplementedError(

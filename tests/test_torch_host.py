@@ -258,6 +258,70 @@ def test_port_commit_fills_warmup_without_jax(tmp_path):
     assert out.stdout.startswith("ok")
 
 
+_FAKE_CXX = """#!/bin/sh
+# a compiler stand-in: logs its run, fails while FAIL_FIRST names a file
+# that is not there yet (creating it), else writes the -o target
+echo run >> "$CXX_LOG"
+if [ -n "$FAIL_FIRST" ] && [ ! -e "$FAIL_FIRST" ]; then
+    touch "$FAIL_FIRST"; exit 1
+fi
+sleep 0.3
+while [ $# -gt 0 ]; do
+    if [ "$1" = "-o" ]; then echo lib > "$2"; fi
+    shift
+done
+"""
+
+
+def _native_copy(tmp_path, monkeypatch, fail_first=False):
+    """A native directory with the real sources and a stand-in compiler."""
+    if shutil.which("make") is None:
+        pytest.skip("make is not installed")
+    nd = tmp_path / "native"
+    nd.mkdir()
+    for f in ("Makefile", "seekstorm_native.cpp", "snowball.cpp",
+              "light_stemmers.cpp", "unicode_tables.h",
+              "light_stemmer_tables.h"):
+        shutil.copy(ROOT / "native" / f, nd / f)
+    cxx = tmp_path / "cxx"
+    cxx.write_text(_FAKE_CXX)
+    cxx.chmod(0o755)
+    monkeypatch.setenv("CXX", str(cxx))
+    monkeypatch.setenv("CXX_LOG", str(tmp_path / "cxx.log"))
+    if fail_first:
+        monkeypatch.setenv("FAIL_FIRST", str(tmp_path / "failed_once"))
+    return nd, tmp_path / "cxx.log"
+
+
+def test_native_build_once_across_concurrent_callers(tmp_path, monkeypatch):
+    """Four callers that find no library at once all get it, and the
+    compiler runs once: they take a lock, and a caller that gets it after
+    another finished takes that one's library (ROADMAP C: concurrent
+    first-use builds in one native/ directory lost a worker its library)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seekstorm_tpu_torch import native
+
+    nd, log = _native_copy(tmp_path, monkeypatch)
+    with ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(lambda _: native.build_library(nd), range(4)))
+    assert got == [nd / "libseekstorm_native.so"] * 4
+    assert log.read_text().split() == ["run"]
+    assert (nd / "libseekstorm_native.so").read_text() == "lib\n"
+    assert not [p.name for p in nd.iterdir()
+                if p.name.startswith(".build-") or p.name.endswith(".tmp")]
+
+
+def test_native_build_retries_a_failed_compile(tmp_path, monkeypatch):
+    """A compile that fails once (as when another process's make rewrote a
+    header under it) is retried, so the process still gets its library."""
+    from seekstorm_tpu_torch import native
+
+    nd, log = _native_copy(tmp_path, monkeypatch, fail_first=True)
+    assert native.build_library(nd) == nd / "libseekstorm_native.so"
+    assert log.read_text().split() == ["run", "run"]
+
+
 def test_native_build_runs_no_generator(tmp_path):
     """make_command compiles from the tracked headers even where the
     generators are newer, and refuses to build when a header is missing."""

@@ -152,7 +152,28 @@ Phases, each printing what it found:
              p50/p99 latency per class beside the card's name and power
              limit, with each class's latency in this process alone, the
              top-10 class again from one client thread and a cProfile of
-             64 top-10 requests one at a time.
+             64 top-10 requests one at a time;
+  13. join:  (run after phase 9, on phase 4's index and tail) the
+             posting-space join (ops/join.py, torch ops) and the device
+             exact scan (ops/wand.wand_exact_scan): the 2,048-query batch
+             of phase 5 as Topk under SEEKSTORM_TPU_NO_WAND=1
+             SEEKSTORM_TPU_JOIN=1 (rows joined, groups, PW, peak memory,
+             join_dispatch_total), its pages held against the dense route
+             (K2, SEEKSTORM_TPU_JOIN=0) by tests/test_join.py's rule
+             (scores within rtol 3e-5, tie classes but the page end's),
+             run_join of 256 joined rows bit for bit against the CPU at
+             the batch's statics, and search_batch on 256 bit for bit
+             against the CPU where that batch takes the same top-k stage;
+             the default route with SEEKSTORM_TPU_JOIN=1 (K1 launched,
+             every deferred straggler that fits a window joined, pages
+             equal to phase 5's); 64 TopkCount queries under
+             SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT=1 and 16 under
+             SEEKSTORM_TPU_WAND_FORCE_FALLBACK=1, pages and counts equal
+             to exact_pages bit for bit, K1 launched; warm batches on the
+             join, dense and WAND routes with their device time by name,
+             the join's bound for the batch's windows, and each
+             wand_exact_scan dispatch's time and bound, beside the card's
+             name and power limit.
 
 The script imports the port (seekstorm_tpu_torch), bench.py,
 bench_vector.py (numpy alone at import) and torch;
@@ -957,7 +978,8 @@ def _long_queries(n, rng):
 
 
 def device_kernels(torch, tag, fn, top=6):
-    """Device time by kernel name over one call of fn (torch.profiler)."""
+    """Device time by kernel name over one call of fn (torch.profiler);
+    returns the device kernels' seconds in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -977,6 +999,7 @@ def device_kernels(torch, tag, fn, top=6):
           f"idle {100 * max(wall - busy, 0.0) / wall:.1f}% of the wall")
     for name, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"[{tag}]   {us / 1e3:.3f} ms  x{n}  {name[:90]}")
+    return busy
 
 
 def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
@@ -995,6 +1018,8 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
                 for q, t in qs]
 
     os.environ["SEEKSTORM_TPU_NO_WAND"] = "1"
+    # the dense route: Topk batches on the CPU would join
+    os.environ["SEEKSTORM_TPU_JOIN"] = "0"
     try:
         ws.LAUNCHES = 0
         ds.LAUNCHES = 0
@@ -1074,6 +1099,7 @@ def phase_dense(torch, st, idx, served, n_cpu=256, n_deep=256, n_long=64):
             check(not bad, f"{tag}: cuda and cpu pages differ")
     finally:
         del os.environ["SEEKSTORM_TPU_NO_WAND"]
+        del os.environ["SEEKSTORM_TPU_JOIN"]
     return launches
 
 
@@ -1410,8 +1436,10 @@ def phase_facets(torch, st, idx, n_big=N_QUERIES, n_small=64):
     finally:
         del os.environ["SEEKSTORM_TPU_WAND_DEFER_DENSE"]
 
-    # the dense route
+    # the dense route (the join pinned off, as it is for faceted and
+    # sorted batches anyway)
     os.environ["SEEKSTORM_TPU_NO_WAND"] = "1"
+    os.environ["SEEKSTORM_TPU_JOIN"] = "0"
     try:
         for kind, n in batches:
             out, dt, (k1, k2, k3) = run(kind, n)
@@ -1446,6 +1474,7 @@ def phase_facets(torch, st, idx, n_big=N_QUERIES, n_small=64):
               f"sort-key rank: {P} pairs, bound {bound:.4f} ms ({by})")
     finally:
         del os.environ["SEEKSTORM_TPU_NO_WAND"]
+        del os.environ["SEEKSTORM_TPU_JOIN"]
 
     # WAND rank-by-key
     os.environ["SEEKSTORM_TPU_WAND_SORT"] = "1"
@@ -1606,6 +1635,371 @@ def phase_tf(torch, st, idx, n=N_TF, n_cpu=64):
                   for a, b in zip(served[tag], none)),
               f"a {tag}-only count exceeds the unfiltered count")
     return dict(k3_launches=k3_launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the posting-space join and the device exact scan
+
+JOIN_ROUTE = {"SEEKSTORM_TPU_NO_WAND": "1", "SEEKSTORM_TPU_JOIN": "1"}
+DENSE_ROUTE = {"SEEKSTORM_TPU_NO_WAND": "1", "SEEKSTORM_TPU_JOIN": "0"}
+
+
+class _env:
+    """Within the block, os.environ holds these variables; after it, what
+    it held before."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _equivalent(a, b, rtol=PAGE_RTOL, tie_rtol=PAGE_RTOL):
+    """tests/test_join.py::_assert_equivalent's rule for two valid top-k
+    pages: equal score lists, equal id sets in each tie class except the
+    class the page end cuts, whose size must be equal.  The dense path's
+    fma chains and the join's two roundings a term may differ by an ulp,
+    so scores are held within rtol position by position (not at 4
+    decimals, where an ulp can straddle a rounding boundary) and a tie
+    class is a run of scores within rtol of its neighbour (an ulp can
+    split an exact tie on one path); tie_rtol=0 makes the classes exact
+    ties."""
+    x = [r.score for r in a.results]
+    y = [r.score for r in b.results]
+
+    def close(p, q, tol=rtol):
+        return abs(p - q) <= tol * max(abs(p), abs(q), 1e-9)
+
+    if len(x) != len(y) or not all(close(p, q) for p, q in zip(x, y)):
+        return False
+
+    def classes(rs):
+        out = []
+        for r in rs.results:
+            if out and close(r.score, out[-1][0], tie_rtol):
+                out[-1][1].add(r.doc_id)
+            else:
+                out.append((r.score, {r.doc_id}))
+        return [ids for _, ids in out]
+
+    ca, cb = classes(a), classes(b)
+    return (len(ca) == len(cb) and ca[:-1] == cb[:-1]
+            and [len(c) for c in ca] == [len(c) for c in cb])
+
+
+def _show(tag, a, b):
+    """Print two result sets side by side (a failed comparison's first
+    mismatch)."""
+    print(f"[join]   {tag}: count {a.result_count_total} / "
+          f"{b.result_count_total}")
+    for x, y in zip(a.results, b.results):
+        print(f"[join]     {x.doc_id:>9} {x.score!r:<22} {y.doc_id:>9} "
+              f"{y.score!r}")
+
+
+def _bitwise(a, b):
+    return (a.result_count_total == b.result_count_total
+            and [(r.doc_id, r.score) for r in a.results]
+            == [(r.doc_id, r.score) for r in b.results])
+
+
+def join_bound(plans, statics, n_rows):
+    """The join's least time on an H100 for these plans, in ms, and what
+    sets it: the bytes it must move once (each window's postings, a 2-byte
+    doc id and a 4-byte impact a lane; sat1 for every candidate of a query
+    with a bitmap slot and the bitmap rows the plans name; the plan arrays;
+    the pages written, an f32 score and an i64 id a place) over the HBM
+    rate, against its operations (per candidate and slot, one compare a
+    binary-search step over that slot's range, log2 of its length + 1, and
+    an add) over the f32 peak: what these windows need, not the padded
+    [B, V, PW] grid."""
+    import numpy as np
+
+    n_bytes = 0
+    ops = 0
+    for p in plans:
+        la = (p["packA"] & 0xFFFFFF).astype(np.int64)       # [B, V]
+        lb = (p["packB"] & 0x1FFF).astype(np.int64)
+        cand = (la + lb).sum(axis=1)                        # [B]
+        bm = (p["rowtab"] >= 0).any(axis=1)
+        n_bytes += int(cand.sum()) * 6 + int(cand[bm].sum()) * 4
+        n_bytes += len(np.unique(p["rowtab"][p["rowtab"] >= 0])) * NW * 4
+        n_bytes += sum(x.nbytes for x in p.values())
+        steps = np.vectorize(lambda n: int(n).bit_length() + 1)
+        per_cand = steps(la).sum(axis=1) + np.where(
+            bm, steps(lb[:, -1]), 0) + la.shape[1]
+        ops += int((cand * per_cand).sum())
+    n_bytes += n_rows * statics["k"] * 12
+    return _bound(n_bytes, ops)
+
+
+def exact_scan_bound(state, slots, specs):
+    """wand_exact_scan's least time on an H100 for one dispatch of these
+    queries, in ms, and what sets it: the presence and rank rows of every
+    (slot, block) a query's slots hold (NW words of 4 bytes each), their
+    postings' impacts (4 bytes each), the delete words of every block and
+    the page written, over the HBM rate, against an f32 multiply and add a
+    posting over the f32 peak."""
+    n_bytes = state.nblk * NW * 4
+    ops = 0
+    for sp in specs:
+        for s in sp.slots:
+            sr = state.slot_cache[slots[s].hash]
+            rows = 0 if sr.row < 0 else int(
+                (state.sp_prow[sr.row] >= 0).sum())
+            n_bytes += rows * NW * 8 + sr.df * 4
+            ops += sr.df * 2
+        n_bytes += 64 * 8
+    return _bound(n_bytes, ops)
+
+
+def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
+    """The posting-space join (ops/join.py) and the device exact scan
+    (ops/wand.wand_exact_scan) on phase 4's index with its tail."""
+    import numpy as np
+
+    from seekstorm_tpu_torch import METRICS
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+    from seekstorm_tpu_torch.parallel.mesh import get_stacked as stacked_of
+    ps = importlib.import_module("seekstorm_tpu_torch.search")
+
+    t_phase = time.perf_counter()
+    queries = served["queries"]
+
+    def reqs(rtype=st.ResultType.Topk, qs=queries, realtime=True):
+        return [st.SearchRequest(query=q, length=10, result_type=rtype,
+                                 realtime=realtime,
+                                 query_type_default=st.QueryType(t))
+                for q, t in qs]
+
+    names = ("join_dispatch_total", "join_rows_total", "join_groups_total",
+             "wand_fallbacks_total", "wand_dev_exact_total")
+
+    def run(env, rq, device="cuda"):
+        """(results, host seconds ending in a synchronize, counters moved
+        and K1/K2 launches) of one batch under env."""
+        with _env(**env):
+            ws.LAUNCHES = 0
+            ds.LAUNCHES = 0
+            s0 = METRICS.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = st.search_batch(idx, rq, device=device)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            s1 = METRICS.snapshot()
+        moved = {k: s1.get(k, 0.0) - s0.get(k, 0.0) for k in names}
+        moved.update(k1=ws.LAUNCHES, k2=ds.LAUNCHES)
+        return out, dt, moved
+
+    batch = reqs()
+    n = len(batch)
+
+    # (a) the join on the dense route, against K2 and against the CPU
+    rows, plans, statics, _ = st.join_plans(idx, batch, "cuda")
+    check(rows, "no query of the batch fits the join")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    joined, dt_j, mj = run(JOIN_ROUTE, batch)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    print(f"[join] {n} Topk queries, SEEKSTORM_TPU_NO_WAND=1 "
+          f"SEEKSTORM_TPU_JOIN=1: {dt_j:.3f} s (cold); rows joined "
+          f"{mj['join_rows_total']:.0f} ({len(rows)} fit), groups "
+          f"{mj['join_groups_total']:.0f}, PW {statics['PW']} (NR "
+          f"{statics['NR']}, NS {statics['NS']}, bitmap slot "
+          f"{statics['has_bm']}), peak memory above the index "
+          f"{peak / 2**20:.0f} MiB, join_dispatch_total "
+          f"{mj['join_dispatch_total']:.0f}; K1 {mj['k1']}, K2 {mj['k2']} "
+          f"launches (the rest)")
+    check(mj["join_dispatch_total"] == 1 and mj["k1"] == 0
+          and mj["join_rows_total"] == len(rows), "the batch joined")
+    dense, dt_d, md = run(DENSE_ROUTE, batch)
+    check(md["k2"] > 0 and md["join_dispatch_total"] == 0,
+          "SEEKSTORM_TPU_JOIN=0 takes K2")
+    bad = [i for i, (a, b) in enumerate(zip(joined, dense))
+           if not _equivalent(a, b)]
+    exact_ties = [i for i, (a, b) in enumerate(zip(joined, dense))
+                  if not _equivalent(a, b, tie_rtol=0.0)]
+    print(f"[join]   vs the dense route (K2) on {n}: {n - len(bad)} "
+          f"equivalent (scores within rtol {PAGE_RTOL}, tie classes but "
+          f"the page end's), first mismatches {bad[:5]}; with tie "
+          f"classes of exactly equal scores {n - len(exact_ties)}, first "
+          f"others {exact_ties[:5]}")
+    if exact_ties:
+        _show(f"query {exact_ties[0]} {queries[exact_ties[0]]}, join | "
+              f"dense", joined[exact_ties[0]], dense[exact_ties[0]])
+    if bad:
+        _show(f"query {bad[0]} {queries[bad[0]]}, join | dense",
+              joined[bad[0]], dense[bad[0]])
+    check(not bad, "join and dense pages differ")
+    # the join alone on the card and on the CPU: the first n_cpu joined
+    # rows' plans at the whole batch's statics, bit for bit
+    m = min(n_cpu, len(rows))
+    part = [{key: v[:m] for key, v in p.items()} for p in plans]
+    t0 = time.perf_counter()
+    ts_g, gid_g = stacked_of(idx, "cuda").run_join(part, statics)
+    t1 = time.perf_counter()
+    ts_c, gid_c = stacked_of(idx, "cpu").run_join(part, statics)
+    t2 = time.perf_counter()
+    fin = np.isfinite(ts_c)
+    same = (np.array_equal(ts_g.view(np.int32), ts_c.view(np.int32))
+            and np.array_equal(gid_g[fin], gid_c[fin]))
+    print(f"[join]   run_join of {m} joined rows at the batch's statics: "
+          f"card {t1 - t0:.3f} s, CPU {t2 - t1:.1f} s; scores bit for bit "
+          f"and ids at every finite score equal: {same}")
+    check(same, "cuda and cpu run_join differ")
+    # and through search_batch: bit for bit where the CPU's batch of n_cpu
+    # takes the same top-k stage (V*PW > 16384 or not), else equivalent
+    cpu, dt_c, mc = run(JOIN_ROUTE, batch[:n_cpu], device="cpu")
+    _, _, st_cpu, _ = st.join_plans(idx, batch[:n_cpu], "cpu")
+    same_stage = ((st_cpu["V"] * st_cpu["PW"] > 16384)
+                  == (statics["V"] * statics["PW"] > 16384))
+    bad = [i for i, (a, b) in enumerate(zip(joined, cpu))
+           if not (_bitwise(a, b) if same_stage else _equivalent(a, b))]
+    if bad:
+        _show(f"query {bad[0]}, cuda | cpu", joined[bad[0]], cpu[bad[0]])
+    print(f"[join]   vs search_batch on the CPU, {n_cpu} queries "
+          f"({dt_c:.1f} s there, PW {st_cpu['PW']}, same top-k stage "
+          f"{same_stage}): {n_cpu - len(bad)} equal "
+          f"({'ids, order, scores exactly' if same_stage else 'equivalent'})"
+          f", first mismatches {bad[:5]}")
+    check(mc["join_dispatch_total"] == 1 and not bad,
+          "cuda and cpu join pages differ")
+
+    # (b) the default route with the join on: deferred stragglers join
+    rec = []
+    orig_run_batch = W.run_batch
+
+    def recording(index, slots, specs, *a, **kw):
+        out = orig_run_batch(index, slots, specs, *a, **kw)
+        rec.append((slots, specs, out[4]))
+        return out
+
+    W.run_batch = recording
+    try:
+        default, dt_b, mb = run({"SEEKSTORM_TPU_JOIN": "1"}, batch)
+    finally:
+        W.run_batch = orig_run_batch
+    slots, specs, handled = rec[-1]
+    infos = ps._join_shard_infos(idx, slots, True)
+    fit = sum(ps._join_query_ok(sp, infos)
+              for sp, h in zip(specs, handled) if not h)
+    print(f"[join] default route, SEEKSTORM_TPU_JOIN=1: {dt_b:.3f} s; K1 "
+          f"launches {mb['k1']}, WAND stragglers "
+          f"{mb['wand_fallbacks_total']:.0f} deferred, of which "
+          f"{mb['join_rows_total']:.0f} joined ({fit} fit a window), K2 "
+          f"launches {mb['k2']}")
+    check(mb["k1"] > 0, "the default route launched K1")
+    check(mb["join_rows_total"] == fit
+          and mb["join_dispatch_total"] == (1 if fit else 0),
+          "every deferred straggler that fits went to the join")
+    bad = [i for i, (a, b) in enumerate(zip(default, served["topk"]))
+           if not _same_pages(a, b)[0]]
+    if bad:
+        _show(f"query {bad[0]}, join on | off", default[bad[0]],
+              served["topk"][bad[0]])
+    print(f"[join]   vs the default route without the join: "
+          f"{n - len(bad)} of {n} equal (clusters), first mismatches "
+          f"{bad[:5]}")
+    check(not bad, "the default route's pages moved with the join on")
+
+    # (c) the device exact scan and the host exact evaluation
+    rq = reqs(st.ResultType.TopkCount, qs=queries[:n_dx], realtime=False)
+    exact = st.exact_pages(idx, rq, "cuda")
+    dispatch_ms = []
+    orig_scan = W.wand_exact_scan
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_scan(*a, **kw)
+        torch.cuda.synchronize()
+        dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    W.wand_exact_scan = timed
+    try:
+        got, dt_x, mx = run({"SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT": "1"}, rq)
+    finally:
+        W.wand_exact_scan = orig_scan
+
+    def equal_exact(pages, want):
+        return [i for i, (rs, (count, gids, scores)) in
+                enumerate(zip(pages, want))
+                if rs.result_count_total != count
+                or [r.doc_id for r in rs.results] != gids
+                or [r.score for r in rs.results] != scores]
+
+    bad = equal_exact(got, exact)
+    if bad:
+        count, gids, scores = exact[bad[0]]
+        _show(f"query {bad[0]}, device scan | host exact", got[bad[0]],
+              st.ResultSet(result_count_total=count, results=[
+                  st.ResultObject(doc_id=g, score=x)
+                  for g, x in zip(gids, scores)]))
+    n_disp = int(mx["wand_dev_exact_total"])
+    print(f"[join] SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT=1, {n_dx} TopkCount "
+          f"queries: {dt_x:.3f} s, K1 launches {mx['k1']}, "
+          f"wand_exact_scan dispatches {n_disp}; equal to exact_pages "
+          f"(ids, order, scores, counts exactly): {n_dx - len(bad)}, first "
+          f"mismatches {bad[:5]}")
+    check(mx["k1"] > 0 and n_disp == -(-n_dx // 4) and not bad,
+          "the device exact scan differs from the host exact evaluation")
+    fb, dt_f, mf = run({"SEEKSTORM_TPU_WAND_FORCE_FALLBACK": "1"},
+                       rq[:n_fb])
+    bad = equal_exact(fb, exact[:n_fb])
+    print(f"[join] SEEKSTORM_TPU_WAND_FORCE_FALLBACK=1, {n_fb} queries: "
+          f"{dt_f:.3f} s, K1 launches {mf['k1']}; equal to exact_pages: "
+          f"{n_fb - len(bad)}, first mismatches {bad[:5]}")
+    check(mf["k1"] > 0 and mf["wand_dev_exact_total"] == 0 and not bad,
+          "the forced host evaluation differs from exact_pages")
+
+    # (d) times: warm batches, device time by name, the scan's dispatches
+    lat = {}
+    busy = {}
+    for tag, env in (("join", JOIN_ROUTE), ("dense", DENSE_ROUTE),
+                     ("wand", {"SEEKSTORM_TPU_JOIN": "0"})):
+        lat[tag] = [run(env, batch)[1] for _ in range(3)]
+        with _env(**env):
+            busy[tag] = device_kernels(
+                torch, f"join {tag} route",
+                lambda: st.search_batch(idx, batch, device="cuda"), top=8)
+    print(f"[join] {card}: warm Topk batches of {n} (host clock to "
+          f"synchronize), ms: " + "; ".join(
+              f"{t} route {[round(x * 1e3, 1) for x in v]} (device kernels "
+              f"{busy[t] * 1e3:.1f} ms)" for t, v in lat.items()))
+    bound, by = join_bound(plans, statics, len(rows))
+    join_ms = busy["join"] * 1e3
+    print(f"[join] the join's bound for the batch's windows: {bound:.4f} ms "
+          f"({by}); the join route's device kernels {join_ms:.1f} ms, "
+          f"{100 * bound / join_ms:.3f}% of bound")
+    state = W.get_state(idx, "cuda")
+    slots_x, specs_x = ps._build_specs(
+        idx, [r.query for r in rq], [r.query_type_default for r in rq])
+    groups = [specs_x[i:i + 4] for i in range(0, n_dx, 4)]
+    bounds = [exact_scan_bound(state, slots_x, g) for g in groups]
+    xb = statistics.median(b for b, _ in bounds)
+    xms = statistics.median(dispatch_ms)
+    print(f"[join] {card}: wand_exact_scan, {len(dispatch_ms)} dispatches "
+          f"of 4 queries over {state.nblk} blocks, ms each (host clock "
+          f"between synchronizes): {[round(x, 2) for x in dispatch_ms]}; "
+          f"median {xms:.2f} ms, bound {xb:.4f} ms ({bounds[0][1]}), "
+          f"{100 * xb / xms:.3f}% of bound")
+    print(f"[join] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return dict(join_ms=join_ms, join_bound=bound, exact_ms=xms,
+                exact_bound=xb)
 
 
 # ---------------------------------------------------------------------------
@@ -2632,6 +3026,7 @@ def main() -> int:
     k3 = phase_k3(torch, st, idx)
     faceted = phase_facets(torch, st, idx)
     tf = phase_tf(torch, st, idx)
+    phase_join(torch, st, idx, served, card)
     # the index's committed files stay for phase 12; its device state goes
     del idx
     gc.collect()

@@ -57,6 +57,7 @@ from .search import (
     SearchRequest,
     dense_plans,
     exact_pages,
+    join_plans,
     search,
     search_batch,
     wand_inputs,
@@ -66,7 +67,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Index", "create_index", "open_index", "METRICS", "native_library",
-    "dense_plans", "exact_pages", "wand_inputs", "BLOCK_SIZE", "AccessType",
+    "dense_plans", "exact_pages", "join_plans", "wand_inputs", "BLOCK_SIZE",
+    "AccessType",
     "ClusteringConfig", "ClusteringMode", "DocumentCompression", "FieldType",
     "FrequentwordType", "IndexMeta", "InferenceType", "LexicalSimilarity",
     "Precision", "Quantization", "QueryCompletion", "SchemaField",

@@ -22,10 +22,15 @@ rank by their bucket's best sort key where a doc matched, the host ladder
 ranks candidates by their exact keys over all three rungs with the strict
 test, and the device ladder is off.  Queries the device ladder cannot finish go
 through the host rung ladder (native ``st_rescore``).  Queries whose UBs
-saturate every rung are stragglers: at batch >= 512 (or under
-``SEEKSTORM_TPU_WAND_DEFER_DENSE``) they come back unhandled for the dense
-path, as in the reference; otherwise the host exact evaluation
-(``_exact_fallback``) finishes them.
+saturate every rung are stragglers: on one shard under
+``SEEKSTORM_TPU_WAND_DEV_EXACT`` the device exact scan (``wand_exact_scan``,
+torch ops over the same pools) finishes them; otherwise at batch >= 512 (or
+under ``SEEKSTORM_TPU_WAND_DEFER_DENSE``) they come back unhandled for the
+join or the dense path, as in the reference, and below it the host exact
+evaluation (``_exact_fallback``) finishes them.  The reference's parity
+modes send every query of a batch to one of the two exact evaluations:
+``SEEKSTORM_TPU_WAND_FORCE_FALLBACK`` to the host's,
+``SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT`` to the device's (one shard).
 
 ``wand_auto`` is the reference's routing test without its backend check:
 indexes of ``WAND_MIN_BLOCKS`` blocks and up ride WAND unless the observed
@@ -283,6 +288,39 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
     if s_gt1:
         parts += [ids1[:, :K_SEL], bits(vals1[:, K_SEL:K_SEL + 1])]
     return torch.cat(parts, dim=1)
+
+
+def wand_exact_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw,
+                    sid, slotmap, tslot, treq, tneg, wshard, filtw=None):
+    """Full-coverage exact evaluation on the device for WAND stragglers
+    (the reference's ``wand_exact_scan``, wand.py:811), torch ops over the
+    resident pools: a loop over blocks rescores every bucket of the block
+    (``_rescore_regions``, the same f32 chains as the host evaluation) and
+    folds a running top-P_PAGE page, carried lanes before new ones on ties
+    (a stable sort of carried | new), so a page is (score desc, lane asc).
+    One shard only: there lane order is gid order.
+
+    Returns (page scores f32[Bq, P_PAGE] -inf padded, page lanes i32[Bq,
+    P_PAGE] = global bucket*32 + bit, matched count i32[Bq])."""
+    dev = ppool.device
+    Bq = tslot.shape[0]
+    NBLK = sp_prow.shape[1]
+    words = torch.arange(NW, dtype=torch.int32, device=dev)
+    sel_all = torch.full((Bq, NW), float("inf"), device=dev)
+    bs = torch.full((Bq, P_PAGE), float("-inf"), device=dev)
+    bl = torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev)
+    fnd = torch.zeros(Bq, dtype=torch.int32, device=dev)
+    for b in range(NBLK):
+        ids = (words + b * NW).expand(Bq, NW)
+        sc, lane, found = _rescore_regions(
+            ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid, slotmap,
+            tslot, treq, tneg, wshard, ids, sel_all, filtw)
+        psc, plane, _ = _page_topk(sc, lane)
+        v, sel = _sort_desc(torch.cat([bs, psc], dim=1))
+        bs = v[:, :P_PAGE]
+        bl = torch.gather(torch.cat([bl, plane], dim=1), 1, sel[:, :P_PAGE])
+        fnd = fnd + found
+    return bs, bl, fnd
 
 
 def batch_prow(sp_prow, slotmap):
@@ -1197,6 +1235,52 @@ def _apply_slim(state: WandState, buf, specs, S: int,
     return still
 
 
+def _run_dev_exact(state: WandState, pending, slotmap, tslot, treq, tneg,
+                   wsh, pools, filtw_dev, cnt, S: int, out_scores, out_gids,
+                   counts) -> list[int]:
+    """Dispatch wand_exact_scan for the batch's stragglers, in groups of 1,
+    2 or 4 queries (the reference's padded shape ladder, wand.py:859), and
+    fill their outputs: the page, padded to the matched count with -inf /
+    -1 as the host evaluation reports it, and phase 1's count.  Returns the
+    queries still left for the host (none)."""
+    base_arr = np.asarray(state.block_base, np.int64)
+    todo = list(pending)
+    dev = state.device
+    while todo:
+        n = len(todo)
+        Bq = 1 if n == 1 else (2 if n == 2 else 4)
+        group, todo = todo[:Bq], todo[Bq:]
+        rows = group + [group[-1]] * (Bq - len(group))
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (slotmap, tslot[rows], treq[rows], tneg[rows],
+                          wsh[:, rows])]
+        METRICS.inc("device_dispatch_total")
+        METRICS.inc("wand_dev_exact_total")
+        with METRICS.timer("wand_dev_exact"), METRICS.timer("lex_device"):
+            psc, plane, found = [
+                x.cpu().numpy() for x in wand_exact_scan(
+                    *pools, *args, filtw=filtw_dev)]
+        plane = plane.astype(np.int64)
+        for r, qi in enumerate(group):
+            valid = psc[r] > -np.inf
+            sc = psc[r][valid].astype(np.float32)
+            blk = plane[r][valid] >> 16
+            doc = plane[r][valid] & 0xFFFF
+            shard_of = state.blk_shard[np.minimum(blk, state.nblk - 1)]
+            gd = ((blk - base_arr[shard_of]) * BLOCK_SIZE + doc) * S \
+                + shard_of
+            nf = int(found[r])
+            if nf > len(sc):
+                sc = np.concatenate(
+                    [sc, np.full(nf - len(sc), -np.inf, np.float32)])
+                gd = np.concatenate(
+                    [gd, np.full(nf - len(gd), -1, np.int64)])
+            out_scores[qi] = sc
+            out_gids[qi] = gd
+            counts[qi] = cnt[qi]
+    return []
+
+
 def plan_batch(state: WandState, slots, specs, idf_per_shard):
     """Build the batch's term rows and its per-query tables (call under
     state.lock): slotmap i32[V] (batch slot -> slot row), tslot i32[Bq, T],
@@ -1242,9 +1326,12 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     idf_per_shard: f32[S, V] per-shard idf per slot (realtime aware).
     Pages of need <= 16 finish on the device ladder; deeper pages and
     device stragglers go through the host rung ladder.  Queries whose UBs
-    saturate every rung come back unhandled at batch >= DEFER_MIN_BATCH
-    (SEEKSTORM_TPU_WAND_DEFER_DENSE=1/0 overrides) for the dense path, and
-    go through the host exact evaluation otherwise.  count_only
+    saturate every rung take the device exact scan on one shard under
+    SEEKSTORM_TPU_WAND_DEV_EXACT; else they come back unhandled at batch >=
+    DEFER_MIN_BATCH (SEEKSTORM_TPU_WAND_DEFER_DENSE=1/0 overrides) for the
+    join or dense path, and go through the host exact evaluation otherwise.
+    SEEKSTORM_TPU_WAND_FORCE_FALLBACK / _FORCE_DEV_EXACT send every query to
+    the host / device exact evaluation.  count_only
     (ResultType.Count) returns phase 1's popcounts and no pages.
 
     fcod_dev (i32[NF, NBLK*BLOCK_SIZE], global-block layout) with
@@ -1295,27 +1382,35 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         fc = None if fc_d is None else \
             fc_d[:n_facets, :B].cpu().numpy().astype(np.int64)
 
+    # parity modes (the reference's, wand.py:2158-2188): every query to the
+    # host exact evaluation, or to the device exact scan
+    force_fb = bool(os.environ.get("SEEKSTORM_TPU_WAND_FORCE_FALLBACK"))
+    force_dx = bool(os.environ.get("SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT"))
     if dev_rescore:
         A = 4 + 2 * P_PAGE
         buf_f = packed.view(np.float32)
         cnt = packed[:B, 0].astype(np.int64)
-        pending = _apply_slim(state, packed, specs, S, out_scores, out_gids,
-                              counts)
-        METRICS.inc("wand_dev_pages_total", B - len(pending))
         host_rungs = []
-        if S > 1:
-            host_rungs.append((packed[:B, A + KP: A + KP + K_SEL],
-                               buf_f[:B, A + 2 * KP - 1], 1))
-        host_rungs.append((packed[:B, A: A + K_SEL], buf_f[:B, A + K_SEL],
-                           F_LADDER[2]))
+        if force_fb or force_dx:
+            pending = list(range(B))
+        else:
+            pending = _apply_slim(state, packed, specs, S, out_scores,
+                                  out_gids, counts)
+            METRICS.inc("wand_dev_pages_total", B - len(pending))
+            if S > 1:
+                host_rungs.append((packed[:B, A + KP: A + KP + K_SEL],
+                                   buf_f[:B, A + 2 * KP - 1], 1))
+            host_rungs.append((packed[:B, A: A + K_SEL],
+                               buf_f[:B, A + K_SEL], F_LADDER[2]))
     elif count_only:
         # the phase-1 popcount is the answer: no pages, no ladder
         counts[:] = cnt[:B]
         return out_scores, out_gids, counts, fc, np.ones(B, bool)
     else:
         pending = list(range(B))
-        host_rungs = [(ids.astype(np.int64), vals[:, K_SEL], F)
-                      for (vals, ids), F in zip(rungs, F_LADDER)]
+        host_rungs = [] if force_fb else [
+            (ids.astype(np.int64), vals[:, K_SEL], F)
+            for (vals, ids), F in zip(rungs, F_LADDER)]
 
     # host ladder: rescore each pending query's selected regions exactly
     # and terminate on the strict WAND test (kth > next_ub, 3e-7 margin;
@@ -1350,6 +1445,16 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         if pending:
             METRICS.inc("wand_escalations_total")
     METRICS.inc("wand_fallbacks_total", len(pending))
+    if (pending and not force_fb and not rank_mode and S == 1
+            and (os.environ.get("SEEKSTORM_TPU_WAND_DEV_EXACT")
+                 or force_dx)):
+        # opt-in (SEEKSTORM_TPU_WAND_DEV_EXACT) single-shard stragglers:
+        # the full-coverage exact scan on the device over the resident
+        # pools; several shards keep the host path (a tie class cut at a
+        # lane boundary needs gid-order arbitration there)
+        pending = _run_dev_exact(state, pending, slotmap, tslot, treq, tneg,
+                                 wsh, pools, filtw_dev, cnt, S, out_scores,
+                                 out_gids, counts)
     if not rank_mode:
         # the opt-in sort path has its own fallback geometry and must not
         # close the gate for score-mode batches
@@ -1358,7 +1463,7 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     denv = os.environ.get("SEEKSTORM_TPU_WAND_DEFER_DENSE")
     defer = denv not in ("", "0") if denv is not None \
         else B >= DEFER_MIN_BATCH
-    if defer:
+    if defer and not force_fb:
         handled[pending] = False
         return out_scores, out_gids, counts, fc, handled
     for qi in pending:

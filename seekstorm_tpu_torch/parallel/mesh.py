@@ -7,8 +7,9 @@ pair-list scan of ``ops/lexical.py``, ``_tf_arrays`` (592) and
 ``_ensure_tf`` (645) with ``_run_tf`` (977) for plans of mode "tf"
 (``ops/lexical.tf_scan_pairs``), and ``_merge`` with
 ``merge_shard_results`` (400-410), with ``aux_device`` (554) for the facet
-codes, sort keys and filter words of a batch.  No plan packing, mesh or join
-programs.
+codes, sort keys and filter words of a batch, and ``run_join`` (806) for the
+posting-space join (``ops/join.py``), whose plans stay numpy arrays that go
+up as tensors.  No plan packing and no mesh programs.
 
 The shards' arrays are laid end to end in one global-block layout (the
 WAND state's), so one K2 launch covers the pairs of every shard: the CSR
@@ -33,10 +34,21 @@ import threading
 import numpy as np
 import torch
 
+from ..metrics import METRICS
+from ..ops import join as join_ops
 from ..ops import lexical as lex_ops
 from ..ops.dense_scan import NWORDS
 from ..ops.wand import _signature, index_lock
 from ..schema import BLOCK_SIZE
+
+
+# the join's temporaries: a group of queries holds about JOIN_LANE_BYTES
+# for each lane of its [Bg, V, PW] grid (the window mask, the block-id marks
+# and their running max with its indices, the doc ids and impacts the
+# searches read, the rank), and the groups are cut to keep that near
+# JOIN_GROUP_BYTES (2 GiB); the per-candidate work is smaller still
+JOIN_GROUP_BYTES = 1 << 31
+JOIN_LANE_BYTES = 40
 
 
 def _tf_plans(plans) -> bool:
@@ -278,6 +290,55 @@ class StackedIndex:
         fcounts = np.zeros((1, B, fcm), np.int64) if fc is None else \
             fc.cpu().numpy().astype(np.int64)
         return ts.cpu().numpy(), gid.cpu().numpy(), cnt, fcounts
+
+    def run_join(self, plans, statics):
+        """The posting-space join (``ops/join.join_scan``) of a batch whose
+        plans ``search._build_join_plans`` built: the reference's
+        ``run_join`` (806) with ``scan_one_shard_join`` (197) per shard.
+
+        Each shard's plan goes up as tensors; its storage rows and sat1
+        index this shard's stretch of the end-to-end arrays
+        (``post_base``, ``block_base``) and its bitmap rows are offset by
+        ``bm_base``.  The queries run in groups of Bg, at least one, that
+        keep a group's [Bg, V, PW] temporaries near JOIN_GROUP_BYTES at
+        JOIN_LANE_BYTES a lane; every group keeps the whole batch's
+        statics, because the top-k's tie order follows V*PW.  Per-shard
+        pages become gid = local * S + shard and merge as the reference's
+        ``_merge`` does.  Returns (ts f32[B, k] -inf padded, gid i64[B, k])
+        as numpy."""
+        S = self.index.shard_count
+        k, PW, has_bm = statics["k"], statics["PW"], statics["has_bm"]
+        Bg = max(1, JOIN_GROUP_BYTES // (JOIN_LANE_BYTES * statics["V"]
+                                         * PW))
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        ts_all, gid_all = [], []
+        for s, p in enumerate(plans):
+            rowtab = np.where(p["rowtab"] >= 0,
+                              p["rowtab"] + self.bm_base[s], -1)
+            args = [put(p[n]) for n in ("rows", "packA", "packB", "segp")]
+            args += [put(rowtab.astype(np.int32))]
+            args += [put(p[n]) for n in ("W", "isreq", "isneg", "nreq")]
+            B = args[0].shape[0]
+            ts_s, ids_s = [], []
+            METRICS.inc("join_groups_total", -(-B // Bg))
+            for a in range(0, B, Bg):
+                ts, ids = join_ops.join_scan(
+                    self.docid, self.imp, self.sat1, self.bitmaps,
+                    *[x[a:a + Bg] for x in args], k=k, PW=PW, has_bm=has_bm,
+                    post_base=self.post_base[s],
+                    sat1_base=self.block_base[s] * BLOCK_SIZE)
+                ts_s.append(ts)
+                ids_s.append(ids)
+            ts_all.append(torch.cat(ts_s))
+            gid_all.append(torch.cat(ids_s) * S + s)
+        ts, gid = lex_ops.merge_shard_results(torch.stack(ts_all),
+                                              torch.stack(gid_all), k)
+        METRICS.inc("join_dispatch_total")
+        with METRICS.timer("lex_device"):
+            return ts.cpu().numpy(), gid.cpu().numpy()
 
 
 def get_stacked(index, device) -> StackedIndex:

@@ -16,12 +16,20 @@ A batch routes as the reference routes it:
     ``wand_auto`` holds (indexes of 16 blocks and up, or
     ``SEEKSTORM_TPU_WAND=1``; ``SEEKSTORM_TPU_NO_WAND=1`` turns it off) and
     pages end at 1024 or less;
+  * the posting-space join (``ops/join.py`` through
+    ``StackedIndex.run_join``; seekstorm_tpu/search.py:1614-1644) for the
+    rows WAND left, in Topk batches without counts, phrases, facets,
+    filters or sorts whose pages end at STASH_K (64) or less, on indexes
+    without deletes, where every slot of a query fits a posting window
+    and at most one is a bitmap term.  It is on where the searching
+    device is the CPU, as in the reference, and off on CUDA
+    (``_join_backend_ok``); ``SEEKSTORM_TPU_JOIN=1``/``0`` overrides;
   * the dense path (``plan.py``, ``parallel/mesh.StackedIndex``, kernel
     K2) for the rest: smaller indexes, longer queries, deeper pages, and
-    the WAND stragglers deferred at batch >= 512.  Its plans prune blocks
-    by upper bound unless counts or phrases need full coverage, and a
-    pruned batch whose k-th score falls below an unscored bound re-runs
-    in full.
+    the WAND stragglers deferred at batch >= 512 that the join did not
+    take.  Its plans prune blocks by upper bound unless counts or phrases
+    need full coverage, and a pruned batch whose k-th score falls below
+    an unscored bound re-runs in full.
 
 Facet counts (``query_facets``), facet filters (``facet_filter``) and sorted
 results (``result_sort``) ride both routes as in the reference: the filter
@@ -63,6 +71,7 @@ from . import facets as facets_mod
 from . import geo as geo_mod
 from . import plan as plan_mod
 from .index import Index, Shard
+from .lexindex import STASH_K
 from .metrics import METRICS
 from .ngram import NGRAM_SEP
 from .oracle import score_query, topk_from_scores, verify_phrase
@@ -460,6 +469,245 @@ def _shard_idf(shard: Shard, slots: list[_Slot], realtime: bool,
 
 
 # ---------------------------------------------------------------------------
+# posting-space join (ops/join.py; seekstorm_tpu/search.py:795-1043): work
+# per query follows its terms' posting counts instead of the corpus size
+
+JOIN_V_MAX = 4          # slots per query on the join path
+JOIN_PW_CAP = 1 << 17   # max window lanes per slot
+
+
+def _join_backend_ok(device) -> bool:
+    """Whether Topk batches searched on `device` may take the join: on the
+    CPU, where per-element gathers are cheap, as in the reference; not on
+    CUDA, whose default waits for a measurement against the WAND and dense
+    routes.  SEEKSTORM_TPU_JOIN=1/0 overrides either way."""
+    ov = os.environ.get("SEEKSTORM_TPU_JOIN")
+    if ov is not None:
+        return ov not in ("0", "false")
+    return torch.device(device).type == "cpu"
+
+
+def _join_shard_infos(index: Index, slots: list[_Slot], realtime: bool):
+    """Per-shard join-path planning state: slot posting-window layouts
+    (cached on the shard between commits) + per-shard idf.  Returns None
+    when any shard disqualifies the path (deletes, stale format, too many
+    blocks)."""
+    hs = np.array([sl.hash for sl in slots], dtype=np.uint64)
+    idf_hs = np.array(
+        [sl.idf_hash if sl.idf_hash is not None else sl.hash
+         for sl in slots], dtype=np.uint64)
+    V = len(slots)
+    out = []
+    for shard in index.shards:
+        lex = shard.lexical
+        d = lex.directory
+        if (d is None or getattr(d, "seg_stash_off", None) is None
+                or lex.n_blocks > 4095 or shard.deleted):
+            return None
+        T = len(d.hash)
+        ti = np.searchsorted(d.hash, hs)
+        found = ti < T
+        tc = np.minimum(ti, max(T - 1, 0))
+        found &= (d.hash[tc] == hs) if T else False
+        df = np.where(found, d.df[tc], 0).astype(np.int64)
+        if not np.array_equal(idf_hs, hs):
+            ci = np.searchsorted(d.hash, idf_hs)
+            cf = ci < T
+            cc = np.minimum(ci, max(T - 1, 0))
+            cf &= (d.hash[cc] == idf_hs) if T else False
+            df = np.where(cf, d.df[cc], df)
+        n_docs = lex.doc_count
+        df_total = df.copy()
+        if realtime:
+            l0 = shard.level0
+            start = shard.partial_on_disk
+            n_docs += l0.doc_count - start
+            acc = getattr(l0, "acc", None)
+            for v, sl in enumerate(slots):
+                h = sl.idf_hash if sl.idf_hash is not None else sl.hash
+                if acc is not None:
+                    hit = acc.term_postings(h)
+                    if hit is not None:
+                        df_total[v] += int(np.sum(hit[0] >= start))
+                else:
+                    tp = l0.terms.get(h)
+                    if tp is not None:
+                        df_total[v] += int(
+                            np.sum(np.asarray(tp.docids) >= start))
+        idf = np.where(
+            df_total > 0,
+            np.log1p((n_docs - df_total + 0.5) / (df_total + 0.5)),
+            0.0,
+        ).astype(np.float32)
+
+        cache = getattr(lex, "_join_cache", None)
+        if cache is None:
+            cache = lex._join_cache = {}
+        wins = []
+        sa = np.where(found, d.seg_start[tc], 0)
+        sb = np.where(found, d.seg_start[np.minimum(tc + 1, T)], 0)
+        for v in range(V):
+            h = int(hs[v])
+            w = cache.get(h)
+            if w is None:
+                w = _join_slot_window(d, int(sa[v]), int(sb[v]))
+                cache[h] = w
+            wins.append(w)
+        out.append({"wins": wins, "idf": idf, "n_blocks": lex.n_blocks})
+    return out
+
+
+_JOIN_EMPTY = {
+    "rows": np.zeros(0, np.int32), "a0": 0, "la": 0, "b0": 0, "lb": 0,
+    "mk_lane": np.zeros(0, np.int64), "mk_blk": np.zeros(0, np.int32),
+    "bm_blk": np.zeros(0, np.int32), "bm_row": np.zeros(0, np.int32),
+    "has_bm": False, "nr": 0,
+}
+
+
+def _join_slot_window(d, a: int, b: int):
+    """Posting-window layout of one term on one shard: storage rows
+    spanning the compacted-CSR range [dev_off, dev_off+len) plus the
+    bitmap-segment stash range, segment-start lane markers, and bitmap
+    rows per block.  None when the term exceeds the join-path caps."""
+    if b <= a:
+        return _JOIN_EMPTY
+    devl = np.asarray(d.seg_dev_len[a:b], np.int64)
+    devo = np.asarray(d.seg_dev_offset[a:b], np.int64)
+    blks = np.asarray(d.seg_block[a:b], np.int32)
+    so = np.asarray(d.seg_stash_off[a:b], np.int64)
+    sl_ = np.asarray(d.seg_stash_len[a:b], np.int64)
+    bmr = np.asarray(d.seg_bitmap[a:b], np.int32)
+    ln = int(devl.sum())
+    off = int(devo[0])
+    st_total = int(sl_.sum())
+    sm = sl_ > 0
+    st_off = int(so[sm][0]) if st_total else 0
+    NRa = 0 if ln == 0 else (off + ln - 1) // 128 - off // 128 + 1
+    NRb = (0 if st_total == 0
+           else (st_off + st_total - 1) // 128 - st_off // 128 + 1)
+    if (NRa + NRb) * 128 > JOIN_PW_CAP or st_total >= (1 << 13):
+        return None
+    a0 = off % 128 if ln else 0
+    b0 = NRa * 128 + (st_off % 128) if st_total else 0
+    rows = np.concatenate([
+        np.arange(off // 128, off // 128 + NRa, dtype=np.int32),
+        np.arange(st_off // 128, st_off // 128 + NRb, dtype=np.int32),
+    ])
+    am = devl > 0
+    mk_lane = np.concatenate([a0 + (devo[am] - off), b0 + (so[sm] - st_off)])
+    mk_blk = np.concatenate([blks[am], blks[sm]]).astype(np.int32)
+    has_bm = bool((bmr >= 0).any())
+    return {
+        "rows": rows, "a0": a0, "la": ln, "b0": int(b0), "lb": st_total,
+        "mk_lane": mk_lane.astype(np.int64), "mk_blk": mk_blk,
+        "bm_blk": blks[bmr >= 0], "bm_row": bmr[bmr >= 0],
+        "has_bm": has_bm, "nr": int(NRa + NRb),
+    }
+
+
+def _join_query_ok(spec: _QuerySpec, infos) -> bool:
+    """A query rides the join path iff every slot fits a posting window in
+    every shard and at most one slot is bitmap-backed anywhere."""
+    if len(spec.slots) > JOIN_V_MAX or not spec.weights:
+        return False
+    n_bm = 0
+    for s in spec.slots:
+        bm = False
+        for sh_info in infos:
+            w = sh_info["wins"][s]
+            if w is None:
+                return False
+            bm |= w["has_bm"]
+        n_bm += bm
+    return n_bm <= 1
+
+
+def _build_join_plans(index: Index, slots, jspecs, infos, k: int):
+    """Per-shard join plans as numpy arrays (the reference packs the same
+    arrays into one i32 buffer a shard): a dict per shard of rows i32[B, V,
+    NR], packA / packB i32[B, V], segp i32[B, V, NS], rowtab i32[B, NBp]
+    (shard-local bitmap rows), W f32[B, V], isreq / isneg bool[B, V] and
+    nreq i32[B], and the statics NR, NS, PW, NBp, has_bm and k of the whole
+    batch.  The reference pads B to a power of two to bound its compiled
+    shapes; rows are independent, so B stays as it is here."""
+    B = len(jspecs)
+    # global slot classification: bitmap-backed in ANY shard -> last slot
+    bm_global = {
+        s: any(info["wins"][s]["has_bm"] for info in infos)
+        for spec in jspecs for s in spec.slots
+    }
+    order = []
+    for spec in jspecs:
+        csr = [s for s in spec.slots if not bm_global[s]]
+        bms = [s for s in spec.slots if bm_global[s]]
+        row = csr + [-1] * (JOIN_V_MAX - len(csr) - len(bms)) + bms
+        order.append(row)
+    has_bm = any(bm_global.values())
+    V = JOIN_V_MAX
+
+    NR = 1
+    NS = 1
+    for info in infos:
+        for spec, row in zip(jspecs, order):
+            for s in row:
+                if s < 0:
+                    continue
+                w = info["wins"][s]
+                NR = max(NR, w["nr"])
+                NS = max(NS, len(w["mk_lane"]))
+    NR = ceil_pow2(NR, 2)
+    NS = ceil_pow2(NS, 2)
+    PW = NR * 128
+    NBp = ceil_pow2(max(i["n_blocks"] for i in infos), 16)
+
+    plans = []
+    for info in infos:
+        wins = info["wins"]
+        idf = info["idf"]
+        rows = np.full((B, V, NR), -1, np.int32)
+        packA = np.zeros((B, V), np.int32)
+        packB = np.zeros((B, V), np.int32)
+        segp = np.full((B, V, NS), -1, np.int32)
+        rowtab = np.full((B, NBp), -1, np.int32)
+        W = np.zeros((B, V), np.float32)
+        isreq = np.zeros((B, V), bool)
+        isneg = np.zeros((B, V), bool)
+        nreq = np.zeros(B, np.int32)
+        for qi, (spec, row) in enumerate(zip(jspecs, order)):
+            nr_q = 0
+            for vi, s in enumerate(row):
+                if s < 0:
+                    continue
+                w = wins[s]
+                n = len(w["rows"])
+                rows[qi, vi, :n] = w["rows"]
+                packA[qi, vi] = (w["a0"] << 24) | w["la"]
+                packB[qi, vi] = (w["b0"] << 13) | w["lb"]
+                m = len(w["mk_lane"])
+                if m:
+                    segp[qi, vi, :m] = (
+                        (w["mk_lane"] << 12) | w["mk_blk"]
+                    ).astype(np.int32)
+                neg = spec.negated.get(s, False)
+                req = spec.required.get(s, False) and not neg
+                isreq[qi, vi] = req
+                isneg[qi, vi] = neg
+                if not neg and s in spec.weights:
+                    W[qi, vi] = idf[s]
+                if req:
+                    nr_q += 1
+                if vi == V - 1 and len(w["bm_blk"]):
+                    rowtab[qi, w["bm_blk"]] = w["bm_row"]
+            nreq[qi] = nr_q
+        plans.append(dict(rows=rows, packA=packA, packB=packB, segp=segp,
+                          rowtab=rowtab, W=W, isreq=isreq, isneg=isneg,
+                          nreq=nreq))
+    statics = dict(V=V, NR=NR, NS=NS, NBp=NBp, PW=PW, has_bm=has_bm, k=k)
+    return plans, statics
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 
 
@@ -600,6 +848,30 @@ def dense_plans(index: Index, requests: list[SearchRequest],
                                  plan_mod.PRUNE_BLOCKS, mode=mode)
              for sh in index.shards]
     return plans, mesh.get_stacked(index, resolve_device(device))
+
+
+def join_plans(index: Index, requests: list[SearchRequest],
+               device="cuda"):
+    """The posting-space join's inputs for a batch as its route builds
+    them: (rows, plans, statics, stacked) with the batch rows whose every
+    slot fits a window, the per-shard plans and statics of
+    _build_join_plans for those rows, and the index's StackedIndex on
+    `device` (``stacked.run_join(plans, statics)`` runs them); rows is
+    empty and plans None when a shard disqualifies the join (deletes).  A
+    way to size the join's work at a batch's real windows."""
+    slots, specs = _build_specs(index, [r.query for r in requests],
+                                [r.query_type_default for r in requests])
+    stacked = mesh.get_stacked(index, resolve_device(device))
+    infos = _join_shard_infos(index, slots, requests[0].realtime)
+    rows = [] if infos is None else [
+        i for i, sp in enumerate(specs) if _join_query_ok(sp, infos)]
+    if not rows:
+        return rows, None, None, stacked
+    need = max(r.offset + r.length for r in requests)
+    plans, statics = _build_join_plans(index, slots,
+                                       [specs[i] for i in rows], infos,
+                                       ceil_pow2(max(need, 10), 16))
+    return rows, plans, statics, stacked
 
 
 def wand_inputs(index: Index, requests: list[SearchRequest],
@@ -819,7 +1091,39 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                     if wfc is not None:
                         fc_total[:len(facet_specs), qi] += wfc[:, r, :fcm]
 
-    rest_rows = [i for i in range(B) if not wanded[i]]
+    # posting-space join (seekstorm_tpu/search.py:1614-1644): Topk batches
+    # whose queries fit posting windows; work per query follows its terms'
+    # posting counts, exact with no pruning.  Queries that do not fit (huge
+    # windows, two bitmap terms, deep pages) stay on the dense path
+    joined = np.zeros(B, bool)
+    if (mode == "imp"
+            and not with_counts and not has_phrase
+            and not req0.query_facets and not req0.facet_filter
+            and not req0.result_sort
+            and k <= STASH_K
+            and _join_backend_ok(device)):
+        infos = _join_shard_infos(index, slots, req0.realtime)
+        jrows = []
+        if infos is not None:
+            with METRICS.timer("lex_plan"):
+                jrows = [i for i, sp in enumerate(live_specs)
+                         if not wanded[i] and _join_query_ok(sp, infos)]
+                if jrows:
+                    jplans, statics = _build_join_plans(
+                        index, slots, [live_specs[i] for i in jrows], infos,
+                        k)
+        if jrows:
+            METRICS.inc("device_dispatch_total")
+            ts_j, gid_j = mesh.get_stacked(index, device).run_join(jplans,
+                                                                   statics)
+            METRICS.inc("join_rows_total", len(jrows))
+            for r, qi in enumerate(jrows):
+                valid = np.isfinite(ts_j[r])
+                merged_scores[qi] = ts_j[r][valid].astype(np.float32)
+                merged_ids[qi] = gid_j[r][valid].astype(np.int64)
+                joined[qi] = True
+
+    rest_rows = [i for i in range(B) if not joined[i] and not wanded[i]]
     if rest_rows:
         stacked = mesh.get_stacked(index, device)
         aux = dict(fcm=fcm, sort_desc=sort_desc)
@@ -857,8 +1161,9 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                 fc_total[:len(facet_specs), rest_rows] += \
                     fcounts[:len(facet_specs)]
 
-    # WAND pages are deduped and (score desc, gid asc) ordered; dense
-    # pages and a tail merge are not, and _finalize_lexical re-sorts them
+    # WAND pages are deduped and (score desc, gid asc) ordered; join and
+    # dense pages and a tail merge are not, and _finalize_lexical re-sorts
+    # them
     canonical = wanded.copy()
     for shard in index.shards:
         if req0.realtime and shard.tail_len() > 0:

@@ -37,7 +37,7 @@ from seekstorm_tpu_torch.ops import lexical as lx
 from seekstorm_tpu_torch.ops import wand as pw
 from seekstorm_tpu_torch.ops import wand_scan as ws
 from test_torch_lexical import _random_pairs
-from test_torch_search import ROUTE_ENV, _Pair, _create, _to_port
+from test_torch_search import _Pair, _create, _to_port, set_route
 from test_torch_wand_scan import _port_scan, _synth, _t
 
 ref_lex = importlib.import_module("seekstorm_tpu.ops.lexical")
@@ -83,7 +83,7 @@ def _build(path, shards, docs, tail=(), schema=_schema, **kw):
 @pytest.fixture(params=["wand", "dense"])
 def route(request, monkeypatch):
     """Both packages on one route; a sorted batch rides WAND on request."""
-    monkeypatch.setenv(ROUTE_ENV[request.param], "1")
+    set_route(monkeypatch, request.param)
     if request.param == "wand":
         monkeypatch.setenv("SEEKSTORM_TPU_WAND_SORT", "1")
     return request.param

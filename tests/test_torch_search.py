@@ -33,7 +33,24 @@ QUERIES = _queries() + ['"w001 w002" w003']
 LONG = [" ".join(f"w{i:03d}" for i in range(3, 13)),
         "+w001 " + " ".join(f"w{i:03d}" for i in range(20, 29)) + " -w050",
         " ".join(f"w{i:03d}" for i in range(100, 111))]
-ROUTE_ENV = {"wand": "SEEKSTORM_TPU_WAND", "dense": "SEEKSTORM_TPU_NO_WAND"}
+# the switches of each route, set alike in both packages: the dense route
+# pins the join off (the reference joins Topk batches on the CPU, and so
+# does the port), and the join route is the dense route with the join on
+ROUTE_ENV = {
+    "wand": {"SEEKSTORM_TPU_WAND": "1"},
+    "dense": {"SEEKSTORM_TPU_NO_WAND": "1", "SEEKSTORM_TPU_JOIN": "0"},
+    "join": {"SEEKSTORM_TPU_NO_WAND": "1", "SEEKSTORM_TPU_JOIN": "1"},
+}
+
+
+def set_route(monkeypatch, route):
+    for k, v in ROUTE_ENV[route].items():
+        monkeypatch.setenv(k, v)
+
+
+def unset_route(monkeypatch, route):
+    for k in ROUTE_ENV[route]:
+        monkeypatch.delenv(k)
 
 
 def _docs(n, seed, vocab=250):
@@ -72,13 +89,15 @@ def _create(pkg, path, schema, **kw):
     return pkg.create_index(path / pkg.__name__, schema, **kw)
 
 
-def _build(path, shards, n=BLOCK_SIZE + 6_000, tail=700):
+def _build(path, shards, n=BLOCK_SIZE + 6_000, tail=700, deletes=True):
     out = []
     for pkg in (st, pt):
         idx = _create(pkg, path, _schema(pkg), shard_count=shards)
         idx.index_documents(_docs(n, 7))
         idx.commit()
-        idx.delete_documents(list(range(0, 50_000, 211)) + [n + 3, n + 11])
+        if deletes:
+            idx.delete_documents(list(range(0, 50_000, 211))
+                                 + [n + 3, n + 11])
         idx.index_documents(_docs(tail, 8))          # uncommitted tail
         out.append(idx)
     return _Pair(*out)
@@ -112,7 +131,7 @@ def _to_port(x):
 def _pages(search, idx, reqs, monkeypatch, route=None, **env):
     """_Pages of `search` under the route's switch and extra env vars."""
     if route is not None:
-        env[ROUTE_ENV[route]] = "1"
+        env = {**ROUTE_ENV[route], **env}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     try:
@@ -195,6 +214,38 @@ def test_default_route_follows_index_size(index, min_blocks, monkeypatch,
     wand, dense = routes
     assert (wand.n, dense.n > 0) == ((0, True) if min_blocks == 16
                                      else (1, False))
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
+def undeleted(request, tmp_path_factory):
+    """9,000 docs without deletes (a shard with deletes never joins), each
+    term in under BITMAP_MIN docs, and an uncommitted tail."""
+    return _build(tmp_path_factory.mktemp("tj") / "ix", request.param,
+                  n=9_000, deletes=False)
+
+
+@pytest.mark.parametrize("rtype", [st.ResultType.Topk,
+                                   st.ResultType.TopkCount])
+@pytest.mark.parametrize("qtype", [st.QueryType.Union,
+                                   st.QueryType.Intersection])
+def test_join_route_matches_reference(undeleted, qtype, rtype, monkeypatch,
+                                      routes):
+    """The join route (SEEKSTORM_TPU_NO_WAND=1, SEEKSTORM_TPU_JOIN=1 in
+    both packages): Topk batches join (a phrase keeps a whole batch off
+    the join, so none is sent), TopkCount batches take the dense path;
+    pages equal the reference's."""
+    from seekstorm_tpu_torch.parallel import mesh
+
+    joins = _Calls(mesh.StackedIndex.run_join)
+    monkeypatch.setattr(mesh.StackedIndex, "run_join",
+                        lambda self, *a, **kw: joins(self, *a, **kw))
+    reqs = [r for r in _requests(qtype, rtype) if '"' not in r.query]
+    mine = _port(undeleted, reqs, monkeypatch, "join")
+    assert mine == _reference(undeleted, reqs, monkeypatch, "join")
+    assert routes[0].n == 0
+    assert joins.n == (rtype == st.ResultType.Topk)
+    assert (routes[1].n > 0) == (rtype == st.ResultType.TopkCount)
+    assert sum(len(p.ids) > 0 for p in mine) > len(reqs) // 2
 
 
 @pytest.mark.parametrize("route", ["wand", "dense"])
@@ -315,7 +366,7 @@ def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
         idx = _build(tmp_path / route, 1, n=9_000, tail=0)
         req = [pt.SearchRequest(query="w001 w002", length=10,
                                 result_type=pt.ResultType.TopkCount)]
-        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        set_route(monkeypatch, route)
         before = pt.search_batch(idx.port, req, device="cpu")[0]
         victims = [r.doc_id for r in before.results[:3]]
         for i in (idx.ref, idx.port):
@@ -332,7 +383,7 @@ def test_port_follows_commits_and_deletes(tmp_path, monkeypatch):
         grown = pt.search_batch(idx.port, req, device="cpu")[0]
         assert _Page(grown) == _Page(ref), route
         assert grown.result_count_total > after.result_count_total
-        monkeypatch.delenv(ROUTE_ENV[route])
+        unset_route(monkeypatch, route)
 
 
 def test_device_state_follows_clear_and_reingest(tmp_path, monkeypatch):
@@ -374,19 +425,19 @@ def test_device_state_follows_clear_and_reingest(tmp_path, monkeypatch):
     idx = _Pair(*both)
     first = {}
     for route in ("wand", "dense"):     # builds the port's device state
-        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        set_route(monkeypatch, route)
         first[route] = pt.search_batch(idx.port, [request(pt)],
                                        device="cpu")[0]
-        monkeypatch.delenv(ROUTE_ENV[route])
+        unset_route(monkeypatch, route)
     for i in (idx.ref, idx.port):
         i.clear()
         i.index_documents(docs(8))
         i.commit()
     for route in ("wand", "dense"):
-        monkeypatch.setenv(ROUTE_ENV[route], "1")
+        set_route(monkeypatch, route)
         ref = st.search_batch(idx.ref, [request(st)])[0]
         mine = pt.search_batch(idx.port, [request(pt)], device="cpu")[0]
-        monkeypatch.delenv(ROUTE_ENV[route])
+        unset_route(monkeypatch, route)
         assert _Page(mine) == _Page(ref), route
         assert mine.facets == ref.facets, route
         assert [r.doc_id for r in mine.results] != \

@@ -33,7 +33,7 @@ import torch
 
 import seekstorm_tpu_torch as pt
 from seekstorm_tpu_torch.client import RestClient, RestError
-from test_torch_search import BLOCK_JAX, ROOT, ROUTE_ENV
+from test_torch_search import BLOCK_JAX, ROOT, set_route
 
 
 def _boot(package, root, *args):
@@ -527,7 +527,7 @@ def test_concurrent_queries_match_one_by_one(tmp_path, monkeypatch, route):
     """Eight threads send the requests of a mixed workload to one freshly
     opened index (so every first-use build races) and get the answers the
     same requests get one by one on another fresh open of it."""
-    monkeypatch.setenv(ROUTE_ENV[route], "1")
+    set_route(monkeypatch, route)
     docs, vecs = _mixed_index(tmp_path / "ix")
     reqs = _mixed_requests(vecs)
 

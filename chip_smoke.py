@@ -173,7 +173,28 @@ Phases, each printing what it found:
              join, dense and WAND routes with their device time by name,
              the join's bound for the batch's windows, and each
              wand_exact_scan dispatch's time and bound, beside the card's
-             name and power limit.
+             name and power limit;
+  14. mesh:  (run after phase 11, before the server) phase 4's corpus and
+             phase 11's SIFT proxy (cut to 524,288 vectors) built again at
+             8 shards (2 blocks, 256 tiles a shard) with their tails;
+             before the mesh, phases 2-4 of the WAND route,
+             merge_shard_results and medoid_select timed beside their
+             bounds (ladder_bound, merge_bound, medoid_bound); served
+             without a mesh and then through
+             Index.attach_mesh(["cuda:0"] * 4) (2 shards and 4 WAND
+             blocks a position; and the host's cards when it has more
+             than one): the 2,048-query Topk and TopkCount batches on
+             the WAND route (SEEKSTORM_TPU_WAND=1, two blocks a shard
+             being under WAND_MIN_BLOCKS), the dense route and the join
+             route, facet2 (WAND) and geosort x 64, field_filter=["body"]
+             x 256, vector All and Nprobe 16 x 64 and hybrid x 64; pages
+             equal to no mesh (tie classes within PAGE_RTOL on the WAND
+             and join routes and for facet2 and geosort, bit for bit
+             elsewhere, facets equal); each mesh dispatch launched K1, K2
+             and K3 once a position (K2 a tile of pairs a position for
+             sorted pages) and K4 once a shard; pool rows on every
+             position; peak device memory, warm batches beside the
+             unmeshed ones and the WAND batch's device time by name.
 
 The script imports the port (seekstorm_tpu_torch), bench.py,
 bench_vector.py (numpy alone at import) and torch;
@@ -452,18 +473,30 @@ def _add_facets(docs, rng):
     return docs
 
 
-def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index"):
+# corpora made once, shared by phases 4 and 14 and by phases 11 and 14
+_DATA: dict = {}
+
+
+def _made(key, make):
+    if key not in _DATA:
+        _DATA[key] = make()
+    return _DATA[key]
+
+
+def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index",
+                shard_count=1, device="cuda"):
     import numpy as np
 
     import bench
 
     t0 = time.perf_counter()
-    docs = _add_facets(
-        bench.make_corpus(n_docs, 30_000, np.random.default_rng(7)),
-        np.random.default_rng(8))
-    tail = _add_facets(
-        bench.make_corpus(n_tail, 30_000, np.random.default_rng(8)),
-        np.random.default_rng(9))
+    docs, tail = _made(("lexical", n_docs, n_tail), lambda: (
+        _add_facets(bench.make_corpus(n_docs, 30_000,
+                                      np.random.default_rng(7)),
+                    np.random.default_rng(8)),
+        _add_facets(bench.make_corpus(n_tail, 30_000,
+                                      np.random.default_rng(8)),
+                    np.random.default_rng(9))))
     t1 = time.perf_counter()
     shutil.rmtree(path, ignore_errors=True)
     schema = [
@@ -473,16 +506,19 @@ def phase_index(st, n_docs=N_DOCS, n_tail=N_TAIL, path=WORK / "index"):
         st.SchemaField("price", st.FieldType.U16, facet=True),
         st.SchemaField("loc", st.FieldType.Point, facet=True),
     ]
-    idx = st.create_index(path, schema, shard_count=1)
+    idx = st.create_index(path, schema, shard_count=shard_count,
+                          device=device)
     idx.index_documents(docs)
     idx.commit()
     t2 = time.perf_counter()
     idx.index_documents(tail)
-    sh = idx.shards[0]
-    print(f"[index] {n_docs} docs committed in {sh.lexical.n_blocks} blocks "
-          f"+ {sh.tail_len()} uncommitted (corpus {t1 - t0:.1f} s, ingest "
-          f"+ commit {t2 - t1:.1f} s)")
-    check(sh.committed_doc_count == n_docs and sh.tail_len() == n_tail,
+    sh = idx.shards
+    print(f"[index] {n_docs} docs committed in {shard_count} shard(s) of "
+          f"{[s.lexical.n_blocks for s in sh]} blocks + "
+          f"{sum(s.tail_len() for s in sh)} uncommitted (corpus "
+          f"{t1 - t0:.1f} s, ingest + commit {t2 - t1:.1f} s)")
+    check(sum(s.committed_doc_count for s in sh) == n_docs
+          and sum(s.tail_len() for s in sh) == n_tail,
           "index holds the expected docs")
     return idx
 
@@ -2380,27 +2416,34 @@ def _exact_pages(a, b):
             == [(r.doc_id, r.score) for r in b.results])
 
 
-def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
-                 n_queries=N_VEC_QUERIES, batch=VEC_BATCH, n_cpu=64):
-    """Vector and hybrid search through search_batch on bench_vector.py's
-    SIFT proxy with a text field from bench.make_corpus."""
+def _vector_index(st, n_vec, n_tail, path, shard_count=1, device="cuda"):
+    """bench_vector.py's SIFT proxy index with a body field of
+    bench.make_corpus: n_vec vectors ingested in steps of 8,192 and
+    committed, n_tail more left uncommitted.  Returns (index, (base,
+    queries, tail, corpus), the clock after making the data, ingesting,
+    committing and ingesting the tail)."""
     import numpy as np
 
     import bench
     import bench_vector
-    from seekstorm_tpu_torch.ops import vector as V
-    from seekstorm_tpu_torch.ops import vector_scan as vs
 
     t0 = time.perf_counter()
-    base, queries = bench_vector.make_proxy("sift", n_vec,
-                                            np.random.default_rng(11))
-    tail = bench_vector.make_proxy("sift", n_tail,
-                                   np.random.default_rng(12))[0]
-    queries = queries[:n_queries]
-    corpus = bench.make_corpus(n_vec + n_tail, 30_000,
-                               np.random.default_rng(7))
+    n_made = max(n_vec, N_VEC)
+
+    def make():
+        base, queries = bench_vector.make_proxy("sift", n_made,
+                                                np.random.default_rng(11))
+        tail = bench_vector.make_proxy("sift", n_tail,
+                                       np.random.default_rng(12))[0]
+        corpus = bench.make_corpus(n_made + n_tail, 30_000,
+                                   np.random.default_rng(7))
+        return base, queries, tail, corpus
+
+    # a smaller index takes the first n_vec vectors and bodies of phase
+    # 11's data, and the bodies after them for its tail
+    base, queries, tail, corpus = _made(("vector", n_made, n_tail), make)
+    base = base[:n_vec]
     t1 = time.perf_counter()
-    path = WORK / "vindex"
     shutil.rmtree(path, ignore_errors=True)
     meta = st.IndexMeta(vector=st.VectorConfig(     # bench_vector.py:118-135
         enabled=True, dim=base.shape[1],
@@ -2411,7 +2454,8 @@ def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
         clustering=st.ClusteringConfig(mode=st.ClusteringMode.Auto)))
     schema = [st.SchemaField("vector", st.FieldType.Json, index_vector=True),
               st.SchemaField("body", st.FieldType.Text, indexed=True)]
-    idx = st.create_index(path, schema, meta=meta, shard_count=1)
+    idx = st.create_index(path, schema, meta=meta, shard_count=shard_count,
+                          device=device)
     for a in range(0, n_vec, 8192):
         idx.index_documents([{"vector": base[i], "body": corpus[i]["body"]}
                              for i in range(a, min(a + 8192, n_vec))])
@@ -2422,6 +2466,23 @@ def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
                           "body": corpus[n_vec + i]["body"]}
                          for i in range(n_tail)])
     t4 = time.perf_counter()
+    return idx, (base, queries, tail, corpus), (t0, t1, t2, t3, t4)
+
+
+def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
+                 n_queries=N_VEC_QUERIES, batch=VEC_BATCH, n_cpu=64):
+    """Vector and hybrid search through search_batch on bench_vector.py's
+    SIFT proxy with a text field from bench.make_corpus."""
+    import numpy as np
+
+    import bench
+    from seekstorm_tpu_torch.ops import vector as V
+    from seekstorm_tpu_torch.ops import vector_scan as vs
+
+    idx, (base, queries, tail, corpus), (t0, t1, t2, t3, t4) = \
+        _vector_index(st, n_vec, n_tail, WORK / "vindex")
+    path = WORK / "vindex"
+    queries = queries[:n_queries]
     shard = idx.shards[0]
     dev = idx.vectors.device(shard, "cuda")
     torch.cuda.synchronize()
@@ -2580,6 +2641,509 @@ def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
     return dict(k4_launches=launches, recall={
         tag: results[tag][1] for tag in ("All", "Nprobe 16", "Nprobe 33")},
         n_queries=n_queries, served=served)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the mesh
+
+MESH_SHARDS = 8
+MESH_POSITIONS = 4           # ["cuda:0"] * 4: 2 shards, 4 WAND blocks each
+# the vector half at half of phase 11's size: the whole phase at 1,048,576
+# vectors took 373 s, its 8-shard builds 268 s of it
+N_MESH_VEC = 1 << 19
+MESH_SMALL = 64              # requests of a facet, vector or hybrid batch
+# two blocks a shard is under WAND_MIN_BLOCKS, so the WAND route is asked for
+WAND_ROUTE = {"SEEKSTORM_TPU_WAND": "1"}
+
+
+class _mesh_dispatches:
+    """Within the block, records each mesh dispatch with the launches of
+    K1-K4 it made ({"k1": n, ...}): ("wand", n, faceted) per
+    wand_scan_mesh call, ("dense", n, faceted, tf, sorted) per
+    MeshStacked.run, ("vector", n) per vector_scan_mesh call; a list."""
+
+    def __enter__(self):
+        from seekstorm_tpu_torch.ops import dense_scan as ds
+        from seekstorm_tpu_torch.ops import facet_hist as fh
+        from seekstorm_tpu_torch.ops import vector as V
+        from seekstorm_tpu_torch.ops import vector_scan as vs
+        from seekstorm_tpu_torch.ops import wand as W
+        from seekstorm_tpu_torch.ops import wand_scan as ws
+        from seekstorm_tpu_torch.parallel import mesh as pm
+
+        self.calls = []
+        mods = dict(k1=ws, k2=ds, k3=fh, k4=vs)
+
+        def counted(kind, fn, extra=lambda a, kw: ()):
+            def run(*a, **kw):
+                before = {k: m.LAUNCHES for k, m in mods.items()}
+                out = fn(*a, **kw)
+                self.calls.append((kind, {k: m.LAUNCHES - before[k]
+                                          for k, m in mods.items()})
+                                  + tuple(extra(a, kw)))
+                return out
+            return run
+
+        self.saved = [(W, "wand_scan_mesh", W.wand_scan_mesh),
+                      (pm.MeshStacked, "run", pm.MeshStacked.run),
+                      (V, "vector_scan_mesh", V.vector_scan_mesh)]
+        W.wand_scan_mesh = counted("wand", W.wand_scan_mesh,
+                                   lambda a, kw: (kw.get("fcod") is not None,))
+        pm.MeshStacked.run = counted(
+            "dense", pm.MeshStacked.run,
+            lambda a, kw: (kw.get("fcod") is not None,
+                           kw.get("boosts") is not None,
+                           kw.get("skey") is not None))
+        V.vector_scan_mesh = counted("vector", V.vector_scan_mesh)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+class _plain_held:
+    """Within the block, holds launches of K1-K4 against their plain
+    versions on the same card tensors, right after each launch and before
+    the path reads its result: in each batch (set `batch` before it) the
+    first `per_batch[kernel]` launches of each wrapper, which are a
+    dispatch's launches on every position for K1, K2's fused mode and K3
+    (one a position) and on every shard for K4 (one a shard); K2's
+    unfused mode (sorted pages) launches a tile of pairs at a time, so
+    there the first positions' tiles.  The plain versions launch no
+    kernel, so the launch counts stay the path's.  `held` maps each
+    wrapper to (launches held, largest abs err of a finite output)."""
+
+    def __init__(self, torch, D, S):
+        self.torch = torch
+        self.per_batch = dict(k1=D, k2=D, k2f=D, k3=D, k4=S)
+        self.batch = None
+        self.seen = {}
+        self.held = {}
+
+    def _wrap(self, mod, name, key, compare):
+        fn = getattr(mod, name)
+
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            n = self.seen.get((self.batch, key), 0)
+            self.seen[(self.batch, key)] = n + 1
+            if n < self.per_batch[key]:
+                err = compare(out, a, kw, f"{self.batch}, launch {n}")
+                cnt, worst = self.held.get(name, (0, 0.0))
+                self.held[name] = (cnt + 1, max(worst, err))
+            return out
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, run)
+
+    def __enter__(self):
+        from seekstorm_tpu_torch.ops import dense_scan as ds
+        from seekstorm_tpu_torch.ops import facet_hist as fh
+        from seekstorm_tpu_torch.ops import vector as V
+        from seekstorm_tpu_torch.ops import vector_scan as vs
+        from seekstorm_tpu_torch.ops import wand_scan as ws
+
+        torch = self.torch
+
+        def bitwise(xs, ys, what, tag):
+            err = 0.0
+            for i, (x, y) in enumerate(zip(xs, ys)):
+                if x.is_floating_point():
+                    fin = torch.isfinite(y)
+                    check(torch.equal(fin, torch.isfinite(x)),
+                          f"{what} output {i}: -inf pattern differs ({tag})")
+                    if bool(fin.any()):
+                        err = max(err, float((x[fin] - y[fin]).abs().max()))
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                check(torch.equal(x, y), f"{what} output {i} not bitwise "
+                      f"equal to its plain version ({tag}, max abs err "
+                      f"{err})")
+            return err
+
+        def k1(out, a, kw, tag):
+            return bitwise(out, ws.scan_blocks_ref(*a, **kw), "K1", tag)
+
+        def k2(out, a, kw, tag):
+            return bitwise(out, ds.dense_scan_ref(*a, **kw), "K2", tag)
+
+        def k2f(out, a, kw, tag):
+            want = ds.dense_topk_ref(*a[:15], with_matched=kw.get(
+                "with_matched", False))
+            err, _ = _check_fused(torch, out[:3], want[:3], tag)
+            check(torch.equal(out[3:], want[3:]) if len(out) > 3 else True,
+                  f"K2 fused matched words differ ({tag})")
+            return err
+
+        def k3(out, a, kw, tag):
+            check(torch.equal(out, fh.facet_hist_ref(*a, **kw)),
+                  f"K3 counts differ from the plain version ({tag})")
+            return 0.0
+
+        def k4(out, a, kw, tag):
+            check(kw["quantized"], f"phase 14's vectors are i8 ({tag})")
+            return bitwise(out, V.vector_scan_ref(*a, **kw), "K4", tag)
+
+        self.saved = []
+        self._wrap(ws, "wand_scan_cuda", "k1", k1)
+        self._wrap(ds, "dense_scan_cuda", "k2", k2)
+        self._wrap(ds, "dense_topk_cuda", "k2f", k2f)
+        self._wrap(fh, "facet_hist_cuda", "k3", k3)
+        self._wrap(vs, "vector_scan_cuda", "k4", k4)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _mesh_batches(st, qs, vqueries):
+    """Phase 14's batches: (tag, index key, route env, requests, rule)
+    with rule "ties" (tie classes within PAGE_RTOL, facets equal) or
+    "exact" (ids, order, counts, scores and facets equal)."""
+    def lex(rtype):
+        return [st.SearchRequest(query=q, length=10, result_type=rtype,
+                                 realtime=True,
+                                 query_type_default=st.QueryType(t))
+                for q, t in qs]
+
+    body = [dataclasses.replace(r, field_filter=["body"])
+            for r in lex(st.ResultType.TopkCount)[:N_TF]]
+    v = vqueries[:MESH_SMALL]
+    hq = qs[:MESH_SMALL]
+    out = []
+    for rtype in (st.ResultType.Topk, st.ResultType.TopkCount):
+        name = rtype.value
+        out += [(f"WAND {name}", "lex", WAND_ROUTE, lex(rtype), "ties"),
+                (f"dense {name}", "lex", DENSE_ROUTE, lex(rtype), "exact"),
+                (f"join {name}", "lex", JOIN_ROUTE, lex(rtype), "ties")]
+    out += [("facet2", "lex", WAND_ROUTE,
+             facet_requests(st, "facet2", MESH_SMALL), "ties"),
+            ("geosort", "lex", {}, facet_requests(st, "geosort", MESH_SMALL),
+             "ties"),
+            ("field_filter body", "lex", {}, body, "exact"),
+            ("vector All", "vec", {}, _vec_reqs(st, v), "exact"),
+            ("vector Nprobe 16", "vec", {}, _vec_reqs(st, v, "Nprobe", 16),
+             "exact"),
+            ("hybrid", "vec", {}, _vec_reqs(st, v, queries=hq), "exact")]
+    return out
+
+
+def _mesh_same(rule, a, b):
+    if a.facets != b.facets:
+        return False
+    if rule == "exact":
+        return _bitwise(a, b)
+    return _same_pages(a, b)[0]
+
+
+def merge_bound(S, B, k):
+    """merge_shard_results's least time in ms for [S, B, k] pages (f32
+    scores, i64 gids) read once and the [B, k] page written once; its
+    sort's compares are not counted (bytes set it)."""
+    return _bound((S + 1) * B * k * 12, 0)
+
+
+def medoid_bound(B, C, d):
+    """medoid_select's least time in ms for B i8 queries (d bytes and four
+    f32 stats each) against C i8 medoids (d bytes, four f32 stats, two
+    flags each) read once and the [B, C] selection (1 byte) and scores
+    (4 bytes) written once; or the 2*B*C*d dot operations at the int8
+    tensor-core rate."""
+    n_bytes = B * (d + 16) + C * (d + 18) + B * C * 5
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * B * C * d / I8_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ladder_bound(Bq, NBLK, T, rung2, width):
+    """WAND phases 2-4's least time in ms (ops/wand._rung_topks,
+    _rescore_regions, _page_topk, _ladder_device): phase 1's maxima g1,
+    ub4 and ub16 and the rung-1 winners' 65 groups of allub read once; for
+    each (query, term, bucket) the rescores select (64 buckets, and 256
+    more when rung 2 runs) its presence word, rank, pool row and impact
+    offset read once (the impacts themselves, popcount(word) floats each,
+    are not counted: a lower bound); the slim buffer (width i32 a query)
+    written once.  Bytes set it."""
+    L1 = NBLK * NW
+    n_bytes = (4 * Bq * (L1 // 128 + 65 * 128 + L1 // 4 + L1 // 16)
+               + 16 * Bq * T * 64 * (1 + 4 * rung2) + 4 * Bq * width)
+    return _bound(n_bytes, 0)
+
+
+def _mesh_units(torch, st, idx, vidx, reqs, vreqs, card):
+    """Before the mesh attaches: the unmeshed WAND state's phases 2-4 at
+    the TopkCount batch's tables (wand_scan with the device ladder less
+    phase 1 alone), merge_shard_results at the mesh's page shapes and
+    medoid_select on one shard of the vector index, each timed with CUDA
+    events beside its bound.  Returns their rows for PERF.md."""
+    import numpy as np
+
+    from seekstorm_tpu_torch.ops import lexical as lx
+    from seekstorm_tpu_torch.ops import vector as V
+    from seekstorm_tpu_torch.ops import wand as W
+
+    sm = importlib.import_module("seekstorm_tpu_torch.search")
+    slots, specs = sm._build_specs(idx, [r.query for r in reqs],
+                                   [r.query_type_default for r in reqs])
+    specs = [sp for sp in specs if W.query_ok(sp)]
+    idf = np.stack([sm._shard_idf(sh, slots, True) for sh in idx.shards])
+    state = W.get_state(idx, "cuda")
+    with state.lock:
+        tables = W.plan_batch(state, slots, specs, idf)[:5]
+        pools = state.pools
+    q = [torch.from_numpy(a).cuda() for a in tables]
+
+    def full():
+        return W.wand_scan(*pools, *q, with_counts=True, with_rescore=True,
+                           need=10, multi=state.multi_shard)
+
+    def phase1():
+        return W.scan_ub(pools[0], pools[1], pools[4], pools[6], pools[7],
+                         *q, with_counts=True)
+
+    out = full()[0]
+    Bq, T = tables[1].shape
+    rung2 = bool((out[:, 1] != 0).any())
+    ms24 = _median_ms(torch, full, n=5) - _median_ms(torch, phase1, n=5)
+    b24, by24 = ladder_bound(Bq, state.nblk, T, rung2, out.shape[1])
+
+    S, B, k = MESH_SHARDS, len(reqs), 16
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ts = torch.randint(0, 64, (S, B, k), device="cuda",
+                       generator=g).float().sort(dim=2, descending=True)[0]
+    gid = torch.randint(0, 1 << 30, (S, B, k), device="cuda", generator=g)
+    ms_m = _median_ms(torch, lambda: lx.merge_shard_results(ts, gid, k))
+    flat = ts.permute(1, 0, 2).reshape(B, S * k)
+    lib_m = _median_ms(torch, lambda: torch.topk(flat, k, dim=1))
+    bm, bym = merge_bound(S, B, k)
+
+    from seekstorm_tpu_torch.vector_search import _quantize_queries
+
+    dev = vidx.vectors.device(vidx.shards[0], "cuda")
+
+    _, qb = _quantize_queries(vidx, vreqs)
+    qargs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        qb.data.astype(np.int8), qb.scale, qb.zp, qb.qsum, qb.norm2)]
+    thr = torch.full((len(vreqs),), float("-inf"), device="cuda")
+
+    def medoid():
+        return V.medoid_select(
+            dev["med_data"], dev["m_scale"], dev["m_zp"], dev["m_qsum"],
+            dev["m_norm2"], dev["m_valid"], dev["always_scan"], *qargs,
+            thr, quantized=True, euclidean=True, nprobe=16)
+
+    ms_v = _median_ms(torch, medoid)
+    C = dev["med_data"].shape[0]
+    bv, byv = medoid_bound(len(vreqs), C, dev["med_data"].shape[1])
+    rows = dict(
+        phases24=dict(ms=ms24, bound_ms=b24, bound_by=by24, Bq=Bq, T=T,
+                      nblk=state.nblk, rung2=rung2),
+        merge=dict(ms=ms_m, bound_ms=bm, bound_by=bym, library_ms=lib_m,
+                   S=S, B=B, k=k),
+        medoid=dict(ms=ms_v, bound_ms=bv, bound_by=byv, B=len(vreqs),
+                    C=C))
+    for name, r in rows.items():
+        print(f"[mesh] {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
+              f"of it; " + ", ".join(f"{k_} {v}" for k_, v in r.items()
+                                     if k_ not in ("ms", "bound_ms",
+                                                   "bound_by"))
+              + f" ({card})")
+    return rows
+
+
+def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
+               device="cuda"):
+    """Phase 14: both indexes at 8 shards, served without a mesh and then
+    through a mesh of MESH_POSITIONS positions on cuda:0 (and of the host's
+    cards when it has more than one), every page held equal.  device="cpu"
+    rehearses it on the CPU (a mesh of "cpu" positions, no launch counts,
+    no device memory or kernel times)."""
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    import numpy as np
+
+    import bench
+    from seekstorm_tpu_torch.ops import dense_scan as ds
+    from seekstorm_tpu_torch.ops import facet_hist as fh
+    from seekstorm_tpu_torch.ops import vector_scan as vs
+    from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+    from seekstorm_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    idx = phase_index(st, n_docs, path=WORK / "mesh_index",
+                      shard_count=MESH_SHARDS, device=device)
+    t0 = time.perf_counter()
+    vidx, (_, vqueries, _, _), _ = _vector_index(
+        st, n_vec, N_VEC_TAIL, WORK / "mesh_vindex", MESH_SHARDS, device)
+    t1 = time.perf_counter()
+    print(f"[mesh] vector index: {n_vec} x 128 in {MESH_SHARDS} shards + "
+          f"{N_VEC_TAIL} uncommitted, built in {t1 - t0:.1f} s")
+    indexes = dict(lex=idx, vec=vidx)
+    qs = bench.make_queries(N_QUERIES, np.random.default_rng(100))
+    batches = _mesh_batches(st, qs, vqueries)
+
+    def run_all(tag, only=None, against=None):
+        out, lat = {}, {}
+        for name, key, env, reqs, _ in batches:
+            if only is not None and name not in only:
+                continue
+            if against is not None:
+                against.batch = name
+            with _env(**env):
+                t = time.perf_counter()
+                out[name] = st.search_batch(indexes[key], reqs,
+                                            device=device)
+                sync()
+                lat[name] = time.perf_counter() - t
+        print(f"[mesh] {tag}: " + ", ".join(
+            f"{n} {lat[n] * 1e3:.0f} ms" for n in out))
+        return out, lat
+
+    plain, _ = run_all("no mesh, first batches")
+    warm_names = ("WAND TopkCount", "dense TopkCount", "vector All")
+    _, plain_warm = run_all("no mesh, warm", warm_names)
+    units = None
+    if on_card:
+        units = _mesh_units(torch, st, idx, vidx, next(
+            b[3] for b in batches if b[0] == "WAND TopkCount"), next(
+            b[3] for b in batches if b[0] == "vector All"), card)
+
+    def attach(devices):
+        mesh = st.make_mesh(devices)
+        for x in indexes.values():
+            x.attach_mesh(mesh)
+        return mesh
+
+    def held(tag, meshed):
+        for name, _, _, reqs, rule in batches:
+            if name not in meshed:
+                continue
+            bad = [i for i, (a, b) in enumerate(zip(plain[name],
+                                                    meshed[name]))
+                   if not _mesh_same(rule, a, b)]
+            print(f"[mesh] {tag} {name} x {len(reqs)}: "
+                  f"{len(reqs) - len(bad)} equal to no mesh ({rule}), "
+                  f"first mismatches {bad[:5]}")
+            if bad:
+                _show(name, plain[name][bad[0]], meshed[name][bad[0]])
+            check(not bad, f"mesh {tag}: {name} differs from no mesh")
+
+    def plain_held(tag, against):
+        """Each kernel of the path held against its plain version at least
+        once in the meshed run; prints what was held."""
+        held_ = against.held
+        for name, (n, err) in sorted(held_.items()):
+            print(f"[mesh] {tag}: {name} held against its plain version on "
+                  f"{n} launches of the meshed run (the first of each batch "
+                  f"on every position), bitwise equal, max abs err {err} "
+                  f"({card})")
+        check(all(held_.get(k) for k in ("wand_scan_cuda", "facet_hist_cuda",
+                                          "vector_scan_cuda"))
+              and (held_.get("dense_topk_cuda")
+                   or held_.get("dense_scan_cuda")),
+              f"{tag}: K1-K4 each held against its plain version "
+              f"({sorted(held_)})")
+        return held_
+
+    def launches_held(tag, calls, D, S):
+        kinds = {}
+        for kind, n, *extra in calls:
+            kinds.setdefault(kind, []).append((n, extra))
+        for n, (fac,) in kinds.get("wand", []):
+            check(n["k1"] == D and n["k3"] == (D if fac else 0),
+                  f"{tag}: a WAND dispatch launched K1 {n['k1']} and K3 "
+                  f"{n['k3']} times over {D} positions")
+        for n, (fac, tf, srt) in kinds.get("dense", []):
+            # sorted pages take K2's unfused mode, a launch a tile of pairs
+            k2_ok = n["k2"] == 0 if tf else (n["k2"] >= D if srt
+                                             else n["k2"] == D)
+            check(k2_ok and n["k3"] == (D if fac else 0),
+                  f"{tag}: a dense dispatch launched K2 {n['k2']} and K3 "
+                  f"{n['k3']} times over {D} positions")
+        for n, _ in kinds.get("vector", []):
+            check(n["k4"] == S, f"{tag}: a vector dispatch launched K4 "
+                  f"{n['k4']} times for {S} shards")
+        tot = {k: sum(n[k] for _, n, *_ in calls)
+               for k in ("k1", "k2", "k3", "k4")}
+        print(f"[mesh] {tag}: dispatches " + ", ".join(
+            f"{k} {len(v)}" for k, v in kinds.items())
+            + f"; launches K1 {tot['k1']}, K2 {tot['k2']}, K3 {tot['k3']}, "
+            f"K4 {tot['k4']} (K1, K2 and K3 once a position a dispatch, K2 "
+            f"a tile of pairs a position for sorted pages, K4 once a "
+            f"shard)")
+        check(all(kinds.get(k) for k in ("wand", "dense", "vector")),
+              f"{tag}: the WAND, dense and vector dispatches all ran")
+        return tot
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.max_memory_allocated() if on_card else 0
+    mesh = attach([f"{device}:0" if on_card else device] * MESH_POSITIONS)
+    kmods = dict(k1=ws, k2=ds, k3=fh, k4=vs)
+    for m in kmods.values():
+        m.LAUNCHES = 0
+    with _mesh_dispatches() as calls, \
+            _plain_held(torch, MESH_POSITIONS, MESH_SHARDS) as against:
+        meshed, _ = run_all(f"{mesh} first batches", against=against)
+    counted = {k: m.LAUNCHES for k, m in kmods.items()}
+    tot, plain_errs = {}, {}
+    if on_card:
+        tot = launches_held(f"{device} x {MESH_POSITIONS}", calls,
+                            MESH_POSITIONS, MESH_SHARDS)
+        check(tot == counted and all(counted.values()),
+              f"the mesh run launched {counted}, its dispatches {tot}")
+        plain_errs = plain_held(f"{device} x {MESH_POSITIONS}", against)
+    held(f"{device} x {MESH_POSITIONS}", meshed)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    _, mesh_warm = run_all(f"{mesh} warm", warm_names)
+    ws_ = W.get_state(idx, device)
+    stacked = pm.get_stacked(idx, device)
+    print(f"[mesh] WAND parts: {ws_.nblk} blocks, {ws_.nblk_local} a "
+          f"position, pool rows a position {ws_.n_prows}, pool bytes "
+          f"{ws_.pool_bytes()}; dense positions hold shards "
+          f"{[p.shard_ids for p in stacked.positions]}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (of {mem0 / 2**30:.2f} GiB before the "
+          f"mesh's state)")
+    check(ws_.D == MESH_POSITIONS and all(n > 0 for n in ws_.n_prows),
+          "every position holds WAND pool rows")
+    check(len({id(p) for p in stacked.positions}) == MESH_POSITIONS,
+          "each position has a state of its own")
+    for name in warm_names:
+        print(f"[mesh] warm {name}: no mesh {plain_warm[name] * 1e3:.1f} "
+              f"ms, {mesh} {mesh_warm[name] * 1e3:.1f} ms ({card})")
+    name, key, env, reqs, _ = next(b for b in batches
+                                   if b[0] == "WAND TopkCount")
+    if on_card:
+        with _env(**env):
+            device_kernels(torch, "mesh WAND TopkCount",
+                           lambda: st.search_batch(indexes[key], reqs,
+                                                   device=device))
+
+    n_cards = torch.cuda.device_count() if on_card else 1
+    if n_cards > 1:
+        n = max(d for d in range(1, n_cards + 1) if MESH_SHARDS % d == 0)
+        mesh = attach([f"cuda:{i}" for i in range(n)])
+        with _mesh_dispatches() as calls, \
+                _plain_held(torch, n, MESH_SHARDS) as against:
+            again, _ = run_all(f"{mesh} first batches", against=against)
+        launches_held(f"{n} cards", calls, n, MESH_SHARDS)
+        plain_held(f"{n} cards", against)
+        held(f"{n} cards", again)
+    else:
+        print("[mesh] one card: the mesh of distinct cards is not run")
+    del idx, vidx, indexes, ws_, stacked
+    shutil.rmtree(WORK / "mesh_index", ignore_errors=True)
+    shutil.rmtree(WORK / "mesh_vindex", ignore_errors=True)
+    print(f"[mesh] phase 14: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return dict(tot, units=units, plain=plain_errs)
 
 
 # ---------------------------------------------------------------------------
@@ -2997,6 +3561,15 @@ def phase_server(torch, st, card, vec, lex_path=WORK / "index"):
     return dict(launches={k: int(v) for k, v in delta.items()}, seconds=secs)
 
 
+def _mesh_plain(mesh, *names):
+    """{"launches", "max_abs_err"}: phase 14's launches of a kernel held
+    against its plain version (its wrappers' sum) and their largest
+    error."""
+    rows = [mesh["plain"][n] for n in names if n in mesh["plain"]]
+    return {"launches": sum(n for n, _ in rows),
+            "max_abs_err": max([e for _, e in rows], default=0.0)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3033,6 +3606,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4 = phase_k4(torch)
     vec = phase_vector(torch, st)
+    mesh = phase_mesh(torch, st, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     srv = phase_server(torch, st, card, vec["served"])
     shutil.rmtree(WORK / "index", ignore_errors=True)
     shutil.rmtree(vec.pop("served")["path"], ignore_errors=True)
@@ -3066,6 +3642,8 @@ def main() -> int:
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
         "server_launches": srv["launches"]["k1"],
+        "mesh_launches": mesh["k1"],
+        "mesh_plain_held": _mesh_plain(mesh, "wand_scan_cuda"),
     }, {
         "name": "dense_scan_cuda",
         "route": "cuda",
@@ -3080,6 +3658,9 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": None,
         "server_launches": srv["launches"]["k2"],
+        "mesh_launches": mesh["k2"],
+        "mesh_plain_held": _mesh_plain(mesh, "dense_topk_cuda",
+                                       "dense_scan_cuda"),
     }, {
         "name": "facet_hist_cuda",
         "route": "cuda",
@@ -3094,6 +3675,8 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
         "server_launches": srv["launches"]["k3"],
+        "mesh_launches": mesh["k3"],
+        "mesh_plain_held": _mesh_plain(mesh, "facet_hist_cuda"),
     }, {
         "name": "vector_scan_cuda",
         "route": "cuda",
@@ -3107,6 +3690,8 @@ def main() -> int:
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
         "server_launches": srv["launches"]["k4"],
+        "mesh_launches": mesh["k4"],
+        "mesh_plain_held": _mesh_plain(mesh, "vector_scan_cuda"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,16 @@ device:
     st.search_batch(idx, [st.SearchRequest(query="a b")], device="cuda")
 
 ``device="cuda"`` without CUDA raises; pass ``device="cpu"`` to run the
-plain PyTorch versions of the kernels.
+plain PyTorch versions of the kernels.  ``idx.attach_mesh(st.make_mesh(
+["cuda:0", "cuda:1"]))`` spreads the shards over several devices (a device
+may repeat: ``["cpu"] * 8`` on the CPU).
 """
 
 from .facets import index_facets_minmax, index_string_facets
 from .index import Index, create_index, open_index
 from .metrics import METRICS
 from .native import load as native_library
+from .parallel.mesh import Mesh, make_mesh
 from .schema import (
     BLOCK_SIZE,
     AccessType,
@@ -67,6 +70,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Index", "create_index", "open_index", "METRICS", "native_library",
+    "Mesh", "make_mesh",
     "dense_plans", "exact_pages", "join_plans", "wand_inputs", "BLOCK_SIZE",
     "AccessType",
     "ClusteringConfig", "ClusteringMode", "DocumentCompression", "FieldType",

@@ -559,6 +559,8 @@ dense_scan_kernel(const uint16_t* __restrict__ docid,   // [Pc]
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <bool FUSED>
 int launch(const void* docid, const void* imp, const void* bitmaps,
            const void* sat1, const void* delw, const void* p_blk,
@@ -571,13 +573,18 @@ int launch(const void* docid, const void* imp, const void* bitmaps,
       (FUSED && (split > 8 || kk < 1 || kk > KMAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = smem_bytes<FUSED>();
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // the shared-memory attribute is set once a device (it is a property of
+  // the kernel on the current device; a process may launch on several)
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES || !ready[dev]) {
+    e = cudaFuncSetAttribute(
         dense_scan_kernel<FUSED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+    if (dev < MAX_DEVICES) ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(P) * split);
@@ -591,7 +598,7 @@ int launch(const void* docid, const void* imp, const void* bitmaps,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = FUSED ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(
+  e = cudaLaunchKernelEx(
       &cfg, dense_scan_kernel<FUSED>, static_cast<const uint16_t*>(docid),
       static_cast<const float*>(imp), static_cast<const uint32_t*>(bitmaps),
       static_cast<const float*>(sat1), static_cast<const uint32_t*>(delw),

@@ -27,7 +27,9 @@
 //   Q    = sum q*r over d           (s8 tensor cores, i32, exact)
 //   core = ((Q + 128 Sa) + 128 Sb) + 16384 d
 //   a    = fma(sa sb, core, (sa zb) (Sa + 128 d))    all tiles, or one
-//   a    = fma(sa zb, Sa + 128 d, (sa sb) core)      2+ selected tiles
+//                                                   slot, or a 1-tile pool
+//   a    = fma(sa zb, Sa + 128 d, (sa sb) core)      2+ selected slots of a
+//                                                   pool of 2+ tiles
 //   dot  = fma(d za, zb, fma(sb za, Sb + 128 d, a))
 //   f32 mode: dot = fma(q_{d-1}, r_{d-1}, ... fma(q_0, r_0, 0)), one fixed
 //              order on CUDA cores (TF32 would break the f32 contract);
@@ -374,7 +376,8 @@ running_scan(const unsigned char* __restrict__ data,
              const float* __restrict__ q_norm2,
              const float* __restrict__ score_min, int B, int d, int G,
              int kk, int euclidean, int use_ff, int with_counts, int probe,
-             float* __restrict__ list_v, uint32_t* __restrict__ list_p,
+             int gath, float* __restrict__ list_v,
+             uint32_t* __restrict__ list_p,
              Key* __restrict__ gthr, Key* __restrict__ best,
              Key* __restrict__ bucket, int* __restrict__ counts) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -399,7 +402,7 @@ running_scan(const unsigned char* __restrict__ data,
   const int nchunks = row_bytes / CB;
   // the probe pass scores only each range's first slot
   const int n_it = (probe ? 1 : s1 - s0) * nchunks;
-  const bool gathered = tile_ids != nullptr && NT > 1;
+  const bool gathered = gath != 0;
   const float fd = (float)d;
   const bool live = q0 + 16 * mt < B;  // the warp's m16 tile has a query
   const bool small_d = d <= 256;
@@ -846,7 +849,7 @@ tile_scan(const uint32_t* __restrict__ data, const float* __restrict__ scale,
           const float* __restrict__ q_qsum,
           const float* __restrict__ q_norm2,
           const float* __restrict__ score_min, int B, int d, int W, int kk,
-          int euclidean, int use_ff, int with_counts,
+          int euclidean, int use_ff, int with_counts, int gath,
           float* __restrict__ list_v, uint32_t* __restrict__ list_p,
           int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -912,7 +915,7 @@ tile_scan(const uint32_t* __restrict__ data, const float* __restrict__ scale,
   const bool ok = row_ok(docid[row], tile, fieldid[row], deleted, n_deleted,
                          field_ok, n_field, use_ff);
   const float sb = scale[row], zb = zp[row], Sb = qsum[row], n2 = norm2[row];
-  const bool gathered = tile_ids != nullptr && NT > 1;
+  const bool gathered = gath != 0;
   const uint32_t pos = (uint32_t)slot * T + t;
 
 #pragma unroll
@@ -1201,7 +1204,7 @@ cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
                  const float* q_scale, const float* q_zp,
                  const float* q_qsum, const float* q_norm2,
                  const float* score_min, int B, int d, int k, int kk,
-                 int G, int euclidean, int use_ff, int with_counts,
+                 int G, int euclidean, int use_ff, int with_counts, int gath,
                  float* list_v, uint32_t* list_p, Key* gthr, int* counts) {
   cudaError_t err;
   if (G > 0) {
@@ -1220,7 +1223,8 @@ cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
           docid, fieldid, deleted, n_deleted, field_ok, n_field, tile_ids,
           NT, static_cast<const unsigned char*>(q_data), q_scale, q_zp,
           q_qsum, q_norm2, score_min, B, d, G, kk, euclidean, use_ff,
-          with_counts, probe, list_v, list_p, gthr, best, bucket, counts);
+          with_counts, probe, gath, list_v, list_p, gthr, best, bucket,
+          counts);
       if (probe)
         merge::select_threshold<<<B, 32, 0, stream>>>(best, G, kk, gthr,
                                                        bucket);
@@ -1237,22 +1241,24 @@ cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
       fieldid, deleted, n_deleted, field_ok, n_field, tile_ids, NT,
       static_cast<const uint32_t*>(q_data), q_scale, q_zp, q_qsum, q_norm2,
       score_min, B, d, QUANT ? d / 4 : d, k < T ? k : T, euclidean, use_ff,
-      with_counts, list_v, list_p, counts);
+      with_counts, gath, list_v, list_p, counts);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // d a multiple of 128, k >= 1, NT >= 1, B >= 1; tile_ids may be null (all
-// NT tiles in order).  G >= 1 (k <= 32 only) takes the running scan over G
-// slot ranges (G <= min(NT, 256)), whose lists are list_v / list_p
-// [B, G, 32], with gthr [B + B*G + B*32] its scratch (the shared
-// thresholds, the probe pass's best keys, each query's 32 buckets); G = 0
-// the per-tile scan, lists [B, NT, min(k, 256)].  The merge takes lists of
-// up to 8,192 entries a query in one pass, else keeps a running top-P (P
-// a power of two >= min(k, NT*256), at least 32): in shared memory when
-// merge_scratch is null (P <= 4,096), else in merge_scratch (B * 16 * P
-// bytes).  Writes out_vals / out_rows [B, k] and adds counts[B].  Returns
+// NT tiles in order).  gathered != 0 takes the corrections' order of a scan
+// that gathers its tiles (the reference's, for two or more slots of a pool
+// of two or more tiles; ops/vector.py).  G >= 1 (k <= 32 only) takes the
+// running scan over G slot ranges (G <= min(NT, 256)), whose lists are
+// list_v / list_p [B, G, 32], with gthr [B + B*G + B*32] its scratch (the
+// shared thresholds, the probe pass's best keys, each query's 32 buckets);
+// G = 0 the per-tile scan, lists [B, NT, min(k, 256)].  The merge takes
+// lists of up to 8,192 entries a query in one pass, else keeps a running
+// top-P (P a power of two >= min(k, NT*256), at least 32): in shared memory
+// when merge_scratch is null (P <= 4,096), else in merge_scratch (B * 16 *
+// P bytes).  Writes out_vals / out_rows [B, k] and adds counts[B].  Returns
 // cudaGetLastError() after the launches.
 extern "C" int vector_scan_launch(
     const void* data, const float* scale, const float* zp, const float* qsum,
@@ -1262,9 +1268,9 @@ extern "C" int vector_scan_launch(
     const void* q_data, const float* q_scale, const float* q_zp,
     const float* q_qsum, const float* q_norm2, const float* score_min, int B,
     int d, int k, int quantized, int euclidean, int use_ff, int with_counts,
-    int G, float* list_v, unsigned int* list_p, unsigned long long* gthr,
-    int P, void* merge_scratch, float* out_vals, int* out_rows, int* counts,
-    cudaStream_t stream) {
+    int gathered, int G, float* list_v, unsigned int* list_p,
+    unsigned long long* gthr, int P, void* merge_scratch, float* out_vals,
+    int* out_rows, int* counts, cudaStream_t stream) {
   const long long rows = (long long)NT * T;
   const int kk = (int)(k < rows ? k : rows);
   if (d <= 0 || d % 128 || k < 1 || NT < 1 || B < 1 || rows > 0x7fffffffLL ||
@@ -1277,13 +1283,13 @@ extern "C" int vector_scan_launch(
           ? scan<true>(stream, data, scale, zp, qsum, norm2, docid, fieldid,
                        deleted, n_deleted, field_ok, n_field, tile_ids, NT,
                        q_data, q_scale, q_zp, q_qsum, q_norm2, score_min, B,
-                       d, k, kk, G, euclidean, use_ff, with_counts, list_v,
-                       list_p, gthr, counts)
+                       d, k, kk, G, euclidean, use_ff, with_counts, gathered,
+                       list_v, list_p, gthr, counts)
           : scan<false>(stream, data, scale, zp, qsum, norm2, docid, fieldid,
                         deleted, n_deleted, field_ok, n_field, tile_ids, NT,
                         q_data, q_scale, q_zp, q_qsum, q_norm2, score_min, B,
-                        d, k, kk, G, euclidean, use_ff, with_counts, list_v,
-                        list_p, gthr, counts);
+                        d, k, kk, G, euclidean, use_ff, with_counts,
+                        gathered, list_v, list_p, gthr, counts);
   if (err != cudaSuccess) return (int)err;
   const int L = G > 0 ? G : NT;
   const int LK = G > 0 ? run::KK : (k < T ? k : T);

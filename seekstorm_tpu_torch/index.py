@@ -7,8 +7,9 @@ for byte.  What differs: an index is bound to a torch device (``device=`` of
 frequent-word warmup runs through the port's ``search_batch``;
 ``precompile`` is gone (PyTorch compiles nothing per shape); a delete during
 commit's warmup leaves the warmup cache empty instead of stale (``warmup``);
-``attach_mesh`` (A.9) raises NotImplementedError.  A vector index's
-commit-time clustering runs on the index's device.
+``attach_mesh`` takes a list of torch devices (``parallel/mesh.Mesh``), which
+may repeat a device, in place of a JAX mesh.  A vector index's commit-time
+clustering runs on the index's device.
 
 Structure mirrors the reference's lifecycle (reference seekstorm/src/index.rs
 create_index :1886 / open_index :3832 / doc CRUD traits :5081-5299,
@@ -1430,8 +1431,35 @@ class Index:
 
     # ------------------------------------------------------------------
     def attach_mesh(self, mesh=None) -> None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP A.9 multi-device)")
+        """Attach a device mesh (a ``parallel/mesh.Mesh`` or a list of torch
+        devices): shard ranges are spread over its positions, every search
+        runs on them and merges on the lead device.  With mesh=None, the
+        largest count of the index's device family that divides
+        shard_count: ``cuda:0 .. cuda:n-1`` of the host's cards, or the one
+        ``cpu``.  The device state is rebuilt for the mesh."""
+        from .parallel.mesh import Mesh, make_mesh
+
+        if mesh is None:
+            if self.device.type == "cuda":
+                import torch
+
+                # no card: Mesh refuses "cuda" as resolve_device does
+                devs = [f"cuda:{i}" for i in range(
+                    torch.cuda.device_count())] or ["cuda"]
+            else:
+                devs = ["cpu"]
+            n = max(d for d in range(1, len(devs) + 1)
+                    if self.shard_count % d == 0)
+            mesh = make_mesh(devs[:n])
+        elif not isinstance(mesh, Mesh):
+            mesh = make_mesh(mesh)
+        if self.shard_count % mesh.devices.size:
+            raise ValueError(f"a mesh of {mesh.devices.size} positions does "
+                             f"not divide {self.shard_count} shards")
+        with self._lock:
+            self._mesh = mesh
+            for name in ("_torch_wand_states", "_torch_dense_states"):
+                self.__dict__.pop(name, None)
 
     # ------------------------------------------------------------------
     def clear(self) -> None:

@@ -227,10 +227,10 @@ def dense_scan_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _count_launch()
-    err = lib.dense_scan_launch(*_pointers(*ins), P, T, out.data_ptr(),
-                                cnt.data_ptr(),
-                                mwords.data_ptr() if with_matched else None,
-                                stream)
+    with torch.cuda.device(dev):
+        err = lib.dense_scan_launch(
+            *_pointers(*ins), P, T, out.data_ptr(), cnt.data_ptr(),
+            mwords.data_ptr() if with_matched else None, stream)
     if err != 0:
         raise RuntimeError(f"dense_scan_cuda launch failed (error {err})")
     if with_matched:
@@ -365,11 +365,11 @@ def dense_topk_cuda(docid, imp, bitmaps, sat1, delw, p_blk, p_q, p_nreq,
     lib = _build.load("dense_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _count_launch()
-    err = lib.dense_topk_launch(*_pointers(*ins), P, T, kk, split,
-                                vals.data_ptr(), docs.data_ptr(),
-                                cnt.data_ptr(),
-                                mwords.data_ptr() if with_matched else None,
-                                stream)
+    with torch.cuda.device(dev):
+        err = lib.dense_topk_launch(
+            *_pointers(*ins), P, T, kk, split, vals.data_ptr(),
+            docs.data_ptr(), cnt.data_ptr(),
+            mwords.data_ptr() if with_matched else None, stream)
     if err != 0:
         raise RuntimeError(f"dense_topk_cuda launch failed (error {err})")
     if with_matched:

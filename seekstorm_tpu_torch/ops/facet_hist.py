@@ -106,10 +106,11 @@ def facet_hist_cuda(mwords, p_blk, p_row, codes, fcm: int, n_rows: int):
     lib = _build.load("facet_hist")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _count_launch()
-    err = lib.facet_hist_launch(
-        mwords.data_ptr(), p_blk.data_ptr(), p_row.data_ptr(),
-        codes.data_ptr(), ncode // BLOCK_SIZE, P, NF, fcm, n_rows,
-        out.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = lib.facet_hist_launch(
+            mwords.data_ptr(), p_blk.data_ptr(), p_row.data_ptr(),
+            codes.data_ptr(), ncode // BLOCK_SIZE, P, NF, fcm, n_rows,
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"facet_hist_cuda launch failed (error {err})")
     return out

@@ -3,9 +3,10 @@
 the medoid cluster selection.
 
 Port of ``seekstorm_tpu/ops/vector.py``: ``_dots`` (28), ``_reconstruct``
-(50), ``vector_scan_topk`` (74-157) and ``medoid_select`` (160-191).  The
-mesh programs (``make_medoid_mesh``, ``make_vector_scan_mesh``) are not
-ported (ROADMAP A.9).
+(50), ``vector_scan_topk`` (74-157), ``medoid_select`` (160-191), and the
+mesh programs ``make_medoid_mesh`` (202) and ``make_vector_scan_mesh`` (247)
+as ``medoid_mesh`` and ``vector_scan_mesh``, which run the one-device
+functions on each position's shards and gather on the lead device.
 
 Vectors live on the device as [n_tiles, T=256, d] int8 (or f32) with per-row
 affine stats (scale, zero point, qsum) and exact pre-quantization norms; the
@@ -20,7 +21,9 @@ multiply-adds, and which product it fuses first depends on the program
 and 1 to 16 tiles): where the rows come straight from their arrays (the
 exhaustive scan, the medoids) ``fma(sa*sb, core, (sa*zb)*(Sa+128d))``;
 where the scan gathers two or more selected tiles first (the serving path
-pads them to four or more), ``fma(sa*zb, Sa+128d, (sa*sb)*core)``; then
+pads them to four or more) from a pool of two or more tiles,
+``fma(sa*zb, Sa+128d, (sa*sb)*core)`` (``gathered_order``; a one-tile pool
+is read whole, as by the exhaustive scan); then
 ``fma(sb*za, Sb+128d, .)`` and ``fma(d*za, zb, .)`` in both.  The plain
 version repeats that order with ``fma32`` and K4 with ``__fmaf_rn``, so the
 i8 scan states no tolerance.  (At some odd batches, 3 and 5 of those tried,
@@ -172,6 +175,15 @@ def _candidates(data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field,
     return torch.cat(cand_s, dim=1), torch.cat(cand_r, dim=1), counts
 
 
+def gathered_order(exhaustive: bool, NT: int, n_tiles: int) -> bool:
+    """Whether a scan of NT slots over a pool of n_tiles tiles takes the
+    corrections' order of a scan that gathers its tiles (module docstring):
+    the reference's XLA gathers two or more selected slots, unless the pool
+    holds a single tile, which it reads whole (a one-tile shard scanned for
+    nprobe).  K4 takes the same flag."""
+    return not exhaustive and NT > 1 and n_tiles > 1
+
+
 def _slots(data, tile_ids, exhaustive):
     if exhaustive:
         return torch.arange(data.shape[0], dtype=torch.int64,
@@ -183,10 +195,13 @@ def vector_scan_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
                     row_field, deleted, tile_ids, field_ok, q_data, q_scale,
                     q_zp, q_qsum, q_norm2, score_min, *, k: int,
                     quantized: bool, euclidean: bool, with_counts: bool,
-                    exhaustive: bool, use_field_filter: bool):
+                    exhaustive: bool, use_field_filter: bool,
+                    pool_tiles: int = 0):
     """Plain PyTorch form of the reference's ``vector_scan_topk``, same
     arguments and returns: (scores f32[B,k], rows i32[B,k] global row ids,
-    counts i32[B]).
+    counts i32[B]).  pool_tiles: the tile count whose corrections' order
+    (gathered_order) the scan takes, a mesh's common padded count; 0 reads
+    data's own.
 
     data i8/f32 [n_tiles, T, d]; r_* f32[n_tiles, T]; row_docid / row_field
     i32[n_tiles, T] (docid -1 = padding); deleted bool[n_docs_pad] by
@@ -202,7 +217,8 @@ def vector_scan_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
         data, r_scale, r_zp, r_qsum, r_norm2, row_docid, row_field, deleted,
         field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2, score_min, tids,
         min(k, NT * data.shape[1]), quantized=quantized, euclidean=euclidean,
-        with_counts=with_counts, gathered=not exhaustive and NT > 1,
+        with_counts=with_counts,
+        gathered=gathered_order(exhaustive, NT, pool_tiles or data.shape[0]),
         use_field_filter=use_field_filter)
     ts, rows = merge_candidates(s, r, k)
     return ts, rows, counts.to(torch.int32)
@@ -237,7 +253,7 @@ def vector_scan_split_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
             deleted, field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2,
             score_min, tids[a:b], kk, quantized=quantized,
             euclidean=euclidean, with_counts=with_counts,
-            gathered=not exhaustive and NT > 1,
+            gathered=gathered_order(exhaustive, NT, data.shape[0]),
             use_field_filter=use_field_filter)
         s, r = merge_candidates(s, r, min(kk, (b - a) * T))
         lists_s.append(s)
@@ -291,7 +307,7 @@ def vector_scan_running_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
             deleted, field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2,
             score_min, tids[i:i + 1], T, quantized=quantized,
             euclidean=euclidean, with_counts=with_counts,
-            gathered=not exhaustive and NT > 1,
+            gathered=gathered_order(exhaustive, NT, data.shape[0]),
             use_field_filter=use_field_filter)
         at = i * T + (r % T).cpu().numpy()
         np.put_along_axis(vals, at, s.cpu().numpy(), axis=1)
@@ -391,3 +407,81 @@ def medoid_select(med_data, m_scale, m_zp, m_qsum, m_norm2, m_valid,
     sel = sel & (scores >= cluster_thr[:, None])
     sel = sel | always_scan[None, :]
     return sel, scores
+
+
+# ---------------------------------------------------------------------------
+# mesh: each position runs the one-device functions on its own shards
+# (IndexVectors.device_stacked) and the results gather on the lead device
+
+
+def _put_all(arrays, dev):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+def medoid_mesh(positions, q, cluster_thr, *, C_pad: int, quantized: bool,
+                euclidean: bool, nprobe: int, lead):
+    """Cluster selection over a mesh (the reference's make_medoid_mesh,
+    ops/vector.py:202-244): medoid_select on every local shard of every
+    position, kept to the shard's real clusters (``sel & m_valid``).
+    positions: device_stacked's per-position dicts; q: the queries
+    (q_data, q_scale, q_zp, q_qsum, q_norm2) and cluster_thr f32[B], numpy.
+    Returns, on `lead`, (any_sel bool[S, C_pad] the batch's union selection
+    per shard in (position, local shard) order, False past a shard's own
+    C_pad; obs_cl i32[B] clusters and obs_vec i64[B] vectors each query
+    observed, summed over shards)."""
+    sels, ocl, ovec = [], 0, 0
+    for p in positions:
+        qd = _put_all(list(q) + [cluster_thr], p["device"])
+        for h in p["shards"]:
+            sel, _ = medoid_select(
+                h["med_data"], h["m_scale"], h["m_zp"], h["m_qsum"],
+                h["m_norm2"], h["m_valid"], h["always_scan"], *qd,
+                quantized=quantized, euclidean=euclidean, nprobe=nprobe)
+            sel = sel & h["m_valid"][None, :]
+            any_sel = torch.zeros(C_pad, dtype=torch.bool, device=lead)
+            any_sel[:sel.shape[1]] = sel.any(dim=0).to(lead)
+            sels.append(any_sel)
+            ocl = ocl + sel.sum(dim=1, dtype=torch.int32).to(lead)
+            ovec = ovec + (sel * h["sizes"][None, :]).sum(dim=1).to(lead)
+    return torch.stack(sels), ocl, ovec
+
+
+def vector_scan_mesh(positions, tile_ids, field_ok, q, score_min, *, S: int,
+                     k: int, quantized: bool, euclidean: bool,
+                     with_counts: bool, exhaustive: bool,
+                     use_field_filter: bool, pool_tiles: int, lead):
+    """The tiled distance scan over a mesh (the reference's
+    make_vector_scan_mesh, ops/vector.py:247-292): vector_scan_topk (K4 on
+    CUDA) on every local shard of every position, gid = docid * S + shard.
+    positions: device_stacked's per-position dicts, each with ``deleted``,
+    its shards' deleted masks; tile_ids i32[S, NT_sel] (ignored when
+    exhaustive), field_ok bool[nf_pad], q as medoid_mesh's and score_min
+    f32[B], numpy; pool_tiles: the mesh's common tile count, which the
+    reference's padded pools scan with.  Returns, on `lead`, (ts f32[B,
+    S*k], gid i64[B, S*k], counts i32[B]): the shards' candidates
+    unmerged, in (position, local shard, k) order, and the summed
+    counts."""
+    ts_l, gid_l, cnt = [], [], 0
+    s = 0
+    for p in positions:
+        dev = p["device"]
+        qd = _put_all(list(q), dev)
+        fok, smin = _put_all([field_ok, score_min], dev)
+        for h, deleted in zip(p["shards"], p["deleted"]):
+            tid = torch.from_numpy(np.ascontiguousarray(tile_ids[s])).to(dev)
+            ts, rows, c = vector_scan_topk(
+                h["data"], h["scale"], h["zp"], h["qsum"], h["norm2"],
+                h["docid"], h["fieldid"], deleted, tid, fok, *qd, smin, k=k,
+                quantized=quantized, euclidean=euclidean,
+                with_counts=with_counts, exhaustive=exhaustive,
+                use_field_filter=use_field_filter, pool_tiles=pool_tiles)
+            did = h["docid"].reshape(-1)[rows.long().clamp(min=0)]
+            ts_l.append(ts.to(lead))
+            gid_l.append((did.long() * S + s).to(lead))
+            cnt = cnt + c.to(lead)
+            s += 1
+    B = ts_l[0].shape[0]
+    ts = torch.stack(ts_l).permute(1, 0, 2).reshape(B, S * k)
+    gid = torch.stack(gid_l).permute(1, 0, 2).reshape(B, S * k)
+    return ts, gid, cnt

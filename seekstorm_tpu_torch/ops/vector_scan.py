@@ -23,6 +23,7 @@ import torch
 
 from ..metrics import METRICS
 from ..utils import ceil_pow2
+from .vector import gathered_order
 from .wand_scan import _check
 
 TILE = 256
@@ -60,7 +61,8 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
                      row_field, deleted, tile_ids, field_ok, q_data, q_scale,
                      q_zp, q_qsum, q_norm2, score_min, *, k: int,
                      quantized: bool, euclidean: bool, with_counts: bool,
-                     exhaustive: bool, use_field_filter: bool):
+                     exhaustive: bool, use_field_filter: bool,
+                     pool_tiles: int = 0):
     """K4 on CUDA tensors: same contract as vector_scan_ref."""
     from .. import _build
 
@@ -124,18 +126,20 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     lib = _build.load("vector_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _count_launch()
-    err = lib.vector_scan_launch(
-        data.data_ptr(), r_scale.data_ptr(), r_zp.data_ptr(),
-        r_qsum.data_ptr(), r_norm2.data_ptr(), row_docid.data_ptr(),
-        row_field.data_ptr(), deleted.data_ptr(), deleted.shape[0],
-        field_ok.data_ptr(), field_ok.shape[0], tid_ptr, NT,
-        q_data.data_ptr(), q_scale.data_ptr(), q_zp.data_ptr(),
-        q_qsum.data_ptr(), q_norm2.data_ptr(), score_min.data_ptr(), B, d,
-        k, int(quantized), int(euclidean), int(use_field_filter),
-        int(with_counts), G, list_v.data_ptr(), list_p.data_ptr(),
-        None if gthr is None else gthr.data_ptr(), P,
-        None if scratch is None else scratch.data_ptr(), vals.data_ptr(),
-        rows.data_ptr(), counts.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = lib.vector_scan_launch(
+            data.data_ptr(), r_scale.data_ptr(), r_zp.data_ptr(),
+            r_qsum.data_ptr(), r_norm2.data_ptr(), row_docid.data_ptr(),
+            row_field.data_ptr(), deleted.data_ptr(), deleted.shape[0],
+            field_ok.data_ptr(), field_ok.shape[0], tid_ptr, NT,
+            q_data.data_ptr(), q_scale.data_ptr(), q_zp.data_ptr(),
+            q_qsum.data_ptr(), q_norm2.data_ptr(), score_min.data_ptr(), B,
+            d, k, int(quantized), int(euclidean), int(use_field_filter),
+            int(with_counts), int(gathered_order(exhaustive, NT, pool_tiles or n_tiles)), G,
+            list_v.data_ptr(), list_p.data_ptr(),
+            None if gthr is None else gthr.data_ptr(), P,
+            None if scratch is None else scratch.data_ptr(),
+            vals.data_ptr(), rows.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vector_scan_cuda launch failed (error {err})")
     return vals, rows, counts

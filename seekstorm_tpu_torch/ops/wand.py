@@ -136,7 +136,7 @@ _BELOW = torch.tensor([(1 << b) - 1 for b in range(32)], dtype=torch.int32)
 
 def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
                      slotmap, tslot, treq, tneg, wshard, ids, vals,
-                     filtw=None):
+                     filtw=None, bucket_off: int = 0):
     """Phase 3: exact rescore of the selected buckets.
 
     ids / vals [Bq, K]: bucket ids and their UBs (-inf = unselected).  For
@@ -146,9 +146,11 @@ def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
     one term at a time in column order with a separate mul and add, the
     host rescore's two-rounding chain, so UB >= score stays bitwise.
     filtw i32[NBLK, NW]: a facet filter's disallowed words, or None.
+    bucket_off: the global id of the pools' first bucket (a mesh part's),
+    added to the lanes.
 
     Returns (score f32[Bq, K*32] with -inf for unmatched lanes, lane
-    i32[Bq, K*32] doc lanes = bucket*32 + bit, found i32[Bq])."""
+    i32[Bq, K*32] doc lanes = global bucket*32 + bit, found i32[Bq])."""
     dev = ppool.device
     Bq, K = ids.shape
     T = tslot.shape[1]
@@ -209,7 +211,7 @@ def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
     score = torch.where(matched, score,
                         torch.full((), float("-inf"), device=dev))
     found = matched.sum(dim=(1, 2), dtype=torch.int32)
-    lane = (ids_c[:, :, None] * 32
+    lane = ((ids_c[:, :, None] + bucket_off) * 32
             + bit.long()).reshape(Bq, K * 32).to(torch.int32)
     return score.reshape(Bq, K * 32), lane, found
 
@@ -235,25 +237,47 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
 
       [0] exact match count  [1] code (0/1 = terminated at device rung,
       2 = pending -> host)   [2] matched-candidate count  [3] reserved
-      [4 : 4+2*P] page (P scores as f32 bits | P lanes)
+      [4 : 4+2*D*P] page (D*P scores as f32 bits | D*P lanes)
       [A : A+K_SEL+1] rung-3 region ids + next_ub
-      [s_gt1: A+KP : A+2*KP] rung-1 bucket ids + next_ub."""
+      [s_gt1: A+KP : A+2*KP] rung-1 bucket ids + next_ub.
+
+    rescore_fn(ids, vals) returns one (score, lane, found) per mesh
+    position (one on one device): each position pages its own candidates,
+    and the reference's gather and psum hooks (wand.py:722-800) lay the
+    positions' [Bq, P] pages side by side on cnt's device and add their
+    found counts and tie-cut flags there."""
     dev = cnt.device
     ninf = float("-inf")
     margin = torch.tensor(MARGIN, dtype=torch.float32, device=dev)
 
-    def terminated(psc, found, next_ub, n_ge):
-        kth = psc[:, need - 1]
+    def gather(xs):
+        return xs[0] if len(xs) == 1 else torch.cat([x.to(dev) for x in xs],
+                                                    dim=1)
+
+    def psum(xs):
+        return xs[0] if len(xs) == 1 else sum(x.to(dev) for x in xs)
+
+    def one_rung(ids, vals):
+        return [_page_topk(sc, lane) + (found,)
+                for sc, lane, found in rescore_fn(ids, vals)]
+
+    def merge(pages, next_ub):
+        psc = gather([p[0] for p in pages])
+        plane = gather([p[1] for p in pages])
+        found = psum([p[3] for p in pages])
+        # one page is sorted already; several are ranked (lax.top_k)
+        kth = psc[:, need - 1] if len(pages) == 1 else \
+            torch.topk(psc, need, dim=1).values[:, need - 1]
         term = (next_ub == ninf) | ((found >= need)
                                     & (kth > next_ub * margin))
         if multi:
-            term = term & ~(n_ge > P_PAGE)
-        return term
+            bad = psum([(p[2] > P_PAGE).to(torch.int32) for p in pages])
+            term = term & (bad == 0)
+        return psc, plane, found, term
 
     vals1, ids1 = rungs[0]
-    sc, lane, found1 = rescore_fn(ids1[:, :K_SEL], vals1[:, :K_SEL])
-    psc1, plane1, n_ge1 = _page_topk(sc, lane)
-    term1 = terminated(psc1, found1, vals1[:, K_SEL], n_ge1)
+    psc1, plane1, found1, term1 = merge(
+        one_rung(ids1[:, :K_SEL], vals1[:, :K_SEL]), vals1[:, K_SEL])
 
     vals2, ids2 = rungs[1]
     F2 = F_LADDER[1]
@@ -263,13 +287,14 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
                 + torch.arange(F2, dtype=torch.int32, device=dev)
                 ).reshape(Bq, K_SEL * F2)
         valsb = torch.repeat_interleave(vals2[:, :K_SEL], F2, dim=1)
-        sc, lane, found2 = rescore_fn(idsb, valsb)
-        psc2, plane2, n_ge2 = _page_topk(sc, lane)
+        pages2 = one_rung(idsb, valsb)
     else:
-        psc2 = torch.full((Bq, P_PAGE), ninf, device=dev)
-        plane2 = torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev)
-        n_ge2 = found2 = torch.zeros(Bq, dtype=torch.int32, device=dev)
-    term2 = terminated(psc2, found2, vals2[:, K_SEL], n_ge2)
+        skip = (torch.full((Bq, P_PAGE), ninf, device=dev),
+                torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev),
+                torch.zeros(Bq, dtype=torch.int32, device=dev),
+                torch.zeros(Bq, dtype=torch.int32, device=dev))
+        pages2 = [skip] * (psc1.shape[1] // P_PAGE)
+    psc2, plane2, found2, term2 = merge(pages2, vals2[:, K_SEL])
 
     code = torch.where(term1, 0, torch.where(term2, 1, 2)).to(torch.int32)
     psc = torch.where(term1[:, None], psc1, psc2)
@@ -342,22 +367,12 @@ def scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq, tneg,
                        with_counts=with_counts, with_matched=with_matched)
 
 
-def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
-              slotmap, tslot, treq, tneg, wshard, *, with_counts: bool,
-              with_rescore: bool, need: int = 0, multi: bool = False,
-              filtw=None, fcod=None, fcm: int = 1, skeyb=None):
-    """One WAND dispatch over the resident pools.
-
-    filtw i32[NBLK, NW]: a facet filter's disallowed words.  fcod
-    i32[NF, NBLK*BLOCK_SIZE] with code space fcm: the facet histogram fc
-    i32[NF, Bq, fcm] over every matched doc, from phase 1's matched words
-    (K3 on CUDA).  skeyb f32[NBLK, NW] (rank-by-key, the reference's
-    wand.py:275-283): a bucket's bound is its best sort key where a doc
-    matched, and the rungs rank those.
-
-    Returns (out, fc), fc None without fcod: with_rescore=True out is the
-    slim i32 buffer of _ladder_device; otherwise (cnt i32[Bq], rungs) for
-    the host rung ladder."""
+def _scan_local(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq,
+                tneg, wshard, *, with_counts: bool, filtw=None, fcod=None,
+                fcm: int = 1, skeyb=None):
+    """Phases 1 and 2 over one device's pools (the reference's _scan_local):
+    (cnt i32[Bq], rungs, fc i32[NF, Bq, fcm] or None), region ids local to
+    the pools' blocks.  Arguments as wand_scan's."""
     NBLK = sp_prow.shape[1]
     want_matched = fcod is not None or skeyb is not None
     allub, cnt, *rest = scan_ub(ppool, vpool, sp_prow, delw, sid, slotmap,
@@ -378,17 +393,106 @@ def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
                                 torch.full((), float("-inf"),
                                            device=mwords.device))
             maxima = None
-    rungs = _rung_topks(allub, NBLK, maxima)
+    return cnt, _rung_topks(allub, NBLK, maxima), fc
+
+
+def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+              slotmap, tslot, treq, tneg, wshard, *, with_counts: bool,
+              with_rescore: bool, need: int = 0, multi: bool = False,
+              filtw=None, fcod=None, fcm: int = 1, skeyb=None):
+    """One WAND dispatch over one device's resident pools: _wand_parts
+    over a single part, the tables as tensors on its device.
+
+    filtw i32[NBLK, NW]: a facet filter's disallowed words.  fcod
+    i32[NF, NBLK*BLOCK_SIZE] with code space fcm: the facet histogram fc
+    i32[NF, Bq, fcm] over every matched doc, from phase 1's matched words
+    (K3 on CUDA).  skeyb f32[NBLK, NW] (rank-by-key, the reference's
+    wand.py:275-283): a bucket's bound is its best sort key where a doc
+    matched, and the rungs rank those.
+
+    Returns (out, fc), fc None without fcod: with_rescore=True out is the
+    slim i32 buffer of _ladder_device; otherwise (cnt i32[Bq], rungs) for
+    the host rung ladder."""
+    def one(x):
+        return None if x is None else [x]
+
+    return _wand_parts(
+        [((ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid),
+          (slotmap, tslot, treq, tneg, wshard))], sp_prow.shape[1],
+        with_counts=with_counts, with_rescore=with_rescore, need=need,
+        multi=multi, filtw=one(filtw), fcod=one(fcod), fcm=fcm,
+        skeyb=one(skeyb))
+
+
+def wand_scan_mesh(state, pools, qargs, **kw):
+    """One WAND dispatch over the parts of a WandState (the positions of a
+    mesh, or the one device's single part), the reference's
+    make_wand_scan_mesh (wand.py:451-553): pools, each part's pools
+    (WandState.parts[d].pools, taken under the state's lock); qargs, the
+    batch tables (slotmap, tslot, treq, tneg, wshard) as numpy, sent to
+    every part's device.  Keywords and returns as wand_scan's, with filtw,
+    fcod and skeyb lists of each part's slice (WandState.aux) or None."""
+    parts = [(pp, [torch.from_numpy(np.ascontiguousarray(a)).to(pp[0].device)
+                   for a in qargs]) for pp in pools]
+    return _wand_parts(parts, state.nblk_local, **kw)
+
+
+def _wand_parts(parts, nl: int, *, with_counts: bool, with_rescore: bool,
+                need: int = 0, multi: bool = False, filtw=None, fcod=None,
+                fcm: int = 1, skeyb=None):
+    """wand_scan over parts of nl blocks each, the first holding the global
+    blocks [0, nl): every part scans its own blocks (K1 on its device, K3
+    too with facet codes), each rung's top-(K_SEL+1) region ids are offset
+    by the part's first region, laid side by side on the lead device (the
+    first part's) as [Bq, D*(K_SEL+1)] in part order and cut to the top
+    K_SEL+1 by a stable sort (lax.top_k's order: exact, since the top of a
+    union lies in the union of the parts' tops); counts and facet
+    histograms add up.  With the rescore, each part rescores the buckets it
+    owns and _ladder_device lays the parts' pages side by side (D*P_PAGE
+    wide) and adds their found counts and tie-cut flags.
+
+    parts: [(pools, tables)] a part, the tables (slotmap, tslot, treq,
+    tneg, wshard) on its device; filtw, fcod, skeyb: a slice a part, or
+    None."""
+    lead = parts[0][0][0].device
+    KP = K_SEL + 1
+    per = []
+    for d, ((pp, vp, _, _, prow, _, delw, sid), q) in enumerate(parts):
+        per.append(_scan_local(
+            pp, vp, prow, delw, sid, *q, with_counts=with_counts,
+            filtw=None if filtw is None else filtw[d],
+            fcod=None if fcod is None else fcod[d], fcm=fcm,
+            skeyb=None if skeyb is None else skeyb[d]))
+    rungs = []
+    for f, F in enumerate(F_LADDER):
+        v2 = torch.cat([r[1][f][0].to(lead) for r in per], dim=1)
+        i2 = torch.cat([(r[1][f][1] + d * (nl * NW // F)).to(lead)
+                        for d, r in enumerate(per)], dim=1)
+        mv, sel = _sort_desc(v2)
+        rungs.append((mv[:, :KP].contiguous(),
+                      torch.gather(i2, 1, sel[:, :KP])))
+    cnt = sum(r[0].to(lead) for r in per)
+    fc = None if fcod is None else sum(
+        r[2].to(lead, torch.int64) for r in per)
     if not with_rescore:
         return (cnt, rungs), fc
 
-    def rescore_fn(ids, vals):
-        return _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw,
-                                sid, slotmap, tslot, treq, tneg, wshard,
-                                ids, vals, filtw)
+    def rescore_fn(gids, vals):
+        outs = []
+        for d, ((pp, _, rp, ip, prow, ioff, delw, sid), q) in \
+                enumerate(parts):
+            off = d * nl * NW
+            loc = gids - off
+            mine = (loc >= 0) & (loc < nl * NW) & (vals > float("-inf"))
+            loc = torch.where(mine, loc, -1).to(pp.device)
+            vm = torch.where(mine, vals, float("-inf")).to(pp.device)
+            outs.append(_rescore_regions(
+                pp, rp, ip, prow, ioff, delw, sid, *q, loc, vm,
+                None if filtw is None else filtw[d], bucket_off=off))
+        return outs
 
     return _ladder_device(cnt, rungs, rescore_fn, need=need, multi=multi,
-                          s_gt1=wshard.shape[0] > 1), fc
+                          s_gt1=parts[0][1][4].shape[0] > 1), fc
 
 
 # ---------------------------------------------------------------------------
@@ -440,93 +544,25 @@ def pools_from_numpy(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw,
             put(np.asarray(sid, np.int32)))
 
 
-class WandState:
-    """Device pools + host caches for one committed index generation on one
-    torch device.
+class _Part:
+    """One mesh position's share of a WandState: the pools, the slot-table
+    columns, the deleted words and the block shards of the global blocks
+    [b0, b0 + nblk) on `device` (without a mesh, one part holds them all).
+    Pool rows are local to the part; the pending lists hold rows built and
+    not yet uploaded."""
 
-    Rows are built on first touch per query term and kept; when the pools
-    pass their budgets the whole cache flushes and rebuilds.  Row appends
-    write in place (index_copy_) into rows no earlier dispatch reads, and
-    capacity grows by doubling into new tensors, so a batch that holds the
-    previous tensors keeps a consistent view."""
+    def __init__(self, device, b0: int, nblk: int, delw, sid):
+        self.device = device
+        self.b0 = b0
+        self.nblk = nblk
+        self.delw_dev = self.put(delw.view(np.int32))
+        self.sid_dev = self.put(sid)
+        self.reset()
 
-    def __init__(self, index, device):
-        self.index = index
-        self.device = torch.device(device)
-        self.lock = threading.Lock()
-        base = []
-        b = 0
-        for sh in index.shards:
-            base.append(b)
-            b += sh.lexical.n_blocks
-        self.block_base = base
-        # K1 has no block step, so unlike the reference (whose XLA scan
-        # steps 8 blocks at a time) the pools are not padded past nblk
-        self.nblk = max(b, 1)
+    def put(self, arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-        blk_shard = np.zeros(self.nblk, np.int32)
-        for s, sh in enumerate(index.shards):
-            blk_shard[base[s]: base[s] + sh.lexical.n_blocks] = s
-        self.blk_shard = blk_shard
-        self.sid_dev = torch.from_numpy(blk_shard).to(self.device)
-
-        delw = np.zeros((self.nblk, NW), np.uint32)
-        for s, sh in enumerate(index.shards):
-            if sh.deleted:
-                ids = np.fromiter(sh.deleted, np.int64)
-                ids = ids[ids < sh.committed_doc_count]
-                if len(ids):
-                    g = base[s] + (ids >> 16)
-                    local = ids & 0xFFFF
-                    np.bitwise_or.at(
-                        delw, (g, local >> 5),
-                        (np.uint32(1) << (local & 31).astype(np.uint32)))
-        self.delw_dev = torch.from_numpy(delw.view(np.int32)).to(self.device)
-        self.deleted_sorted = [
-            np.sort(np.fromiter(sh.deleted, np.int64)) if sh.deleted
-            else np.zeros(0, np.int64)
-            for sh in index.shards
-        ]
-        multi = len(np.unique(blk_shard)) > 1
-        # one device owning blocks of several shards: lane order is not
-        # gid order, so a page whose tie class is cut must go to the host
-        self.multi_shard = bool(multi)
-
-        cap_bytes = POOL_MB * 1024 * 1024
-        # presence (4 B) + bucket-max (4 B) + rank rows per word
-        self.cap_prows = max(cap_bytes * 9 // 10 // (NW * 10), 64)
-        self.cap_slots = max(cap_bytes // 10 // (self.nblk * 4), 64)
-        self.cap_imps = max(IMP_MB * 1024 * 1024 // 4, 4096)
-        self._aux: dict = {}
-        self._reset()
-
-    def aux(self, key, make, device: bool = True):
-        """(host array, tensor on this state's device) of an auxiliary array
-        in the global-block layout (facet codes, filter words, a rank key),
-        built once per key by make(); the tensor is None with
-        device=False, and u32 words go up as int32 bit patterns.  Dropped
-        with the state, which a commit or delete replaces."""
-        with self.lock:
-            hit = self._aux.get(key)
-            if hit is None:
-                host = np.ascontiguousarray(make())
-                dev = None
-                if device:
-                    dev = self._put(host.view(np.int32)
-                                    if host.dtype == np.uint32 else host)
-                hit = self._aux[key] = (host, dev)
-            return hit
-
-    @property
-    def pools(self):
-        return (self.ppool, self.vpool, self.rpool, self.ipool,
-                self.sp_prow, self.sp_ioff, self.delw_dev, self.sid_dev)
-
-    def pool_bytes(self) -> int:
-        return sum(x.numel() * x.element_size()
-                   for x in (self.ppool, self.vpool, self.rpool, self.ipool))
-
-    def _reset(self):
+    def reset(self):
         dev = self.device
         self.ppool = torch.zeros((64, NW), dtype=torch.int32, device=dev)
         self.vpool = torch.zeros((64, NW), dtype=torch.float32, device=dev)
@@ -540,19 +576,220 @@ class WandState:
                                   device=dev)
         self.n_prows = 0
         self.n_imps = 0
+        self.pend_prow: list[np.ndarray] = []
+        self.pend_vrow: list[np.ndarray] = []
+        self.pend_rrow: list[np.ndarray] = []
+        self.pend_imp: list[np.ndarray] = []
+
+    @property
+    def pools(self):
+        return (self.ppool, self.vpool, self.rpool, self.ipool,
+                self.sp_prow, self.sp_ioff, self.delw_dev, self.sid_dev)
+
+    def upload(self, slot_rows, n_slots: int):
+        """Write the pending pool rows and impacts, and the part's columns
+        of the slots `slot_rows` (prow, ioff: [n, nblk_pad] numpy, the last
+        n of n_slots rows)."""
+        k = len(self.pend_prow)
+        if k:
+            # one spare row past the high-water mark, as the reference keeps
+            n = self.n_prows + 1
+            self.ppool = _grown(self.ppool, n, 16)
+            self.vpool = _grown(self.vpool, n, 16)
+            self.rpool = _grown(self.rpool, n, 16)
+            rows = torch.arange(self.n_prows - k, self.n_prows,
+                                device=self.device)
+            self.ppool.index_copy_(
+                0, rows, self.put(np.stack(self.pend_prow).view(np.int32)))
+            self.vpool.index_copy_(0, rows, self.put(np.stack(self.pend_vrow)))
+            self.rpool.index_copy_(
+                0, rows, self.put(np.stack(self.pend_rrow).astype(np.int32)))
+            self.pend_prow.clear()
+            self.pend_vrow.clear()
+            self.pend_rrow.clear()
+        ui = sum(len(x) for x in self.pend_imp)
+        if ui:
+            # 32-float tail slack: the rescore reads up to 32 positions per
+            # bucket (indices clamp, non-present lanes are masked)
+            self.ipool = _grown(self.ipool, self.n_imps + ui + 32, 1024)
+            start = self.n_imps - ui
+            self.ipool[start: start + ui] = self.put(
+                np.concatenate(self.pend_imp))
+            self.pend_imp.clear()
+        if slot_rows is not None:
+            prow, ioff = slot_rows
+            cols = slice(self.b0, self.b0 + self.nblk)
+            rows = torch.arange(n_slots - len(prow), n_slots,
+                                device=self.device)
+            self.sp_prow = _grown(self.sp_prow, n_slots, 16, -1)
+            self.sp_ioff = _grown(self.sp_ioff, n_slots, 16, -1)
+            self.sp_prow.index_copy_(0, rows, self.put(prow[:, cols]))
+            self.sp_ioff.index_copy_(0, rows, self.put(ioff[:, cols]))
+
+
+def split_layout(x, nblk: int, ranges):
+    """The slices of an array in the global-block layout of nblk blocks for
+    the block ranges [(first block, blocks), ...], zeros past nblk: by
+    documents when its last axis is nblk*BLOCK_SIZE long (facet codes, a
+    sort key), else by blocks along axis 0 (filter words, best keys)."""
+    end = max(b0 + n for b0, n in ranges)
+    if x.shape[-1] == nblk * BLOCK_SIZE:
+        x = np.pad(x, [(0, 0)] * (x.ndim - 1)
+                   + [(0, (end - nblk) * BLOCK_SIZE)])
+        return [x[..., b0 * BLOCK_SIZE:(b0 + n) * BLOCK_SIZE]
+                for b0, n in ranges]
+    x = np.pad(x, [(0, end - nblk)] + [(0, 0)] * (x.ndim - 1))
+    return [x[b0:b0 + n] for b0, n in ranges]
+
+
+def _grown(x, n: int, minimum: int, fill=0):
+    """x with axis 0 grown (doubling, power of two) to hold n."""
+    if x.shape[0] >= n:
+        return x
+    cap = ceil_pow2(max(n, x.shape[0] * 2), minimum)
+    out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                     device=x.device)
+    out[: x.shape[0]] = x
+    return out
+
+
+class WandState:
+    """Device pools + host caches for one committed index generation on one
+    torch device, or on the positions of a mesh.
+
+    Under a mesh of D positions the global block axis splits contiguously
+    (the reference's WandState with a mesh, wand.py:984-1365): position d
+    owns blocks [d*nblk_local, (d+1)*nblk_local), nblk_local = ceil(nblk /
+    D), the last positions padded with empty blocks to nblk_pad; its part
+    holds the pool rows, slot-table columns, deleted words and block shards
+    of those blocks on its device.  Slot rows are numbered across the mesh
+    (one slotmap serves every position) and pool rows within a part.  The
+    host rows (_SlotRows, the blocks' shards, the deleted ids) are global.
+
+    Rows are built on first touch per query term and kept; when the pools
+    of any part pass their budgets (POOL_MB and IMP_MB a part) the whole
+    cache flushes and rebuilds.  Row appends write in place (index_copy_)
+    into rows no earlier dispatch reads, and capacity grows by doubling into
+    new tensors, so a batch that holds the previous tensors keeps a
+    consistent view."""
+
+    def __init__(self, index, device, mesh=None):
+        self.index = index
+        self.mesh = mesh
+        devices = list(mesh.devices) if mesh is not None \
+            else [torch.device(device)]
+        self.device = devices[0]            # the lead: merges happen here
+        self.D = len(devices)
+        self.lock = threading.Lock()
+        base = []
+        b = 0
+        for sh in index.shards:
+            base.append(b)
+            b += sh.lexical.n_blocks
+        self.block_base = base
+        # K1 has no block step, so unlike the reference (whose XLA scan
+        # steps 8 blocks at a time) a part is not padded to a step multiple
+        self.nblk = max(b, 1)
+        self.nblk_local = -(-self.nblk // self.D)
+        self.nblk_pad = self.nblk_local * self.D
+
+        blk_shard = np.zeros(self.nblk_pad, np.int32)
+        for s, sh in enumerate(index.shards):
+            blk_shard[base[s]: base[s] + sh.lexical.n_blocks] = s
+        self.blk_shard = blk_shard[: self.nblk]
+
+        delw = np.zeros((self.nblk_pad, NW), np.uint32)
+        for s, sh in enumerate(index.shards):
+            if sh.deleted:
+                ids = np.fromiter(sh.deleted, np.int64)
+                ids = ids[ids < sh.committed_doc_count]
+                if len(ids):
+                    g = base[s] + (ids >> 16)
+                    local = ids & 0xFFFF
+                    np.bitwise_or.at(
+                        delw, (g, local >> 5),
+                        (np.uint32(1) << (local & 31).astype(np.uint32)))
+        nl = self.nblk_local
+        self.parts = [_Part(dev, d * nl, nl, delw[d * nl:(d + 1) * nl],
+                            blk_shard[d * nl:(d + 1) * nl])
+                      for d, dev in enumerate(devices)]
+        self.deleted_sorted = [
+            np.sort(np.fromiter(sh.deleted, np.int64)) if sh.deleted
+            else np.zeros(0, np.int64)
+            for sh in index.shards
+        ]
+        # a part owning blocks of several shards: lane order is not gid
+        # order, so a page whose tie class is cut must go to the host (the
+        # reference's _dev_multi_shard, one flag for the whole mesh)
+        self.multi_shard = any(
+            len(np.unique(self.blk_shard[p.b0: p.b0 + p.nblk])) > 1
+            for p in self.parts)
+
+        cap_bytes = POOL_MB * 1024 * 1024
+        # presence (4 B) + bucket-max (4 B) + rank rows per word
+        self.cap_prows = max(cap_bytes * 9 // 10 // (NW * 10), 64)
+        self.cap_slots = max(cap_bytes // 10 // (self.nblk_pad * 4), 64)
+        self.cap_imps = max(IMP_MB * 1024 * 1024 // 4, 4096)
+        self._aux: dict = {}
+        self._reset()
+
+    def aux(self, key, make, device: bool = True):
+        """(host array, device copy) of an auxiliary array in the global-block
+        layout (facet codes i32[NF, nblk*BLOCK_SIZE], filter words [nblk, NW],
+        a rank key), built once per key by make(); the device copy is None
+        with device=False, else a list of each part's slice on its device
+        (its blocks, padded to nblk_local; one part without a mesh).  u32
+        words go up as int32 bit patterns.  Dropped with the state, which a
+        commit or delete replaces."""
+        with self.lock:
+            hit = self._aux.get(key)
+            if hit is None:
+                host = np.ascontiguousarray(make())
+                dev = None
+                if device:
+                    bits = host.view(np.int32) if host.dtype == np.uint32 \
+                        else host
+                    dev = [p.put(x) for p, x in zip(self.parts, split_layout(
+                        bits, self.nblk, [(p.b0, p.nblk)
+                                          for p in self.parts]))]
+                hit = self._aux[key] = (host, dev)
+            return hit
+
+    # the first part's tensors: without a mesh, the state's
+    ppool = property(lambda self: self.parts[0].ppool)
+    vpool = property(lambda self: self.parts[0].vpool)
+    rpool = property(lambda self: self.parts[0].rpool)
+    ipool = property(lambda self: self.parts[0].ipool)
+    sp_prow = property(lambda self: self.parts[0].sp_prow)
+    sp_ioff = property(lambda self: self.parts[0].sp_ioff)
+    delw_dev = property(lambda self: self.parts[0].delw_dev)
+    sid_dev = property(lambda self: self.parts[0].sid_dev)
+
+    @property
+    def pools(self):
+        return self.parts[0].pools
+
+    @property
+    def n_prows(self) -> list[int]:
+        """Pool rows a position (the reference's per-device counts)."""
+        return [p.n_prows for p in self.parts]
+
+    def pool_bytes(self) -> int:
+        return sum(x.numel() * x.element_size() for p in self.parts
+                   for x in (p.ppool, p.vpool, p.rpool, p.ipool))
+
+    def _reset(self):
+        for p in self.parts:
+            p.reset()
         self.n_slots = 0
         self.slot_cache: dict[int, _SlotRows] = {}
-        self._pend_prow: list[np.ndarray] = []
-        self._pend_vrow: list[np.ndarray] = []
-        self._pend_rrow: list[np.ndarray] = []
-        self._pend_imp: list[np.ndarray] = []
         self._pend_slot: list[np.ndarray] = []
         self._pend_ioff: list[np.ndarray] = []
 
     def _build_slot(self, h: int) -> _SlotRows:
         sr = _SlotRows()
-        prow_vec = np.full(self.nblk, -1, np.int32)
-        ioff_vec = np.full(self.nblk, -1, np.int32)
+        prow_vec = np.full(self.nblk_pad, -1, np.int32)
+        ioff_vec = np.full(self.nblk_pad, -1, np.int32)
         keys_parts, imp_parts = [], []
         any_seg = False
         for s, sh in enumerate(self.index.shards):
@@ -581,18 +818,21 @@ class WandState:
                 starts = np.flatnonzero(np.r_[True, np.diff(buckets) != 0])
                 vrow = np.zeros(NW, np.float32)
                 vrow[buckets[starts]] = np.maximum.reduceat(imp, starts)
-                prow_vec[g] = self.n_prows
-                self._pend_prow.append(pw)
-                self._pend_vrow.append(vrow)
+                # the row lives in the part that owns block g; prow and
+                # ioff are that part's own row and impact offset
+                part = self.parts[g // self.nblk_local]
+                prow_vec[g] = part.n_prows
+                part.pend_prow.append(pw)
+                part.pend_vrow.append(vrow)
                 pc = _popcount_u32(pw)
                 rrow = np.zeros(NW, np.uint16)
                 # max prefix is 65536 - popcount(last word) <= 65504
                 rrow[1:] = np.cumsum(pc[:-1]).astype(np.uint16)
-                self._pend_rrow.append(rrow)
-                ioff_vec[g] = self.n_imps
-                self._pend_imp.append(imp.astype(np.float32))
-                self.n_imps += ln
-                self.n_prows += 1
+                part.pend_rrow.append(rrow)
+                ioff_vec[g] = part.n_imps
+                part.pend_imp.append(imp.astype(np.float32))
+                part.n_imps += ln
+                part.n_prows += 1
                 keys_parts.append((np.uint32(g) << np.uint32(16))
                                   | ids.astype(np.uint32))
                 imp_parts.append(imp)
@@ -613,75 +853,28 @@ class WandState:
 
     def ensure_slots(self, hashes: list[int]) -> None:
         """Build and upload any missing slots' rows (call under self.lock)."""
-        missing =[h for h in hashes if h not in self.slot_cache]
+        missing = [h for h in hashes if h not in self.slot_cache]
         if not missing:
             return
         with METRICS.timer("wand_build"):
             for h in missing:
                 self.slot_cache[h] = self._build_slot(h)
-            if (self.n_prows > self.cap_prows
-                    or self.n_imps > self.cap_imps
+            if (max(p.n_prows for p in self.parts) > self.cap_prows
+                    or max(p.n_imps for p in self.parts) > self.cap_imps
                     or self.n_slots > self.cap_slots):
                 METRICS.inc("wand_resets_total")
                 self._reset()
                 for h in hashes:
                     self.slot_cache[h] = self._build_slot(h)
             METRICS.inc("wand_rows_built_total", len(missing))
-            self._upload_pending()
-
-    @staticmethod
-    def _grown(x, n: int, minimum: int, fill=0):
-        """x with axis 0 grown (doubling, power of two) to hold n."""
-        if x.shape[0] >= n:
-            return x
-        cap = ceil_pow2(max(n, x.shape[0] * 2), minimum)
-        out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                         device=x.device)
-        out[: x.shape[0]] = x
-        return out
-
-    def _put(self, arr) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
-    def _upload_pending(self):
-        k = len(self._pend_prow)
-        if k:
-            # one spare row past the high-water mark, as the reference keeps
-            n = self.n_prows + 1
-            self.ppool = self._grown(self.ppool, n, 16)
-            self.vpool = self._grown(self.vpool, n, 16)
-            self.rpool = self._grown(self.rpool, n, 16)
-            rows = torch.arange(self.n_prows - k, self.n_prows,
-                                device=self.device)
-            self.ppool.index_copy_(
-                0, rows, self._put(np.stack(self._pend_prow).view(np.int32)))
-            self.vpool.index_copy_(
-                0, rows, self._put(np.stack(self._pend_vrow)))
-            self.rpool.index_copy_(
-                0, rows, self._put(np.stack(self._pend_rrow).astype(np.int32)))
-            self._pend_prow.clear()
-            self._pend_vrow.clear()
-            self._pend_rrow.clear()
-        ui = sum(len(x) for x in self._pend_imp)
-        if ui:
-            # 32-float tail slack: the rescore reads up to 32 positions per
-            # bucket (indices clamp, non-present lanes are masked)
-            self.ipool = self._grown(self.ipool, self.n_imps + ui + 32, 1024)
-            start = self.n_imps - ui
-            self.ipool[start: start + ui] = self._put(
-                np.concatenate(self._pend_imp))
-            self._pend_imp.clear()
-        if self._pend_slot:
-            n0 = self.n_slots - len(self._pend_slot)
-            rows = torch.arange(n0, self.n_slots, device=self.device)
-            self.sp_prow = self._grown(self.sp_prow, self.n_slots, 16, -1)
-            self.sp_ioff = self._grown(self.sp_ioff, self.n_slots, 16, -1)
-            self.sp_prow.index_copy_(0, rows,
-                                     self._put(np.stack(self._pend_slot)))
-            self.sp_ioff.index_copy_(0, rows,
-                                     self._put(np.stack(self._pend_ioff)))
-            self._pend_slot.clear()
-            self._pend_ioff.clear()
+            slot_rows = None
+            if self._pend_slot:
+                slot_rows = (np.stack(self._pend_slot),
+                             np.stack(self._pend_ioff))
+                self._pend_slot.clear()
+                self._pend_ioff.clear()
+            for p in self.parts:
+                p.upload(slot_rows, self.n_slots)
 
 
 class _Signature:
@@ -717,15 +910,18 @@ def index_lock(index, name: str) -> threading.Lock:
 
 
 def get_state(index, device) -> WandState:
-    """The index's WandState on `device`, rebuilt after a commit or
-    delete; concurrent first callers build it once."""
-    device = torch.device(device)
+    """The index's WandState on `device`, or on its mesh when one is
+    attached (``Index.attach_mesh``; the mesh's devices then serve and
+    `device` is not read), rebuilt after a commit or delete; concurrent
+    first callers build it once.  Keyed by the device, or by the mesh."""
+    m = getattr(index, "_mesh", None)
+    key = m if m is not None else str(torch.device(device))
     sig = _signature(index)
     with index_lock(index, "_torch_wand_lock"):
         states = index.__dict__.setdefault("_torch_wand_states", {})
-        hit = states.get(str(device))
+        hit = states.get(key)
         if hit is None or hit[0] != sig:
-            hit = states[str(device)] = (sig, WandState(index, device))
+            hit = states[key] = (sig, WandState(index, device, mesh=m))
     return hit[1]
 
 
@@ -1187,16 +1383,18 @@ def _apply_slim(state: WandState, buf, specs, S: int,
                 out_scores, out_gids, counts) -> list[int]:
     """Consume the slim device-ladder buffer: fill the outputs of every
     query the device terminated (code 0/1) and return the pending query
-    indices for the host ladder.  One shard: the device page is already
-    (score desc, lane asc) = oracle order; several shards: one global
-    (query, -score, gid) sort restores it."""
+    indices for the host ladder.  One shard on one device: the device page
+    is already (score desc, lane asc) = oracle order; several shards, or a
+    mesh (whose page lays the D positions' pages side by side, D*P_PAGE
+    entries): one global (query, -score, gid) sort restores it."""
     B = len(specs)
+    DP = state.D * P_PAGE
     buf_f = buf.view(np.float32)
     cnt = buf[:B, 0].astype(np.int64)
     code = buf[:B, 1]
     found = buf[:B, 2].astype(np.int64)
-    psc = buf_f[:B, 4: 4 + P_PAGE]
-    plane = buf[:B, 4 + P_PAGE: 4 + 2 * P_PAGE].astype(np.int64)
+    psc = buf_f[:B, 4: 4 + DP]
+    plane = buf[:B, 4 + DP: 4 + 2 * DP].astype(np.int64)
 
     blk = plane >> 16
     doc = plane & 0xFFFF
@@ -1208,7 +1406,7 @@ def _apply_slim(state: WandState, buf, specs, S: int,
     qi_of, ci = np.nonzero(valid)
     sc_v = psc[qi_of, ci].astype(np.float32)
     gid_v = gid[qi_of, ci]
-    if S > 1:
+    if S > 1 or state.D > 1:
         order = np.lexsort((gid_v, -sc_v, qi_of))
         sc_v, gid_v, qi_of = sc_v[order], gid_v[order], qi_of[order]
     ends = np.cumsum(np.bincount(qi_of, minlength=B))
@@ -1340,7 +1538,11 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     filter shared by the batch, applied to matching, counts, facet counts
     and every rescore.  skeyb_dev (f32[NBLK, NW] best rank key a bucket)
     with rank_key_host (f32[NBLK*BLOCK_SIZE]): pages order by the rank key
-    (sorted results), through the host ladder over all three rungs.
+    (sorted results), through the host ladder over all three rungs.  The
+    batch runs on the state's parts (wand_scan_mesh: the positions of an
+    attached mesh, else the one device) and fcod_dev, filtw_dev and
+    skeyb_dev are lists of the parts' slices (WandState.aux); the device
+    exact scan stays off under a mesh.
     Returns (scores list, gids list, counts i64[B], fc i64[NF, B, fcm] or
     None, handled bool[B])."""
     state = get_state(index, device)
@@ -1354,29 +1556,29 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     with state.lock:
         slotmap, tslot, treq, tneg, wsh, slot_rows = plan_batch(
             state, slots, specs, idf_per_shard)
-        pools = state.pools
+        pools = [p.pools for p in state.parts]
 
     rank_mode = rank_key_host is not None
     # rank mode keeps the host ladder: it ranks by gathered sort keys, not
     # by scores
     dev_rescore = (not rank_mode and not count_only
                    and max(need * 4, 64) <= P_PAGE)
-    qargs = [torch.from_numpy(a).to(dev)
-             for a in (slotmap, tslot, treq, tneg, wsh)]
+    qargs = (slotmap, tslot, treq, tneg, wsh)
     aux = dict(filtw=filtw_dev, fcod=fcod_dev if n_facets else None,
                fcm=fcm, skeyb=skeyb_dev if rank_mode else None)
+
+    def dispatch(**kw):
+        return wand_scan_mesh(state, pools, qargs, **kw, **aux)
     METRICS.inc("device_dispatch_total")
     KP = K_SEL + 1
     with METRICS.timer("lex_device"):
         if dev_rescore:
-            out, fc_d = wand_scan(*pools, *qargs, with_counts=with_counts,
-                                  with_rescore=True, need=need,
-                                  multi=state.multi_shard, **aux)
+            out, fc_d = dispatch(with_counts=with_counts, with_rescore=True,
+                                 need=need, multi=state.multi_shard)
             packed = out.cpu().numpy()
         else:
-            (cnt_d, rungs_d), fc_d = wand_scan(*pools, *qargs,
-                                               with_counts=with_counts,
-                                               with_rescore=False, **aux)
+            (cnt_d, rungs_d), fc_d = dispatch(with_counts=with_counts,
+                                              with_rescore=False)
             cnt = cnt_d.cpu().numpy().astype(np.int64)
             rungs = [(v.cpu().numpy(), i.cpu().numpy()) for v, i in rungs_d]
         fc = None if fc_d is None else \
@@ -1387,7 +1589,7 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
     force_fb = bool(os.environ.get("SEEKSTORM_TPU_WAND_FORCE_FALLBACK"))
     force_dx = bool(os.environ.get("SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT"))
     if dev_rescore:
-        A = 4 + 2 * P_PAGE
+        A = 4 + 2 * state.D * P_PAGE
         buf_f = packed.view(np.float32)
         cnt = packed[:B, 0].astype(np.int64)
         host_rungs = []
@@ -1446,6 +1648,7 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
             METRICS.inc("wand_escalations_total")
     METRICS.inc("wand_fallbacks_total", len(pending))
     if (pending and not force_fb and not rank_mode and S == 1
+            and state.mesh is None
             and (os.environ.get("SEEKSTORM_TPU_WAND_DEV_EXACT")
                  or force_dx)):
         # opt-in (SEEKSTORM_TPU_WAND_DEV_EXACT) single-shard stragglers:
@@ -1453,8 +1656,9 @@ def run_batch(index, slots, specs, idf_per_shard: np.ndarray, need: int,
         # pools; several shards keep the host path (a tie class cut at a
         # lane boundary needs gid-order arbitration there)
         pending = _run_dev_exact(state, pending, slotmap, tslot, treq, tneg,
-                                 wsh, pools, filtw_dev, cnt, S, out_scores,
-                                 out_gids, counts)
+                                 wsh, pools[0],
+                                 None if filtw_dev is None else filtw_dev[0],
+                                 cnt, S, out_scores, out_gids, counts)
     if not rank_mode:
         # the opt-in sort path has its own fallback geometry and must not
         # close the gate for score-mode batches

@@ -216,13 +216,14 @@ def wand_scan_cuda(ppool, vpool, prow, delw, filtw, tslot, treq, tneg,
     lib = _build.load("wand_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _count_launch()
-    err = lib.wand_scan_launch(
-        ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
-        delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
-        tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK, T,
-        int(with_counts), allub.data_ptr(), ub4.data_ptr(), ub16.data_ptr(),
-        g1.data_ptr(), cnt.data_ptr(),
-        mwords.data_ptr() if with_matched else None, stream)
+    with torch.cuda.device(dev):
+        err = lib.wand_scan_launch(
+            ppool.data_ptr(), vpool.data_ptr(), prow.data_ptr(), V,
+            delw.data_ptr(), filtw.data_ptr() if filtw is not None else None,
+            tcode.data_ptr(), wshard.data_ptr(), sid.data_ptr(), Bq, NBLK,
+            T, int(with_counts), allub.data_ptr(), ub4.data_ptr(),
+            ub16.data_ptr(), g1.data_ptr(), cnt.data_ptr(),
+            mwords.data_ptr() if with_matched else None, stream)
     if err != 0:
         raise RuntimeError(f"wand_scan_cuda launch failed (error {err})")
     if with_matched:

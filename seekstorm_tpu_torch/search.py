@@ -733,8 +733,14 @@ def search_batch(index: Index, requests: list[SearchRequest],
     """Execute a batch of lexical, vector or hybrid searches on `device`.
 
     Requests with different settings are grouped (one dispatch per
-    group); queries and paging may differ freely within a group."""
+    group); queries and paging may differ freely within a group.  With a
+    mesh attached (``Index.attach_mesh``) the batch runs on the mesh's
+    devices, whose family `device` must name."""
     dev = resolve_device(device)
+    m = getattr(index, "_mesh", None)
+    if m is not None and m.lead.type != dev.type:
+        raise ValueError(f"device {device!r} named for an index whose mesh "
+                         f"runs on {m.lead.type}")
     if len(requests) > 1:
         sig0 = _req_signature(requests[0])
         if any(_req_signature(r) != sig0 for r in requests[1:]):

@@ -6,8 +6,8 @@ on disk.  What differs: clustering runs on a torch device (the index's at
 commit, the searching one at the device build), the device tensors are
 torch tensors uploaded in one piece and cached per device and shard (built
 once under the shard's lock, so concurrent first searches re-cluster and
-upload once), and the mesh-stacked build (``device_stacked``) is not ported
-(ROADMAP A.9).
+upload once), and the mesh build (``device_stacked``) groups those
+per-shard tensors by mesh position, with no second copy.
 
 Mirrors the reference's vector core storage (reference seekstorm/src/
 vector.rs:34-1100 — VectorHeader SoA, per-level cluster layout with
@@ -336,6 +336,9 @@ class IndexVectors:
         # cluster -> tile coverage for host tile selection (med_rows are
         # the cluster start rows in both the per-level and global layouts)
         row_of_cluster_start = np.asarray(med_rows + [N], np.int64)
+        # rows a cluster, for the mesh's observed-vector count
+        sizes = np.zeros(C_pad, np.int64)
+        sizes[:C] = np.diff(row_of_cluster_start)
 
         return {
             "data": data.reshape(n_tiles, TILE, d),
@@ -352,6 +355,7 @@ class IndexVectors:
             "m_norm2": norm2[med_idx],
             "m_valid": m_valid,
             "always_scan": always_scan,
+            "sizes": sizes,
             "n_tiles": n_tiles,
             "n_rows": N,
             "n_clusters": C,
@@ -366,7 +370,7 @@ class IndexVectors:
 
     _DEV_KEYS = ("data", "scale", "zp", "qsum", "norm2", "docid", "fieldid",
                  "med_data", "m_scale", "m_zp", "m_qsum", "m_norm2",
-                 "m_valid", "always_scan")
+                 "m_valid", "always_scan", "sizes")
 
     def device(self, shard, device) -> dict:
         """Per-shard tensors on `device` for the committed vectors, built
@@ -384,9 +388,30 @@ class IndexVectors:
             return out
 
     def device_stacked(self, mesh):
-        raise NotImplementedError(
-            "the mesh-stacked vector build is not ported yet (ROADMAP A.9 "
-            "multi-device)")
+        """The committed vectors over a mesh (the reference's
+        device_stacked, vector_index.py:401-453): position d holds its
+        shards' tensors, ``device(shard, position's device)``, as they are.
+        The reference pads them to the index's common n_tiles / C_pad / d /
+        nf_pad and stacks them [SL, ...]; the padding adds no finite
+        candidate and no selected cluster, and the one thing the common
+        tile count decides, a nprobe scan's corrections' order
+        (ops/vector.gathered_order), reads "n_tiles" here.  Returns
+        {"per_shard": the shards' device dicts, "positions": per position
+        {"device", "shards": its shards' dicts}, "n_tiles", "C_pad",
+        "nf_pad", "quantized"}; the per-shard dicts are cached by device."""
+        shards = self.index.shards
+        SL = len(shards) // mesh.devices.size
+        per = [self.device(sh, mesh.devices[s // SL])
+               for s, sh in enumerate(shards)]
+        return {
+            "per_shard": per,
+            "positions": [{"device": dev, "shards": per[d * SL:(d + 1) * SL]}
+                          for d, dev in enumerate(mesh.devices)],
+            "n_tiles": max(h["n_tiles"] for h in per),
+            "C_pad": max(h["C_pad"] for h in per),
+            "nf_pad": max(h["nf_pad"] for h in per),
+            "quantized": per[0]["quantized"],
+        }
 
     def tail_rows(self, shard):
         """Uncommitted tail vectors (realtime path): raw f32 + metadata."""

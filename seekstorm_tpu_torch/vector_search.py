@@ -7,9 +7,9 @@ search_vector_shard; RRF hybrid fusion search.rs:1962-2035 with k = 0.6).
 The port's copy of ``seekstorm_tpu/vector_search.py``: the host code is the
 reference's; a shard's committed scan runs on the torch device the caller
 names, cluster selection by ``ops/vector.medoid_select`` and the tiled scan
-by ``ops/vector.vector_scan_topk`` (kernel K4 on CUDA).  The realtime tail
-is scanned exactly on the host, as in the reference.  The mesh scan is not
-ported (ROADMAP A.9).
+by ``ops/vector.vector_scan_topk`` (kernel K4 on CUDA), or, with a mesh
+attached, on its positions (``_scan_committed_mesh``).  The realtime tail
+is scanned exactly on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -124,7 +124,15 @@ def vector_search_batch(index: Index, requests, device) -> list:
                 ok[a] = True
         return ok
 
-    if index.vectors is not None:
+    mesh = getattr(index, "_mesh", None)
+    if (mesh is not None and index.vectors is not None
+            and any(index.vectors.shards[sh.shard_id].levels
+                    for sh in index.shards)):
+        _scan_committed_mesh(
+            index, mesh, qb, mode, np_eff, score_min, cluster_thr,
+            with_counts, k, use_ff, _field_ok, euclidean,
+            cand, counts, obs_cl, obs_vec)
+    elif index.vectors is not None:
         for shard in index.shards:
             _scan_committed_shard(
                 index, shard, qb, mode, np_eff, score_min, cluster_thr,
@@ -343,3 +351,72 @@ def _scan_committed_shard(index, shard, qb, mode, np_eff, score_min,
         m = finite[qi]
         if m.any():
             cand[qi].append((ts[qi][m], gids_all[qi][m]))
+
+
+def _scan_committed_mesh(index, mesh, qb, mode, np_eff, score_min,
+                         cluster_thr, with_counts, k, use_ff, field_ok_fn,
+                         euclidean, cand, counts, obs_cl, obs_vec):
+    """Committed scan over a mesh (the reference's _scan_committed_mesh,
+    vector_search.py:331-416): the positions hold their shards' vectors
+    (``IndexVectors.device_stacked``); one medoid pass selects each shard's
+    clusters, the host turns the union selection into each shard's tiles,
+    and one scan pass returns every shard's candidates, unmerged, on the
+    lead device.  Each position's deleted masks are its own shards'."""
+    from .ops.vector import medoid_mesh, vector_scan_mesh
+    from .vector_index import TILE
+
+    dev = index.vectors.device_stacked(mesh)
+    hs = dev["per_shard"]
+    S = index.shard_count
+    SL = S // mesh.devices.size
+    quantized = dev["quantized"]
+    q = ((qb.data.astype(np.int8) if quantized else qb.data), qb.scale,
+         qb.zp, qb.qsum, qb.norm2)
+    exhaustive = (mode == AnnMode.All
+                  or all(h["n_clusters"] <= 1 for h in hs))
+    if exhaustive:
+        tid = np.full((S, 1), -1, np.int32)
+        for h in hs:
+            obs_cl += h["n_clusters"]
+            obs_vec += h["n_rows"]
+    else:
+        any_sel, ocl, ovec = medoid_mesh(
+            dev["positions"], q, cluster_thr, C_pad=dev["C_pad"],
+            quantized=quantized,
+            euclidean=euclidean, nprobe=int(np_eff) if np_eff else 0,
+            lead=mesh.lead)
+        any_sel = any_sel.cpu().numpy()
+        obs_cl += ocl.cpu().numpy()
+        obs_vec += ovec.cpu().numpy()
+        per_tiles = []
+        for s, h in enumerate(hs):
+            crs = h["cluster_row_start"]
+            tiles = set()
+            for c in np.flatnonzero(any_sel[s, : h["n_clusters"]]):
+                t0 = int(crs[c]) // TILE
+                t1 = ((int(crs[c + 1]) - 1) // TILE
+                      if crs[c + 1] > crs[c] else t0)
+                tiles.update(range(t0, t1 + 1))
+            per_tiles.append(sorted(tiles))
+        nt_sel = ceil_pow2(max(max(len(t) for t in per_tiles), 1), 4)
+        tid = np.full((S, nt_sel), -1, np.int32)
+        for s, t in enumerate(per_tiles):
+            tid[s, : len(t)] = t
+
+    positions = [
+        dict(p, deleted=[deleted_mask(index.shards[d * SL + j], p["device"])
+                         for j in range(SL)])
+        for d, p in enumerate(dev["positions"])]
+    ts, gid, cnt = vector_scan_mesh(
+        positions, tid, field_ok_fn(dev["nf_pad"]), q, score_min, S=S, k=k,
+        quantized=quantized, euclidean=euclidean, with_counts=with_counts,
+        exhaustive=exhaustive, use_field_filter=use_ff,
+        pool_tiles=dev["n_tiles"], lead=mesh.lead)
+    ts, gid, cnt = ts.cpu().numpy(), gid.cpu().numpy(), cnt.cpu().numpy()
+    counts += cnt
+    finite = np.isfinite(ts)
+    for qi in range(len(score_min)):
+        m = finite[qi]
+        if m.any():
+            cand[qi].append((ts[qi][m].astype(np.float32),
+                             gid[qi][m].astype(np.int64)))

@@ -537,12 +537,20 @@ def test_global_recluster_field_alignment(tmp_path):
     assert dev["n_clusters"] > 1
 
 
-def test_mesh_vector_build_not_ported(tmp_path):
+def test_mesh_vector_build_one_position(tmp_path):
+    """The mesh build: a one-position mesh holds the shard's device tensors
+    themselves (no second copy), with its clusters' row counts."""
     pair = _both(tmp_path, _vec_schema,
                  lambda p: _meta(p, 8, "Dot", clustering="Null"),
                  [{"vector": [1.0] * 8, "label": "x"}])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        pair.port.vectors.device_stacked(None)
+    mesh = pt.make_mesh(["cpu"])
+    out = pair.port.vectors.device_stacked(mesh)
+    one = pair.port.vectors.device(pair.port.shards[0], "cpu")
+    pos, = out["positions"]
+    h, = pos["shards"]
+    assert h is one and out["per_shard"] == [one]
+    assert (out["n_tiles"], out["C_pad"]) == (one["n_tiles"], one["C_pad"])
+    assert one["sizes"].tolist() == [1] + [0] * (one["C_pad"] - 1)
 
 
 # ---------------------------------------------------------------------------

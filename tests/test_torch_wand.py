@@ -244,7 +244,8 @@ def test_page_topk_matches_reference(phases):
                                         (10, True)])
 def test_ladder_device_matches_reference(phases, need, multi):
     Bq = phases["cnt"].shape[0]
-    out = pw._ladder_device(phases["cnt"], phases["rungs"], phases["mine"],
+    out = pw._ladder_device(phases["cnt"], phases["rungs"],
+                            lambda i, v: [phases["mine"](i, v)],
                             need=need, multi=multi, s_gt1=True).numpy()
     ref = np.asarray(wand_mod._ladder_device(
         jnp.asarray(phases["cnt"].numpy()), phases["jrungs"],

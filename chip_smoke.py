@@ -9,8 +9,9 @@ Phases, each printing what it found:
              whether the native host library loaded (ingesting the corpus
              below needs it);
   2. build:  nvcc builds kernels K1 (csrc/wand_scan.cu), K2
-             (csrc/dense_scan.cu), K3 (csrc/facet_hist.cu) and K4
-             (csrc/vector_scan.cu) from the sources, one process each;
+             (csrc/dense_scan.cu), K3 (csrc/facet_hist.cu), K4
+             (csrc/vector_scan.cu), K5 (csrc/wand_rescore.cu) and K6
+             (csrc/wand_rungs.cu) from the sources, one process each;
   3. K1:     K1 against its plain PyTorch version on random pools at the
              serving shapes (Bq=2048, NBLK=16, V=4096, T in {2,4,8}, filter
              off and on): counts equal, UBs, the rung maxima (ub4, ub16,
@@ -24,7 +25,8 @@ Phases, each printing what it found:
   5. serve:  the default route (WAND at 16 blocks):
              bench.make_queries(2048, seed 100) as Topk and TopkCount with
              realtime=True through seekstorm_tpu_torch.search_batch on
-             "cuda"; K1 must have launched, and K2 too whenever a WAND
+             "cuda"; K1 must have launched, K6 once with each K1 launch
+             and K5 once a rung rescored, and K2 too whenever a WAND
              straggler fell back (at batch 2048 stragglers defer to the
              dense path); K1 at the batch's own shapes against its plain
              version (bitwise) with its time, bound and share; the warm
@@ -35,6 +37,20 @@ Phases, each printing what it found:
              SEEKSTORM_TPU_WAND_DEFER_DENSE=1 there, so its stragglers take
              the dense path as well), and 64 queries with realtime=False
              the same pages as the host exact evaluation;
+  5b. K5/K6: WAND phases 2-4 (phase_k56): K5 and K6 against their
+             plain versions on the same card tensors, bit for bit: on
+             synthetic pools of 16 blocks and 2,048 queries from a seed
+             (K5 at K=64 and 256 with unselected buckets, a filter, a
+             mesh part's offset and duplicate ids, T=3 and 8; its fold
+             mode for 1 and 4 queries, from the -inf page and a carried
+             page, at 1, 7 and the default split count; K6 on tied UBs of
+             16, 4 and 1 blocks and of 64 buckets, with phase 1's maxima
+             and without), then at the 2,048-query TopkCount serve batch's
+             own shapes (K6 on K1's UBs and maxima; K5 on its rung-1
+             selection, K=64, and with rung 2 forced, K=256) and on
+             facet2's filtered batch; each timed with CUDA events beside
+             its bound (k5_bound, k6_bound), its plain version and, for
+             K6, torch.topk(allub, 65);
   6. K2:     K2 against its plain PyTorch versions on every (block,
              query) pair of the 2,048-query TopkCount batch's dense plan:
              the unfused mode (masked scores) tile by tile, scores bitwise
@@ -142,7 +158,7 @@ Phases, each printing what it found:
              top-10 queries, 16 at offset 1990, 16 of 10-12 terms, 64
              facet2 and 64 geosort (phase 8's), 32 under
              field_filter=["body"], 64 vector All, 64 Nprobe 16, 64 /v2
-             binary queries and 64 hybrid; K1, K2, K3 and K4 launch counts
+             binary queries and 64 hybrid; K1-K6 launch counts
              rise in the server's /metrics; every response equal to this
              process's answer on the card (ids, order, counts, facets;
              scores within rtol 3e-5), Nprobe and /v2 pages counted where
@@ -169,7 +185,9 @@ Phases, each printing what it found:
              equal to phase 5's); 64 TopkCount queries under
              SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT=1 and 16 under
              SEEKSTORM_TPU_WAND_FORCE_FALLBACK=1, pages and counts equal
-             to exact_pages bit for bit, K1 launched; warm batches on the
+             to exact_pages bit for bit, K1 launched, each of the 16
+             exact-scan dispatches one K5 fold launch held bit for bit
+             against its plain loop over blocks; warm batches on the
              join, dense and WAND routes with their device time by name,
              the join's bound for the batch's windows, and each
              wand_exact_scan dispatch's time and bound, beside the card's
@@ -190,9 +208,11 @@ Phases, each printing what it found:
              x 256, vector All and Nprobe 16 x 64 and hybrid x 64; pages
              equal to no mesh (tie classes within PAGE_RTOL on the WAND
              and join routes and for facet2 and geosort, bit for bit
-             elsewhere, facets equal); each mesh dispatch launched K1, K2
-             and K3 once a position (K2 a tile of pairs a position for
-             sorted pages) and K4 once a shard; pool rows on every
+             elsewhere, facets equal); each mesh dispatch launched K1, K2,
+             K3 and K6 once a position (K2 a tile of pairs a position for
+             sorted pages, K5 once a position a rung) and K4 once a
+             shard, each batch's first launches held bit for bit against
+             the plain versions (_plain_held); pool rows on every
              position; peak device memory, warm batches beside the
              unmeshed ones and the WAND batch's device time by name.
 
@@ -278,7 +298,7 @@ def phase_build():
     _build.load("wand_scan")
     secs = time.perf_counter() - t0
     names = ", ".join(p.name for p in _build.build().values())
-    print(f"[build] K1, K2, K3, K4 libraries {names}: {secs:.2f} s (nvcc, one "
+    print(f"[build] K1-K6 libraries {names}: {secs:.2f} s (nvcc, one "
           f"process per source, {_build.BUILD_SECONDS})")
     for line in (_build.BUILD_LOG or "").splitlines():
         if "registers" in line or "spill" in line:
@@ -573,6 +593,8 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     from seekstorm_tpu_torch import METRICS
     from seekstorm_tpu_torch.ops import dense_scan as ds
     from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+    from seekstorm_tpu_torch.ops import wand_rungs as wg
     from seekstorm_tpu_torch.ops import wand_scan as ws
 
     queries = bench.make_queries(n_queries, np.random.default_rng(100))
@@ -584,8 +606,8 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
                 for q, t in qs]
 
     fb0 = METRICS.snapshot().get("wand_fallbacks_total", 0.0)
-    ws.LAUNCHES = 0
-    ds.LAUNCHES = 0
+    for m in (ws, ds, wr, wg):
+        m.LAUNCHES = 0
     t0 = time.perf_counter()
     topk = st.search_batch(idx, reqs(st.ResultType.Topk), device=device)
     t1 = time.perf_counter()
@@ -594,12 +616,17 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
     t2 = time.perf_counter()
     launches = ws.LAUNCHES
     k2_launches = ds.LAUNCHES
+    k5_launches, k6_launches = wr.LAUNCHES, wg.LAUNCHES
     fallbacks = METRICS.snapshot().get("wand_fallbacks_total", 0.0) - fb0
     print(f"[serve] {n_queries} queries: Topk batch {t1 - t0:.3f} s (cold: "
           f"builds the term rows), TopkCount batch {t2 - t1:.3f} s; K1 "
-          f"launches {launches}; WAND stragglers {fallbacks:.0f}, deferred "
-          f"to the dense path: K2 launches {k2_launches}")
+          f"launches {launches}, K6 {k6_launches}, K5 {k5_launches}; WAND "
+          f"stragglers {fallbacks:.0f}, deferred to the dense path: K2 "
+          f"launches {k2_launches}")
     check(launches > 0, "the serve phase did not launch K1")
+    check(k6_launches == launches and k5_launches >= launches,
+          "every WAND dispatch of the serve phase ran K6 once and K5 once "
+          "a rung")
     check(k2_launches > 0 if fallbacks else k2_launches == 0,
           "WAND stragglers at batch 2048 must run on K2, and only they")
     check(len(topk) == n_queries and len(topkc) == n_queries,
@@ -679,7 +706,8 @@ def phase_serve(torch, st, idx, n_queries=N_QUERIES, n_cpu=256, n_exact=64,
           f"{bad[:5]}")
     check(not bad, "device pages differ from the host exact evaluation")
     return dict(k1_launches=launches, k1=k1_serve, topk=topk, topkc=topkc,
-                queries=queries, stragglers=stragglers)
+                queries=queries, stragglers=stragglers,
+                k5_launches=k5_launches, k6_launches=k6_launches)
 
 
 class _recording_scans:
@@ -746,6 +774,378 @@ def _same_pages(a, b, rtol=PAGE_RTOL):
                                  zip(ca[:-1], cb[:-1])):
         return False, "ids"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: WAND phases 2-4 as kernels K5 (csrc/wand_rescore.cu) and K6
+# (csrc/wand_rungs.cu)
+
+
+def _same_bits(torch, xs, ys, what, tag):
+    """Outputs xs bit for bit equal to ys (floats compared as int32 bit
+    patterns, after their -inf patterns); returns the largest abs error of
+    the finite float entries (0.0 when equal)."""
+    err = 0.0
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if x.is_floating_point():
+            fin = torch.isfinite(y)
+            check(torch.equal(fin, torch.isfinite(x)),
+                  f"{what} output {i}: -inf pattern differs ({tag})")
+            if bool(fin.any()):
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        check(torch.equal(x, y), f"{what} output {i} not bitwise equal to "
+              f"its plain version ({tag}, max abs err {err})")
+    return err
+
+
+def _k5_pools(torch, rng, *, NBLK, V, Bq, T, S=1):
+    """Synthetic pools in the WandState layout on the card, from a numpy
+    seed: a pool row a (slot, block) segment (15% absent), ranks the
+    exclusive popcount prefix of the row's words, 1 to 3 as impacts (ties
+    everywhere) at each segment's offset, deletes; and a batch of Bq
+    queries of up to T columns (some required, some negated, the last row
+    all padding).  Returns (pools for K5: ppool, rpool, ipool, sp_prow,
+    sp_ioff, delw, sid; tables: slotmap, tslot, treq, tneg, wshard)."""
+    import numpy as np
+
+    R = V * NBLK
+    ppool = rng.integers(0, 1 << 32, size=(R, NW), dtype=np.uint32)
+    for _ in range(3):
+        ppool &= rng.integers(0, 1 << 32, size=(R, NW), dtype=np.uint32)
+    pc = np.array([bin(x).count("1") for x in range(256)], np.int64)
+    per_word = pc[ppool.view(np.uint8)].reshape(R, NW, 4).sum(axis=2)
+    rpool = (np.cumsum(per_word, axis=1) - per_word).astype(np.int32)
+    sizes = per_word.sum(axis=1)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ipool = rng.integers(1, 4, size=int(sizes.sum())).astype(np.float32)
+    have = rng.random((V, NBLK)) < 0.85
+    rows = np.arange(R, dtype=np.int32).reshape(V, NBLK)
+    sp_prow = np.where(have, rows, -1).astype(np.int32)
+    sp_ioff = np.where(have, starts.reshape(V, NBLK), -1).astype(np.int32)
+    delw = (rng.integers(0, 1 << 32, size=(NBLK, NW), dtype=np.uint32)
+            & rng.integers(0, 1 << 32, size=(NBLK, NW), dtype=np.uint32)
+            & rng.integers(0, 1 << 32, size=(NBLK, NW), dtype=np.uint32))
+    sid = ((np.arange(NBLK) * S) // NBLK).astype(np.int32)
+    tslot = np.full((Bq, T), -1, np.int32)
+    treq = np.zeros((Bq, T), bool)
+    tneg = np.zeros((Bq, T), bool)
+    wsh = np.zeros((S, Bq, T), np.float32)
+    n = rng.integers(1, T + 1, size=Bq - 1)
+    for q in range(Bq - 1):
+        sl = rng.choice(V, size=n[q], replace=False)
+        tslot[q, :n[q]] = sl
+        tneg[q, 1:n[q]] = rng.random(n[q] - 1) < 0.15
+        treq[q, :n[q]] = ~tneg[q, :n[q]] & (rng.random(n[q]) < 0.3)
+        wsh[:, q, :n[q]] = rng.choice([0.5, 1.0, 1.25, 2.0], size=(S, n[q]))
+
+    def put(x):
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    return ([put(x) for x in (ppool, rpool, ipool, sp_prow, sp_ioff, delw,
+                              sid)],
+            [put(x) for x in (np.arange(V, dtype=np.int32), tslot, treq,
+                              tneg, wsh)])
+
+
+def check_k5(torch, pools, q, ids, vals, tag, filtw=None, bucket_off=0):
+    """K5's page mode against rescore_page_ref on the same card tensors:
+    scores, lanes, n_ge and found bit for bit.  Returns (max abs err,
+    matched docs)."""
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+
+    got = wr.rescore_page_cuda(*pools, *q, ids, vals, filtw, bucket_off)
+    want = wr.rescore_page_ref(*pools, *q, ids, vals, filtw, bucket_off)
+    torch.cuda.synchronize()
+    return (_same_bits(torch, got, want, "K5", tag), int(want[3].sum()))
+
+
+def check_fold(torch, pools, q, tag, filtw=None, carry=None, nsplit=None):
+    """K5's fold mode against exact_scan_ref on the same card tensors:
+    page scores, lanes and found bit for bit.  Returns the max abs err."""
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+
+    got = wr.exact_fold_cuda(*pools, *q, filtw, carry, nsplit=nsplit)
+    want = wr.exact_scan_ref(*pools, *q, filtw, carry)
+    torch.cuda.synchronize()
+    return _same_bits(torch, got, want, "K5 fold", tag)
+
+
+def check_k6(torch, allub, maxima, tag):
+    """K6 against _rung_topks on the same card tensors, with phase 1's
+    maxima and reducing them itself: each rung's values and ids bit for
+    bit.  Returns the max abs err."""
+    from seekstorm_tpu_torch.ops import wand_rungs as wg
+
+    err = 0.0
+    cases = [(None, "maxima reduced")]
+    if maxima is not None:
+        cases.insert(0, (maxima, "maxima given"))
+    for mx, how in cases:
+        got = wg.wand_rungs_cuda(allub, mx)
+        want = wg._rung_topks(allub, 0, mx)
+        torch.cuda.synchronize()
+        for r, (g, w) in enumerate(zip(got, want)):
+            err = max(err, _same_bits(torch, g, w, "K6",
+                                      f"{tag}, {how}, rung {r + 1}"))
+    return err
+
+
+def _rand_select(torch, g, Bq, n_buckets, K, p_unsel=0.25):
+    """Bq rows of K distinct bucket ids in [0, n_buckets) with UBs, a
+    share p_unsel of them unselected (-inf)."""
+    ids = torch.rand((Bq, n_buckets), generator=g, device="cuda").argsort(
+        dim=1)[:, :K].to(torch.int32).contiguous()
+    vals = torch.rand((Bq, K), generator=g, device="cuda") * 10
+    vals[torch.rand((Bq, K), generator=g, device="cuda") < p_unsel] = \
+        float("-inf")
+    return ids, vals
+
+
+def _k6_ties(torch, g, Bq, L1, levels=400):
+    """allub with UBs from `levels` values (ties within and across groups),
+    60% unmatched, one row unmatched and one a single tie class."""
+    x = torch.randint(0, levels, (Bq, L1), generator=g, device="cuda"
+                      ).float() * 0.25
+    x[torch.rand((Bq, L1), generator=g, device="cuda") < 0.6] = \
+        float("-inf")
+    x[1] = float("-inf")
+    x[2] = 1.5
+    return x
+
+
+def phase_k56_synthetic(torch, NBLK=16, Bq=N_QUERIES):
+    """K5 and K6 against their plain versions on synthetic inputs at the
+    serving shapes (NBLK blocks, Bq queries) from a seed: K5's page mode
+    at K=64 and 256 with unselected buckets, a filter, a mesh part's
+    offset and duplicate ids, T of 3 and 8; its fold mode for 1 and 4
+    queries from the -inf page and from a carried page, at the default
+    split count and at 1 and 7; K6 on tied UBs of NBLK, 4 and 1 blocks
+    and of 64 buckets, with phase 1's maxima and without."""
+    import numpy as np
+
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+    from seekstorm_tpu_torch.ops import wand_scan as ws
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    err = 0.0
+    for T in (3, 8):
+        pools, q = _k5_pools(torch, rng, NBLK=NBLK, V=96, Bq=Bq, T=T)
+        nb = NBLK * NW
+        filtw = torch.randint(-2**31, 2**31 - 1, (NBLK, NW), generator=g,
+                              device="cuda", dtype=torch.int32)
+        for K in (64, 256):
+            ids, vals = _rand_select(torch, g, Bq, nb, K)
+            off = nb // 2
+            mine = (ids >= off) & (vals > float("-inf"))
+            dup = ids.clone()
+            dup[:, 1::2] = dup[:, ::2]
+            for tag, a in (("", (ids, vals)),
+                           (" filter", (ids, vals, filtw)),
+                           (" mesh part", (torch.where(mine, ids - off, -1),
+                                           torch.where(mine, vals,
+                                                       float("-inf")),
+                                           None, off)),
+                           (" duplicate ids", (dup, vals))):
+                e, nf = check_k5(torch, pools, q, *a[:2],
+                                 f"synthetic T={T} K={K}{tag}", *a[2:])
+                err = max(err, e)
+                check(nf > 0, f"synthetic K5 case T={T} K={K}{tag} matched")
+        for fq in (1, 4):
+            qq = [q[0]] + [x[:fq] for x in q[1:4]] + [q[4][:, :fq]]
+            carry = wr.initial_carry(fq, "cuda")
+            c_psc = torch.full((fq, wr.P_PAGE), float("-inf"), device="cuda")
+            c_psc[:, :5] = torch.tensor([9.0, 6.0, 6.0, 3.0, 2.0],
+                                        device="cuda")
+            c_plane = torch.randint(0, 1 << 20, (fq, wr.P_PAGE), generator=g,
+                                    device="cuda", dtype=torch.int32)
+            for ns in (None, 1, 7):
+                err = max(err, check_fold(torch, pools, qq,
+                                          f"T={T} Bq={fq} nsplit={ns}",
+                                          carry=carry, nsplit=ns))
+            err = max(err, check_fold(torch, pools, qq, f"T={T} Bq={fq} "
+                                      "carried page", filtw,
+                                      (c_psc, c_plane)))
+        del pools, q
+    for L1, with_max in ((NBLK * NW, True), (4 * NW, True), (NW, True),
+                         (64, False)):
+        x = _k6_ties(torch, g, Bq, L1)
+        err = max(err, check_k6(torch, x, ws.rung_maxima(x) if with_max
+                                else None, f"synthetic L1={L1}"))
+    torch.cuda.empty_cache()
+    print(f"[K5/K6] synthetic (NBLK={NBLK}, Bq={Bq}): K5 page mode at "
+          f"K=64/256 (unselected, filter, mesh offset, duplicate ids; T=3 "
+          f"and 8), fold mode (Bq 1 and 4, nsplit default/1/7, carried "
+          f"page) and K6 (tied UBs, L1 {NBLK * NW}/{4 * NW}/{NW}/64) bitwise "
+          f"equal to their plain versions ({time.perf_counter() - t0:.1f} "
+          f"s)")
+    return err
+
+
+def _ladder_inputs(torch, st, idx, reqs, with_filter=False):
+    """A batch's WAND inputs as its dispatch passes them to phases 2-4: K5's
+    pools (ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid), the batch
+    tables on the card, the facet filter's disallowed words (with_filter)
+    and phase 1's output under them (allub and the maxima ub4, ub16, g1,
+    from K1)."""
+    import numpy as np
+
+    from seekstorm_tpu_torch import facets as facets_mod
+    from seekstorm_tpu_torch.ops import wand as W
+
+    sm = importlib.import_module("seekstorm_tpu_torch.search")
+    slots, specs = sm._build_specs(idx, [r.query for r in reqs],
+                                   [r.query_type_default for r in reqs])
+    specs = [sp for sp in specs if W.query_ok(sp)]
+    idf = np.stack([sm._shard_idf(sh, slots, reqs[0].realtime)
+                    for sh in idx.shards])
+    state = W.get_state(idx, "cuda")
+    with state.lock:
+        tables = W.plan_batch(state, slots, specs, idf)[:5]
+        pools = state.pools
+    q = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in tables]
+    filtw = None
+    if with_filter:
+        mask = facets_mod.get_runtime(idx).filter_mask(reqs[0].facet_filter)
+        filtw = torch.from_numpy(sm._wand_filter_words(
+            idx, state, mask).view(np.int32)).cuda()
+    allub, _, *maxima = W.scan_ub(pools[0], pools[1], pools[4], pools[6],
+                                  pools[7], *q, with_counts=True,
+                                  filtw=filtw)
+    return dict(pools=[pools[0], *pools[2:]], q=q, filtw=filtw, allub=allub,
+                maxima=tuple(maxima))
+
+
+def k5_bound(torch, pools, q, ids, vals, filtw=None):
+    """K5's least time on an H100 for one page-mode launch, in ms, and
+    what sets it: each input byte it must read once (the pool row and
+    impact offset of every (slot, block) a selected bucket of a query's
+    columns names, the presence word and rank of every distinct (pool row,
+    bucket) among them, the impacts present in those words, the delete and
+    filter words of each distinct bucket, the selections and the batch
+    tables) and the pages written once (64 scores and lanes, n_ge and
+    found a query), over the HBM rate; against an f32 multiply and add a
+    present impact of every (query, column, bucket) over the f32 peak."""
+    ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid = pools
+    slotmap, tslot, treq, tneg, wshard = q
+    Bq, K = ids.shape
+    T = tslot.shape[1]
+    NBLK = sp_prow.shape[1]
+    valid = (vals > float("-inf")) & (ids >= 0) & (ids < NBLK * NW)
+    buck = ids.long().clamp(0, NBLK * NW - 1)
+    srow = torch.where(tslot >= 0,
+                       slotmap.long()[tslot.clamp(min=0).long()], -1)
+    rows = srow[:, :, None].expand(Bq, T, K)
+    blk = (buck // NW)[:, None, :].expand(Bq, T, K)
+    ok = (rows >= 0) & valid[:, None, :]
+    n_seg = len(torch.unique((rows * NBLK + blk)[ok]))
+    prow = sp_prow[rows.clamp(min=0), blk]
+    live = ok & (prow >= 0)
+    word = prow.long() * NW + (buck % NW)[:, None, :]
+    from seekstorm_tpu_torch.ops.wand_scan import popcount32
+
+    uniq = torch.unique(word[live])
+    n_imp = int(popcount32(ppool.view(-1)[uniq]).sum())
+    n_ops = 2 * int(popcount32(ppool.view(-1)[word[live]]).sum())
+    n_bucket = len(torch.unique(buck[valid]))
+    read = (n_seg * 8 + len(uniq) * 8 + n_imp * 4
+            + n_bucket * 4 * (1 if filtw is None else 2) + Bq * K * 8
+            + sum(x.numel() * x.element_size() for x in q))
+    write = Bq * (64 * 8 + 8)
+    return _bound(read + write, n_ops)
+
+
+def k6_bound(Bq, L1, with_maxima=True):
+    """K6's least time on an H100, in ms: with phase 1's maxima it reads
+    g1, the 65 selected 128-bucket groups of allub, ub4 and ub16 once;
+    without them allub whole; and it writes 3 x 65 (value, id) a query.
+    Its compares are not counted (bytes set it)."""
+    per = (L1 // 128 + 65 * 128 + L1 // 4 + L1 // 16) if with_maxima \
+        else L1
+    return _bound(4 * Bq * per + 3 * Bq * 65 * 8, 0)
+
+
+def phase_k56(torch, st, idx, card, n_queries=N_QUERIES):
+    """Phase 5b: K5 and K6 against their plain versions on the same card
+    tensors, on synthetic inputs (phase_k56_synthetic) and at the 2,048-
+    query TopkCount serve batch's own shapes on phase 4's index: K6 on K1's
+    UBs and maxima, K5 on its rung-1 selection (K=64) and with rung 2
+    forced (K=256, each selected 128-doc region's four buckets), and both
+    on facet2's filtered batch (filtw); each timed (CUDA events) beside
+    its bound, its plain version and, for K6, torch.topk(allub, 65)."""
+    import bench
+    import numpy as np
+
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+    from seekstorm_tpu_torch.ops import wand_rungs as wg
+
+    t_phase = time.perf_counter()
+    err5 = err6 = phase_k56_synthetic(torch)
+    queries = bench.make_queries(n_queries, np.random.default_rng(100))
+    serve = [st.SearchRequest(query=q, length=10,
+                              result_type=st.ResultType.TopkCount,
+                              realtime=True,
+                              query_type_default=st.QueryType(t))
+             for q, t in queries]
+    rows = {}
+    for name, reqs, filt in (("serve", serve, False),
+                             ("facet2", facet_requests(st, "facet2",
+                                                       n_queries), True)):
+        inp = _ladder_inputs(torch, st, idx, reqs, with_filter=filt)
+        allub, maxima = inp["allub"], inp["maxima"]
+        Bq, L1 = allub.shape
+        err6 = max(err6, check_k6(torch, allub, maxima, name))
+        rungs = wg.wand_rungs_cuda(allub, maxima)
+        vals1, ids1 = [x[:, :wg.K_SEL].contiguous() for x in rungs[0]]
+        vals2, ids2 = rungs[1]
+        idsb = (ids2[:, :wg.K_SEL, None] * 4 + torch.arange(
+            4, dtype=torch.int32, device="cuda")).reshape(Bq, -1)
+        valsb = torch.repeat_interleave(vals2[:, :wg.K_SEL], 4, dim=1)
+        sel = {"rung 1": (ids1, vals1), "rung 2": (idsb.contiguous(),
+                                                   valsb.contiguous())}
+        k6_args = (allub, maxima)
+        ms6 = _median_ms(torch, lambda: wg.wand_rungs_cuda(*k6_args))
+        plain6 = _median_ms(torch, lambda: wg._rung_topks(allub, 0, maxima),
+                            n=2, rounds=3)
+        lib6 = _median_ms(torch, lambda: torch.topk(allub, wg.KP, dim=1))
+        b6, by6 = k6_bound(Bq, L1)
+        rows[(name, "K6")] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6,
+                                  bound_by=by6, library_ms=lib6, err=err6)
+        print(f"[K5/K6] {name} (Bq={Bq}, L1={L1}): K6 values and ids "
+              f"bitwise equal to _rung_topks (maxima given and reduced); "
+              f"K6 {ms6:.4f} ms, plain {plain6:.3f} ms, torch.topk(allub, "
+              f"65) {lib6:.4f} ms, bound {b6:.4f} ms ({by6}), "
+              f"{100 * b6 / ms6:.1f}% of bound ({card})")
+        for rung, (ids, vals) in sel.items():
+            args = (inp["pools"], inp["q"], ids, vals)
+            e, nf = check_k5(torch, *args, f"{name} {rung}", inp["filtw"])
+            err5 = max(err5, e)
+            ms5 = _median_ms(torch, lambda: wr.rescore_page_cuda(
+                *inp["pools"], *inp["q"], ids, vals, inp["filtw"]))
+            plain5 = _median_ms(torch, lambda: wr.rescore_page_ref(
+                *inp["pools"], *inp["q"], ids, vals, inp["filtw"]),
+                n=2, rounds=3)
+            b5, by5 = k5_bound(torch, *args, inp["filtw"])
+            rows[(name, "K5", rung)] = dict(
+                ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
+                library_ms=None, err=err5)
+            print(f"[K5/K6] {name} {rung} (K={ids.shape[1]}, "
+                  f"T={inp['q'][1].shape[1]}{', filter' if filt else ''}): "
+                  f"psc, plane, n_ge and found bitwise equal to "
+                  f"rescore_page_ref ({nf} matched docs); K5 {ms5:.4f} ms, "
+                  f"plain {plain5:.3f} ms, bound {b5:.4f} ms ({by5}), "
+                  f"{100 * b5 / ms5:.1f}% of bound ({card})")
+        del inp, rungs, sel, k6_args
+        torch.cuda.empty_cache()
+    print(f"[K5/K6] phase 5b: {time.perf_counter() - t_phase:.1f} s")
+    k5 = dict(rows[("serve", "K5", "rung 1")], err=err5)
+    k6 = dict(rows[("serve", "K6")], err=err6)
+    return dict(k5=k5, k6=k6, rows=rows)
 
 
 def k2_bound(torch, part, n_queries):
@@ -1806,6 +2206,7 @@ def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
     from seekstorm_tpu_torch import METRICS
     from seekstorm_tpu_torch.ops import dense_scan as ds
     from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
     from seekstorm_tpu_torch.ops import wand_scan as ws
     from seekstorm_tpu_torch.parallel.mesh import get_stacked as stacked_of
     ps = importlib.import_module("seekstorm_tpu_torch.search")
@@ -1954,15 +2355,25 @@ def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
     # (c) the device exact scan and the host exact evaluation
     rq = reqs(st.ResultType.TopkCount, qs=queries[:n_dx], realtime=False)
     exact = st.exact_pages(idx, rq, "cuda")
-    dispatch_ms = []
+    dispatch_ms, plain_ms, fold_err, fold_launches = [], [], [], []
     orig_scan = W.wand_exact_scan
 
     def timed(*a, **kw):
+        # the dispatch (K5's fold mode), then its plain loop over blocks
+        # on the same tensors, which launches no kernel
         torch.cuda.synchronize()
+        n0 = wr.LAUNCHES
         t0 = time.perf_counter()
         out = orig_scan(*a, **kw)
         torch.cuda.synchronize()
         dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        fold_launches.append(wr.LAUNCHES - n0)
+        t0 = time.perf_counter()
+        want = wr.exact_scan_ref(a[0], *a[2:], kw.get("filtw"), None)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        fold_err.append(_same_bits(torch, out, want, "K5 fold",
+                                   f"exact-scan dispatch {len(fold_err)}"))
         return out
 
     W.wand_exact_scan = timed
@@ -1970,6 +2381,7 @@ def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
         got, dt_x, mx = run({"SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT": "1"}, rq)
     finally:
         W.wand_exact_scan = orig_scan
+    k5_fold = sum(fold_launches)
 
     def equal_exact(pages, want):
         return [i for i, (rs, (count, gids, scores)) in
@@ -1988,11 +2400,15 @@ def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
     n_disp = int(mx["wand_dev_exact_total"])
     print(f"[join] SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT=1, {n_dx} TopkCount "
           f"queries: {dt_x:.3f} s, K1 launches {mx['k1']}, "
-          f"wand_exact_scan dispatches {n_disp}; equal to exact_pages "
-          f"(ids, order, scores, counts exactly): {n_dx - len(bad)}, first "
-          f"mismatches {bad[:5]}")
+          f"wand_exact_scan dispatches {n_disp} (K5 fold launches "
+          f"{k5_fold}, each bitwise equal to the plain loop over blocks); "
+          f"equal to exact_pages (ids, order, scores, counts exactly): "
+          f"{n_dx - len(bad)}, first mismatches {bad[:5]}")
     check(mx["k1"] > 0 and n_disp == -(-n_dx // 4) and not bad,
           "the device exact scan differs from the host exact evaluation")
+    check(fold_launches == [1] * n_disp and len(fold_err) == n_disp,
+          "each exact-scan dispatch is one K5 launch, held against the "
+          "plain loop")
     fb, dt_f, mf = run({"SEEKSTORM_TPU_WAND_FORCE_FALLBACK": "1"},
                        rq[:n_fb])
     bad = equal_exact(fb, exact[:n_fb])
@@ -2028,14 +2444,18 @@ def phase_join(torch, st, idx, served, card, n_cpu=256, n_dx=64, n_fb=16):
     bounds = [exact_scan_bound(state, slots_x, g) for g in groups]
     xb = statistics.median(b for b, _ in bounds)
     xms = statistics.median(dispatch_ms)
-    print(f"[join] {card}: wand_exact_scan, {len(dispatch_ms)} dispatches "
-          f"of 4 queries over {state.nblk} blocks, ms each (host clock "
-          f"between synchronizes): {[round(x, 2) for x in dispatch_ms]}; "
-          f"median {xms:.2f} ms, bound {xb:.4f} ms ({bounds[0][1]}), "
-          f"{100 * xb / xms:.3f}% of bound")
+    xplain = statistics.median(plain_ms)
+    print(f"[join] {card}: wand_exact_scan (K5's fold mode), "
+          f"{len(dispatch_ms)} dispatches of 4 queries over {state.nblk} "
+          f"blocks, ms each (host clock between synchronizes): "
+          f"{[round(x, 3) for x in dispatch_ms]}; median {xms:.3f} ms, "
+          f"bound {xb:.4f} ms ({bounds[0][1]}), {100 * xb / xms:.3f}% of "
+          f"bound; the plain loop over blocks on the same tensors: median "
+          f"{xplain:.2f} ms")
     print(f"[join] phase 13: {time.perf_counter() - t_phase:.1f} s")
     return dict(join_ms=join_ms, join_bound=bound, exact_ms=xms,
-                exact_bound=xb)
+                exact_bound=xb, exact_plain_ms=xplain,
+                fold_err=max(fold_err), k5_fold=k5_fold)
 
 
 # ---------------------------------------------------------------------------
@@ -2658,7 +3078,7 @@ WAND_ROUTE = {"SEEKSTORM_TPU_WAND": "1"}
 
 class _mesh_dispatches:
     """Within the block, records each mesh dispatch with the launches of
-    K1-K4 it made ({"k1": n, ...}): ("wand", n, faceted) per
+    K1-K6 it made ({"k1": n, ...}): ("wand", n, faceted) per
     wand_scan_mesh call, ("dense", n, faceted, tf, sorted) per
     MeshStacked.run, ("vector", n) per vector_scan_mesh call; a list."""
 
@@ -2668,11 +3088,13 @@ class _mesh_dispatches:
         from seekstorm_tpu_torch.ops import vector as V
         from seekstorm_tpu_torch.ops import vector_scan as vs
         from seekstorm_tpu_torch.ops import wand as W
+        from seekstorm_tpu_torch.ops import wand_rescore as wr
+        from seekstorm_tpu_torch.ops import wand_rungs as wg
         from seekstorm_tpu_torch.ops import wand_scan as ws
         from seekstorm_tpu_torch.parallel import mesh as pm
 
         self.calls = []
-        mods = dict(k1=ws, k2=ds, k3=fh, k4=vs)
+        mods = dict(k1=ws, k2=ds, k3=fh, k4=vs, k5=wr, k6=wg)
 
         def counted(kind, fn, extra=lambda a, kw: ()):
             def run(*a, **kw):
@@ -2703,12 +3125,13 @@ class _mesh_dispatches:
 
 
 class _plain_held:
-    """Within the block, holds launches of K1-K4 against their plain
+    """Within the block, holds launches of K1-K6 against their plain
     versions on the same card tensors, right after each launch and before
     the path reads its result: in each batch (set `batch` before it) the
     first `per_batch[kernel]` launches of each wrapper, which are a
-    dispatch's launches on every position for K1, K2's fused mode and K3
-    (one a position) and on every shard for K4 (one a shard); K2's
+    dispatch's launches on every position for K1, K2's fused mode, K3 and
+    K6 (one a position), for K5 (one a position a rung, rung 2 only where
+    a query escalates), and on every shard for K4 (one a shard); K2's
     unfused mode (sorted pages) launches a tile of pairs at a time, so
     there the first positions' tiles.  The plain versions launch no
     kernel, so the launch counts stay the path's.  `held` maps each
@@ -2716,7 +3139,8 @@ class _plain_held:
 
     def __init__(self, torch, D, S):
         self.torch = torch
-        self.per_batch = dict(k1=D, k2=D, k2f=D, k3=D, k4=S)
+        self.per_batch = dict(k1=D, k2=D, k2f=D, k3=D, k4=S, k5=2 * D,
+                              k6=D)
         self.batch = None
         self.seen = {}
         self.held = {}
@@ -2743,28 +3167,18 @@ class _plain_held:
         from seekstorm_tpu_torch.ops import vector_scan as vs
         from seekstorm_tpu_torch.ops import wand_scan as ws
 
+        from seekstorm_tpu_torch.ops import wand_rescore as wr
+        from seekstorm_tpu_torch.ops import wand_rungs as wg
+
         torch = self.torch
 
-        def bitwise(xs, ys, what, tag):
-            err = 0.0
-            for i, (x, y) in enumerate(zip(xs, ys)):
-                if x.is_floating_point():
-                    fin = torch.isfinite(y)
-                    check(torch.equal(fin, torch.isfinite(x)),
-                          f"{what} output {i}: -inf pattern differs ({tag})")
-                    if bool(fin.any()):
-                        err = max(err, float((x[fin] - y[fin]).abs().max()))
-                    x, y = x.view(torch.int32), y.view(torch.int32)
-                check(torch.equal(x, y), f"{what} output {i} not bitwise "
-                      f"equal to its plain version ({tag}, max abs err "
-                      f"{err})")
-            return err
-
         def k1(out, a, kw, tag):
-            return bitwise(out, ws.scan_blocks_ref(*a, **kw), "K1", tag)
+            return _same_bits(torch, out, ws.scan_blocks_ref(*a, **kw),
+                              "K1", tag)
 
         def k2(out, a, kw, tag):
-            return bitwise(out, ds.dense_scan_ref(*a, **kw), "K2", tag)
+            return _same_bits(torch, out, ds.dense_scan_ref(*a, **kw),
+                              "K2", tag)
 
         def k2f(out, a, kw, tag):
             want = ds.dense_topk_ref(*a[:15], with_matched=kw.get(
@@ -2781,7 +3195,17 @@ class _plain_held:
 
         def k4(out, a, kw, tag):
             check(kw["quantized"], f"phase 14's vectors are i8 ({tag})")
-            return bitwise(out, V.vector_scan_ref(*a, **kw), "K4", tag)
+            return _same_bits(torch, out, V.vector_scan_ref(*a, **kw),
+                              "K4", tag)
+
+        def k5(out, a, kw, tag):
+            return _same_bits(torch, out, wr.rescore_page_ref(*a, **kw),
+                              "K5", tag)
+
+        def k6(out, a, kw, tag):
+            want = wg._rung_topks(a[0], 0, *a[1:], **kw)
+            return max(_same_bits(torch, g, w, "K6", f"{tag}, rung {r + 1}")
+                       for r, (g, w) in enumerate(zip(out, want)))
 
         self.saved = []
         self._wrap(ws, "wand_scan_cuda", "k1", k1)
@@ -2789,6 +3213,8 @@ class _plain_held:
         self._wrap(ds, "dense_topk_cuda", "k2f", k2f)
         self._wrap(fh, "facet_hist_cuda", "k3", k3)
         self._wrap(vs, "vector_scan_cuda", "k4", k4)
+        self._wrap(wr, "rescore_page_cuda", "k5", k5)
+        self._wrap(wg, "wand_rungs_cuda", "k6", k6)
         return self
 
     def __exit__(self, *exc):
@@ -2972,6 +3398,8 @@ def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
     from seekstorm_tpu_torch.ops import facet_hist as fh
     from seekstorm_tpu_torch.ops import vector_scan as vs
     from seekstorm_tpu_torch.ops import wand as W
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+    from seekstorm_tpu_torch.ops import wand_rungs as wg
     from seekstorm_tpu_torch.ops import wand_scan as ws
     from seekstorm_tpu_torch.parallel import mesh as pm
 
@@ -3044,10 +3472,12 @@ def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
                   f"on every position), bitwise equal, max abs err {err} "
                   f"({card})")
         check(all(held_.get(k) for k in ("wand_scan_cuda", "facet_hist_cuda",
-                                          "vector_scan_cuda"))
+                                          "vector_scan_cuda",
+                                          "rescore_page_cuda",
+                                          "wand_rungs_cuda"))
               and (held_.get("dense_topk_cuda")
                    or held_.get("dense_scan_cuda")),
-              f"{tag}: K1-K4 each held against its plain version "
+              f"{tag}: K1-K6 each held against its plain version "
               f"({sorted(held_)})")
         return held_
 
@@ -3056,9 +3486,12 @@ def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
         for kind, n, *extra in calls:
             kinds.setdefault(kind, []).append((n, extra))
         for n, (fac,) in kinds.get("wand", []):
-            check(n["k1"] == D and n["k3"] == (D if fac else 0),
-                  f"{tag}: a WAND dispatch launched K1 {n['k1']} and K3 "
-                  f"{n['k3']} times over {D} positions")
+            # K5 runs only with the device ladder, a rung at a time
+            check(n["k1"] == D and n["k3"] == (D if fac else 0)
+                  and n["k6"] == D and n["k5"] in (0, D, 2 * D),
+                  f"{tag}: a WAND dispatch launched K1 {n['k1']}, K3 "
+                  f"{n['k3']}, K5 {n['k5']} and K6 {n['k6']} times over {D} "
+                  f"positions")
         for n, (fac, tf, srt) in kinds.get("dense", []):
             # sorted pages take K2's unfused mode, a launch a tile of pairs
             k2_ok = n["k2"] == 0 if tf else (n["k2"] >= D if srt
@@ -3070,13 +3503,14 @@ def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
             check(n["k4"] == S, f"{tag}: a vector dispatch launched K4 "
                   f"{n['k4']} times for {S} shards")
         tot = {k: sum(n[k] for _, n, *_ in calls)
-               for k in ("k1", "k2", "k3", "k4")}
+               for k in ("k1", "k2", "k3", "k4", "k5", "k6")}
         print(f"[mesh] {tag}: dispatches " + ", ".join(
             f"{k} {len(v)}" for k, v in kinds.items())
             + f"; launches K1 {tot['k1']}, K2 {tot['k2']}, K3 {tot['k3']}, "
-            f"K4 {tot['k4']} (K1, K2 and K3 once a position a dispatch, K2 "
-            f"a tile of pairs a position for sorted pages, K4 once a "
-            f"shard)")
+            f"K4 {tot['k4']}, K5 {tot['k5']}, K6 {tot['k6']} (K1, K2, K3 "
+            f"and K6 once a position a dispatch, K5 once a position a rung "
+            f"rescored, K2 a tile of pairs a position for sorted pages, K4 "
+            f"once a shard)")
         check(all(kinds.get(k) for k in ("wand", "dense", "vector")),
               f"{tag}: the WAND, dense and vector dispatches all ran")
         return tot
@@ -3086,7 +3520,7 @@ def phase_mesh(torch, st, card, n_docs=N_DOCS, n_vec=N_MESH_VEC,
         torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.max_memory_allocated() if on_card else 0
     mesh = attach([f"{device}:0" if on_card else device] * MESH_POSITIONS)
-    kmods = dict(k1=ws, k2=ds, k3=fh, k4=vs)
+    kmods = dict(k1=ws, k2=ds, k3=fh, k4=vs, k5=wr, k6=wg)
     for m in kmods.values():
         m.LAUNCHES = 0
     with _mesh_dispatches() as calls, \
@@ -3240,8 +3674,8 @@ def _launch_counts(base_url):
 
     with urllib.request.urlopen(base_url + "/metrics") as r:
         text = r.read().decode()
-    got = {f"k{k}": 0.0 for k in range(1, 5)}
-    for m in re.finditer(r"^seekstorm_(k[1-4])_launches_total (\S+)$", text,
+    got = {f"k{k}": 0.0 for k in range(1, 7)}
+    for m in re.finditer(r"^seekstorm_(k[1-6])_launches_total (\S+)$", text,
                          re.M):
         got[m.group(1)] = float(m.group(2))
     return got
@@ -3429,7 +3863,7 @@ def phase_server(torch, st, card, vec, lex_path=WORK / "index"):
               f"{len(one) / one_s:.1f} requests/s, client latency p50 "
               f"{_pct(one, 0.5):.2f} ms, p99 {_pct(one, 0.99):.2f} ms")
         check(all(v > 0 for v in delta.values()),
-              f"K1, K2, K3 and K4 each launched in the server: {delta}")
+              f"K1-K6 each launched in the server: {delta}")
 
         # the REST write flow of tests/test_server.py's lexical roundtrip
         t = time.perf_counter()
@@ -3593,13 +4027,14 @@ def main() -> int:
     k1 = phase_k1(torch)
     idx = phase_index(st)
     served = phase_serve(torch, st, idx)
+    k56 = phase_k56(torch, st, idx, card)
     k2 = phase_k2(torch, st, idx, served["queries"],
                   served["stragglers"])
     k2_launches = phase_dense(torch, st, idx, served)
     k3 = phase_k3(torch, st, idx)
     faceted = phase_facets(torch, st, idx)
     tf = phase_tf(torch, st, idx)
-    phase_join(torch, st, idx, served, card)
+    joined = phase_join(torch, st, idx, served, card)
     # the index's committed files stay for phase 12; its device state goes
     del idx
     gc.collect()
@@ -3616,7 +4051,8 @@ def main() -> int:
                if m.split(".")[0] in ("jax", "jaxlib", "seekstorm_tpu")],
           "jax or the JAX package was imported")
 
-    # K1's times are those at the serve batch's own shapes, K3's those at
+    # K1's, K5's and K6's times are those at the serve batch's own shapes
+    # (K5's at its rung-1 selection), K3's those at
     # the facet2 batch's on the WAND route, and K3's launches those of the
     # default-route facet2 batch of 2,048 plus the faceted tf batch's, each
     # read right after its batch; K4's times are those at the serving shape
@@ -3624,7 +4060,9 @@ def main() -> int:
     # batches on the card; no single PyTorch call computes K1's or K2's
     # function (library_ms null), K4's yardstick is a matmul and topk;
     # server_launches are each kernel's launches in phase 12's server
-    # process, read from its /metrics before and after the traffic
+    # process, read from its /metrics before and after the traffic; K5's
+    # error covers phase 13's exact-scan dispatches (its fold mode) too,
+    # and K6's yardstick is torch.topk(allub, 65)
     k1_main = served["k1"]
     print(f"[summary] vector recall@10 on {vec['n_queries']} queries: "
           + ", ".join(f"{tag} {r:.4f}" for tag, r in vec["recall"].items())
@@ -3692,6 +4130,41 @@ def main() -> int:
         "server_launches": srv["launches"]["k4"],
         "mesh_launches": mesh["k4"],
         "mesh_plain_held": _mesh_plain(mesh, "vector_scan_cuda"),
+    }, {
+        "name": "wand_rescore_cuda",
+        "route": "cuda",
+        "source": "seekstorm_tpu_torch/csrc/wand_rescore.cu",
+        "replaces": "seekstorm_tpu/ops/wand.py:589, "
+                    "seekstorm_tpu/ops/wand.py:700",
+        "launches": served["k5_launches"],
+        "max_abs_err": max(k56["k5"]["err"], joined["fold_err"]),
+        "ms": k56["k5"]["ms"],
+        "plain_ms": k56["k5"]["plain_ms"],
+        "bound_ms": k56["k5"]["bound_ms"],
+        "bound_by": k56["k5"]["bound_by"],
+        "library_ms": None,
+        "exact_scan_ms": joined["exact_ms"],
+        "exact_scan_plain_ms": joined["exact_plain_ms"],
+        "exact_scan_bound_ms": joined["exact_bound"],
+        "server_launches": srv["launches"]["k5"],
+        "mesh_launches": mesh["k5"],
+        "mesh_plain_held": _mesh_plain(mesh, "rescore_page_cuda"),
+    }, {
+        "name": "wand_rungs_cuda",
+        "route": "cuda",
+        "source": "seekstorm_tpu_torch/csrc/wand_rungs.cu",
+        "replaces": "seekstorm_tpu/ops/wand.py:556, "
+                    "seekstorm_tpu/ops/wand.py:368",
+        "launches": served["k6_launches"],
+        "max_abs_err": k56["k6"]["err"],
+        "ms": k56["k6"]["ms"],
+        "plain_ms": k56["k6"]["plain_ms"],
+        "bound_ms": k56["k6"]["bound_ms"],
+        "bound_by": k56["k6"]["bound_by"],
+        "library_ms": k56["k6"]["library_ms"],
+        "server_launches": srv["launches"]["k6"],
+        "mesh_launches": mesh["k6"],
+        "mesh_plain_held": _mesh_plain(mesh, "wand_rungs_cuda"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ library of its own with a C interface, which is loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The sources build side by side,
 one ``nvcc`` each, all started together, at first use into ``build/kernels/``
 at the repository root.  Each library is keyed by a hash of its source and
-the flags, so an edited source rebuilds and an unchanged one loads the
-library already built.
+the flags (and of the shared headers ``csrc/*.cuh``), so an edited source
+rebuilds and an unchanged one loads the library already built.
 
 Pointers and the stream cross the boundary as ``ctypes.c_void_p``; every C
 entry point returns ``cudaGetLastError()`` after its launch and the Python
@@ -67,6 +67,22 @@ _SIGNATURES = {
         "vector_scan_launch": [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 6
         + [_I] * 9 + [_P] * 3 + [_I] + [_P] * 5,
     },
+    "wand_rescore": {
+        # ppool, rpool, ipool, n_imp, sp_prow, sp_ioff, delw, sid, filtw,
+        # slotmap, tslot, treq, tneg, wshard, ids, vals, nblk, Bq, T, K,
+        # bucket_off, psc, plane, n_ge, found, stream
+        "rescore_page_launch": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 5
+        + [_P] * 5,
+        # the same pools and tables up to wshard, nblk, Bq, T, nsplit,
+        # c_psc, c_plane, part_sc, part_lane, part_found, psc, plane, found,
+        # stream
+        "exact_fold_launch": [_P] * 3 + [_I] + [_P] * 10 + [_I] * 4
+        + [_P] * 9,
+    },
+    "wand_rungs": {
+        # allub, g1, ub4, ub16, L1, Bq, out_vals, out_ids, stream
+        "wand_rungs_launch": [_P] * 4 + [_I, _I] + [_P] * 3,
+    },
 }
 
 
@@ -83,6 +99,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

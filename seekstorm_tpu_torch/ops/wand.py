@@ -6,29 +6,34 @@ engine has four phases per batch:
   1. phase-1 scan (``ops/wand_scan.py``, kernel K1 on CUDA): matched words,
      exact counts by popcount, a per-bucket score upper bound (UB) and its
      maxima over 4, 16 and 128 buckets;
-  2. ``_rung_topks``: exact top-(K_SEL+1) regions per query at 32-, 128-
-     and 512-doc granularity, ranked on phase 1's maxima;
-  3. ``_rescore_regions``: exact rescore of the selected buckets through a
-     positional CSR read of the flat impact pool;
-  4. ``_ladder_device``: the page, the WAND termination test and a rung-2
-     escalation, returned as one slim i32 buffer per query.
+  2. ``rung_topks`` (``ops/wand_rungs.py``, kernel K6 on CUDA): exact
+     top-(K_SEL+1) regions per query at 32-, 128- and 512-doc granularity,
+     ranked on phase 1's maxima;
+  3. ``rescore_page`` (``ops/wand_rescore.py``, kernel K5 on CUDA): exact
+     rescore of the selected buckets through a positional CSR read of the
+     flat impact pool, and each query's page of them;
+  4. ``_ladder_device``: the WAND termination test and a rung-2 escalation
+     (a second K5 launch) around those pages, returned as one slim i32
+     buffer per query.
 
-Phases 2-4 are torch ops.  A batch may carry, as in the reference: a facet
-filter (packed disallowed words, ANDed out of matching in phase 1, phase 3
-and the host rescores like the deleted words); facet codes, whose exact
-histogram over every matched doc kernel K3 (``ops/facet_hist.py``) counts
-from phase 1's matched words; and a rank key (sorted results): regions then
-rank by their bucket's best sort key where a doc matched, the host ladder
-ranks candidates by their exact keys over all three rungs with the strict
-test, and the device ladder is off.  Queries the device ladder cannot finish go
-through the host rung ladder (native ``st_rescore``).  Queries whose UBs
-saturate every rung are stragglers: on one shard under
-``SEEKSTORM_TPU_WAND_DEV_EXACT`` the device exact scan (``wand_exact_scan``,
-torch ops over the same pools) finishes them; otherwise at batch >= 512 (or
-under ``SEEKSTORM_TPU_WAND_DEFER_DENSE``) they come back unhandled for the
-join or the dense path, as in the reference, and below it the host exact
-evaluation (``_exact_fallback``) finishes them.  The reference's parity
-modes send every query of a batch to one of the two exact evaluations:
+The glue between the kernels is a few element-wise torch ops.  A batch
+may carry, as in the reference: a facet filter (packed disallowed words,
+ANDed out of matching in phase 1, phase 3 and the host rescores like the
+deleted words); facet codes, whose exact histogram over every matched
+doc kernel K3 (``ops/facet_hist.py``) counts from phase 1's matched
+words; and a rank key (sorted results): regions then rank by their
+bucket's best sort key where a doc matched, the host ladder ranks
+candidates by their exact keys over all three rungs with the strict
+test, and the device ladder is off.  Queries the device ladder cannot
+finish go through the host rung ladder (native ``st_rescore``). Queries
+whose UBs saturate every rung are stragglers: on one shard under
+``SEEKSTORM_TPU_WAND_DEV_EXACT`` the device exact scan
+(``wand_exact_scan``, K5's fold mode over the same pools) finishes them;
+otherwise at batch >= 512 (or under ``SEEKSTORM_TPU_WAND_DEFER_DENSE``)
+they come back unhandled for the join or the dense path, as in the
+reference, and below it the host exact evaluation (``_exact_fallback``)
+finishes them.  The reference's parity modes send every query of a batch
+to one of the two exact evaluations:
 ``SEEKSTORM_TPU_WAND_FORCE_FALLBACK`` to the host's,
 ``SEEKSTORM_TPU_WAND_FORCE_DEV_EXACT`` to the device's (one shard).
 
@@ -57,14 +62,17 @@ from ..metrics import METRICS
 from ..schema import BLOCK_SIZE
 from ..utils import ceil_pow2
 from .facet_hist import facet_hist, wand_pairs
-from .wand_scan import popcount32, rung_maxima, scan_blocks
+from .wand_rescore import P_PAGE, exact_fold, rescore_page
+from .wand_rungs import K_SEL, _sort_desc, rung_topks
+from .wand_scan import scan_blocks
+# phases 2-4's plain versions, where the tests find them beside the glue
+from .wand_rescore import _page_topk, _rescore_regions  # noqa: F401,E402
+from .wand_rungs import _rung_topks, _topk_lanes  # noqa: F401,E402
 
 NW = BLOCK_SIZE // 32          # packed words per block == buckets per block
 BUCKET = 32                    # docs per bucket (one u32 word)
 T_MAX = 8                      # max term slots per query on this path
-K_SEL = 64                     # selected regions per query per rung
 F_LADDER = (1, 4, 16)          # rung coarsening factors (32/128/512 docs)
-P_PAGE = 64                    # device page entries per query
 # on-device WAND termination margin (the reference's _MARGIN): slightly
 # stricter than the host ladder's 3e-7, never laxer
 MARGIN = 1.000001
@@ -80,153 +88,7 @@ DEFER_MIN_BATCH = 512
 
 
 # ---------------------------------------------------------------------------
-# device phases (torch)
-
-
-def _sort_desc(x):
-    """Descending sort that keeps the lower index first on ties."""
-    return torch.sort(x, dim=1, descending=True, stable=True)
-
-
-def _topk_lanes(x, K: int, gmax=None):
-    """Exact top-K (values desc, -inf padded, ties to the lower index
-    within the candidate order) over x[Bq, L] by a two-stage 128-lane
-    group reduction; region ids returned alongside as int32."""
-    Bq, L = x.shape
-    K_eff = min(K, L)
-    G = min(128, L)
-    ng = L // G
-    if gmax is None:
-        gmax = x.reshape(Bq, ng, G).amax(dim=2)
-    kg = min(K_eff, ng)
-    gi = _sort_desc(gmax)[1][:, :kg]                        # [Bq, kg]
-    cand = torch.gather(x.reshape(Bq, ng, G), 1,
-                        gi[:, :, None].expand(Bq, kg, G))
-    vals, ti = _sort_desc(cand.reshape(Bq, kg * G))
-    vals, ti = vals[:, :K_eff], ti[:, :K_eff]
-    gsel = torch.gather(gi, 1, ti // G)
-    ids = (gsel * G + ti % G).to(torch.int32)
-    if K_eff < K:
-        pad = K - K_eff
-        vals = torch.cat([vals, torch.full((Bq, pad), float("-inf"),
-                                           device=x.device)], dim=1)
-        ids = torch.cat([ids, torch.zeros((Bq, pad), dtype=torch.int32,
-                                          device=x.device)], dim=1)
-    return vals, ids
-
-
-def _rung_topks(allub, NBLK: int, maxima=None):
-    """Phase 2: per coarsening factor F, the exact top-(K_SEL+1) regions
-    (ub f32[Bq, K_SEL+1] desc with -inf padding, region id i32).  The
-    coarse rungs rank the maxima (ub4, ub16, g1) phase 1 returns with
-    allub (L1 = NBLK * NW, a multiple of 2048); without them they are
-    reduced from allub here.  Rung 1 reads allub only in its K_SEL+1
-    selected 128-bucket groups."""
-    assert F_LADDER == (1, 4, 16)
-    ub4, ub16, g1 = rung_maxima(allub) if maxima is None else maxima
-    return [_topk_lanes(allub, K_SEL + 1, gmax=g1),
-            _topk_lanes(ub4, K_SEL + 1),
-            _topk_lanes(ub16, K_SEL + 1)]
-
-
-_BIT = torch.arange(32, dtype=torch.int32)
-# (1 << bit) - 1 per bit, as int32 bit patterns
-_BELOW = torch.tensor([(1 << b) - 1 for b in range(32)], dtype=torch.int32)
-
-
-def _rescore_regions(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
-                     slotmap, tslot, treq, tneg, wshard, ids, vals,
-                     filtw=None, bucket_off: int = 0):
-    """Phase 3: exact rescore of the selected buckets.
-
-    ids / vals [Bq, K]: bucket ids and their UBs (-inf = unselected).  For
-    term t and bucket w of block b, the doc at bit j reads the flat impact
-    pool at ioff + rank[w] + popcount(word & (2^j - 1)) — a direct gather
-    (the reference's one-hot MXU select is not needed here).  Scores add
-    one term at a time in column order with a separate mul and add, the
-    host rescore's two-rounding chain, so UB >= score stays bitwise.
-    filtw i32[NBLK, NW]: a facet filter's disallowed words, or None.
-    bucket_off: the global id of the pools' first bucket (a mesh part's),
-    added to the lanes.
-
-    Returns (score f32[Bq, K*32] with -inf for unmatched lanes, lane
-    i32[Bq, K*32] doc lanes = global bucket*32 + bit, found i32[Bq])."""
-    dev = ppool.device
-    Bq, K = ids.shape
-    T = tslot.shape[1]
-    NBLK = sp_prow.shape[1]
-    big = NBLK * NW
-    valid = vals > float("-inf")
-    ids_s = torch.where(valid, ids.long(), big).sort(dim=1)[0]
-    valid_s = ids_s < big
-    ids_c = ids_s.clamp(max=big - 1)
-    blk = ids_c // NW                                   # [Bq, K]
-    w = ids_c % NW
-
-    ts_ok = tslot >= 0
-    srow = torch.where(ts_ok, slotmap.long()[tslot.clamp(min=0).long()],
-                       torch.full_like(tslot, -1, dtype=torch.long))
-    rows3 = srow[:, :, None].expand(Bq, T, K)
-    blk3 = blk[:, None, :].expand(Bq, T, K)
-    w3 = w[:, None, :].expand(Bq, T, K)
-    rows3c = rows3.clamp(min=0)
-    prow = sp_prow[rows3c, blk3]
-    ioff = sp_ioff[rows3c, blk3]
-    ok3 = (rows3 >= 0) & (prow >= 0) & valid_s[:, None, :]
-    prow_c = prow.clamp(min=0).long()
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    pres = torch.where(ok3, ppool[prow_c, w3], zero_i)  # [Bq, T, K]
-    rank = rpool[prow_c, w3]
-
-    bit = _BIT.to(dev)
-    pres4 = pres[..., None]                              # [Bq, T, K, 1]
-    rank_b = popcount32(pres4 & _BELOW.to(dev))          # [Bq, T, K, 32]
-    pos = (ioff.clamp(min=0) + rank)[..., None].long() + rank_b
-    val_b = ipool[pos.clamp(0, ipool.shape[0] - 1)]
-    present = ((pres4 >> bit) & 1) != 0
-    imp_b = torch.where(present & ok3[..., None], val_b,
-                        torch.zeros((), device=dev))
-
-    andw = torch.full((Bq, K), -1, dtype=torch.int32, device=dev)
-    posw = torch.zeros((Bq, K), dtype=torch.int32, device=dev)
-    negw = torch.zeros((Bq, K), dtype=torch.int32, device=dev)
-    for t in range(T):
-        req_t = (treq[:, t] & ~tneg[:, t] & ts_ok[:, t])[:, None]
-        andw = torch.where(req_t, andw & pres[:, t], andw)
-        posw = posw | torch.where((~tneg[:, t] & ts_ok[:, t])[:, None],
-                                  pres[:, t], zero_i)
-        negw = negw | torch.where((tneg[:, t] & ts_ok[:, t])[:, None],
-                                  pres[:, t], zero_i)
-    matched_w = andw & posw & ~negw & ~delw[blk, w]
-    if filtw is not None:
-        matched_w = matched_w & ~filtw[blk, w]
-    matched = ((matched_w[..., None] >> bit) & 1) != 0
-    matched = matched & valid_s[..., None]               # [Bq, K, 32]
-
-    sid3 = sid.long()[blk][:, None, :].expand(Bq, T, K)
-    wt = torch.gather(wshard.permute(1, 2, 0), 2, sid3)  # [Bq, T, K]
-    score = torch.zeros((Bq, K, 32), dtype=torch.float32, device=dev)
-    for t in range(T):
-        score = score + wt[:, t, :, None] * imp_b[:, t]
-    score = torch.where(matched, score,
-                        torch.full((), float("-inf"), device=dev))
-    found = matched.sum(dim=(1, 2), dtype=torch.int32)
-    lane = ((ids_c[:, :, None] + bucket_off) * 32
-            + bit.long()).reshape(Bq, K * 32).to(torch.int32)
-    return score.reshape(Bq, K * 32), lane, found
-
-
-def _page_topk(score, lane):
-    """Device page: top-P_PAGE candidates by (score desc, lane asc — the
-    candidate lanes ascend and the sort is stable), plus the count of
-    candidates tying or beating the page's last entry."""
-    vals, sel = _sort_desc(score)
-    psc = vals[:, :P_PAGE].contiguous()
-    plane = torch.gather(lane, 1, sel[:, :P_PAGE])
-    last = psc[:, P_PAGE - 1]
-    n_ge = ((score >= last[:, None]) & (score > float("-inf"))).sum(
-        dim=1, dtype=torch.int32)
-    return psc, plane, n_ge
+# device phases (torch glue around kernels K1, K5 and K6)
 
 
 def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
@@ -241,8 +103,9 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
       [A : A+K_SEL+1] rung-3 region ids + next_ub
       [s_gt1: A+KP : A+2*KP] rung-1 bucket ids + next_ub.
 
-    rescore_fn(ids, vals) returns one (score, lane, found) per mesh
-    position (one on one device): each position pages its own candidates,
+    rescore_fn(ids, vals) returns one page (psc, plane, n_ge, found) per
+    mesh position (one on one device, rescore_page's): each position pages
+    its own candidates,
     and the reference's gather and psum hooks (wand.py:722-800) lay the
     positions' [Bq, P] pages side by side on cnt's device and add their
     found counts and tie-cut flags there."""
@@ -256,10 +119,6 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
 
     def psum(xs):
         return xs[0] if len(xs) == 1 else sum(x.to(dev) for x in xs)
-
-    def one_rung(ids, vals):
-        return [_page_topk(sc, lane) + (found,)
-                for sc, lane, found in rescore_fn(ids, vals)]
 
     def merge(pages, next_ub):
         psc = gather([p[0] for p in pages])
@@ -277,7 +136,7 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
 
     vals1, ids1 = rungs[0]
     psc1, plane1, found1, term1 = merge(
-        one_rung(ids1[:, :K_SEL], vals1[:, :K_SEL]), vals1[:, K_SEL])
+        rescore_fn(ids1[:, :K_SEL], vals1[:, :K_SEL]), vals1[:, K_SEL])
 
     vals2, ids2 = rungs[1]
     F2 = F_LADDER[1]
@@ -287,7 +146,7 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
                 + torch.arange(F2, dtype=torch.int32, device=dev)
                 ).reshape(Bq, K_SEL * F2)
         valsb = torch.repeat_interleave(vals2[:, :K_SEL], F2, dim=1)
-        pages2 = one_rung(idsb, valsb)
+        pages2 = rescore_fn(idsb, valsb)
     else:
         skip = (torch.full((Bq, P_PAGE), ninf, device=dev),
                 torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev),
@@ -318,34 +177,18 @@ def _ladder_device(cnt, rungs, rescore_fn, *, need: int, multi: bool,
 def wand_exact_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw,
                     sid, slotmap, tslot, treq, tneg, wshard, filtw=None):
     """Full-coverage exact evaluation on the device for WAND stragglers
-    (the reference's ``wand_exact_scan``, wand.py:811), torch ops over the
-    resident pools: a loop over blocks rescores every bucket of the block
-    (``_rescore_regions``, the same f32 chains as the host evaluation) and
-    folds a running top-P_PAGE page, carried lanes before new ones on ties
-    (a stable sort of carried | new), so a page is (score desc, lane asc).
-    One shard only: there lane order is gid order.
+    (the reference's ``wand_exact_scan``, wand.py:811) over the resident
+    pools: ``wand_rescore.exact_fold`` from the page of -inf scores at lane
+    0, which is K5's fold mode on CUDA and on the CPU the plain loop over
+    blocks (``exact_scan_ref``: every bucket of a block rescored with the
+    same f32 chains as the host evaluation, folded into a running
+    top-P_PAGE page, carried lanes before new ones on ties), so a page is
+    (score desc, lane asc).  One shard only: there lane order is gid order.
 
     Returns (page scores f32[Bq, P_PAGE] -inf padded, page lanes i32[Bq,
     P_PAGE] = global bucket*32 + bit, matched count i32[Bq])."""
-    dev = ppool.device
-    Bq = tslot.shape[0]
-    NBLK = sp_prow.shape[1]
-    words = torch.arange(NW, dtype=torch.int32, device=dev)
-    sel_all = torch.full((Bq, NW), float("inf"), device=dev)
-    bs = torch.full((Bq, P_PAGE), float("-inf"), device=dev)
-    bl = torch.zeros((Bq, P_PAGE), dtype=torch.int32, device=dev)
-    fnd = torch.zeros(Bq, dtype=torch.int32, device=dev)
-    for b in range(NBLK):
-        ids = (words + b * NW).expand(Bq, NW)
-        sc, lane, found = _rescore_regions(
-            ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid, slotmap,
-            tslot, treq, tneg, wshard, ids, sel_all, filtw)
-        psc, plane, _ = _page_topk(sc, lane)
-        v, sel = _sort_desc(torch.cat([bs, psc], dim=1))
-        bs = v[:, :P_PAGE]
-        bl = torch.gather(torch.cat([bl, plane], dim=1), 1, sel[:, :P_PAGE])
-        fnd = fnd + found
-    return bs, bl, fnd
+    return exact_fold(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                      slotmap, tslot, treq, tneg, wshard, filtw)
 
 
 def batch_prow(sp_prow, slotmap):
@@ -393,7 +236,7 @@ def _scan_local(ppool, vpool, sp_prow, delw, sid, slotmap, tslot, treq,
                                 torch.full((), float("-inf"),
                                            device=mwords.device))
             maxima = None
-    return cnt, _rung_topks(allub, NBLK, maxima), fc
+    return cnt, rung_topks(allub, NBLK, maxima), fc
 
 
 def wand_scan(ppool, vpool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
@@ -442,14 +285,16 @@ def _wand_parts(parts, nl: int, *, with_counts: bool, with_rescore: bool,
                 fcm: int = 1, skeyb=None):
     """wand_scan over parts of nl blocks each, the first holding the global
     blocks [0, nl): every part scans its own blocks (K1 on its device, K3
-    too with facet codes), each rung's top-(K_SEL+1) region ids are offset
-    by the part's first region, laid side by side on the lead device (the
-    first part's) as [Bq, D*(K_SEL+1)] in part order and cut to the top
-    K_SEL+1 by a stable sort (lax.top_k's order: exact, since the top of a
-    union lies in the union of the parts' tops); counts and facet
-    histograms add up.  With the rescore, each part rescores the buckets it
-    owns and _ladder_device lays the parts' pages side by side (D*P_PAGE
-    wide) and adds their found counts and tie-cut flags.
+    too with facet codes) and selects its rungs (K6), each rung's
+    top-(K_SEL+1) region ids are offset by the part's first region, laid
+    side by side on the lead device (the first part's) as [Bq,
+    D*(K_SEL+1)] in part order and cut to the top K_SEL+1 by a stable sort
+    (lax.top_k's order: exact, since the top of a union lies in the union
+    of the parts' tops; one part's rungs are taken as they are); counts
+    and facet histograms add up.  With the rescore, each part rescores and
+    pages the buckets it owns (rescore_page, K5 on CUDA) and _ladder_device
+    lays the parts' pages side by side (D*P_PAGE wide) and adds their found
+    counts and tie-cut flags.
 
     parts: [(pools, tables)] a part, the tables (slotmap, tslot, treq,
     tneg, wshard) on its device; filtw, fcod, skeyb: a slice a part, or
@@ -463,8 +308,10 @@ def _wand_parts(parts, nl: int, *, with_counts: bool, with_rescore: bool,
             filtw=None if filtw is None else filtw[d],
             fcod=None if fcod is None else fcod[d], fcm=fcm,
             skeyb=None if skeyb is None else skeyb[d]))
-    rungs = []
-    for f, F in enumerate(F_LADDER):
+    # one part's rungs are in that order already (a stable sort of them is
+    # the identity)
+    rungs = per[0][1] if len(per) == 1 else []
+    for f, F in enumerate(F_LADDER if len(per) > 1 else ()):
         v2 = torch.cat([r[1][f][0].to(lead) for r in per], dim=1)
         i2 = torch.cat([(r[1][f][1] + d * (nl * NW // F)).to(lead)
                         for d, r in enumerate(per)], dim=1)
@@ -486,7 +333,7 @@ def _wand_parts(parts, nl: int, *, with_counts: bool, with_rescore: bool,
             mine = (loc >= 0) & (loc < nl * NW) & (vals > float("-inf"))
             loc = torch.where(mine, loc, -1).to(pp.device)
             vm = torch.where(mine, vals, float("-inf")).to(pp.device)
-            outs.append(_rescore_regions(
+            outs.append(rescore_page(
                 pp, rp, ip, prow, ioff, delw, sid, *q, loc, vm,
                 None if filtw is None else filtw[d], bucket_off=off))
         return outs

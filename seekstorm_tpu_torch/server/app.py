@@ -16,7 +16,7 @@ once when it starts, so a server asked for CUDA on a host without a card
 raises instead of serving from the CPU; every index it creates or opens and
 every search it runs (queries, the v2 binary query, delete by query) is on
 that device.  /metrics renders the port's METRICS, whose
-``k1_launches_total`` ... ``k4_launches_total`` count the hand-written
+``k1_launches_total`` ... ``k6_launches_total`` count the hand-written
 kernels' launches, and /trace drives the port's torch.profiler hooks.
 """
 

@@ -81,6 +81,24 @@ def _seed_docs():
     return docs
 
 
+@pytest.fixture(scope="module", autouse=True)
+def native_library():
+    """Both packages write their indexes with the native library, so the
+    files compare like with like.  Test workers load the reference's
+    library at once while collecting (ROADMAP C.5): a worker whose first
+    `make` lost that race caches `_LIB = None` for good.  The port's
+    locked build makes sure the library exists; a loader that cached None
+    is sent to look again, which finds it."""
+    from seekstorm_tpu import native as ref_native
+    from seekstorm_tpu_torch import native as port_native
+
+    assert port_native.build_library(ROOT / "native") is not None
+    for mod in (ref_native, port_native):
+        if mod._LIB is None:
+            mod._TRIED = False
+    assert ref_native.load() is not None and port_native.load() is not None
+
+
 @pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
 def built(request, tmp_path_factory):
     """Both packages' indexes: a seed batch, BLOCK_SIZE + 3000 docs

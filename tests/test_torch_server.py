@@ -322,14 +322,16 @@ def test_web_ui_has_range_slider_and_preview(client, server):
     assert "rangeFields" in html and "preview" in html and "modal" in html
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 def test_launch_counts_reach_metrics(k):
     """A kernel wrapper's launch count goes into METRICS as
     k<N>_launches_total, which a server's /metrics renders."""
     from seekstorm_tpu_torch.ops import (dense_scan, facet_hist,
-                                         vector_scan, wand_scan)
+                                         vector_scan, wand_rescore,
+                                         wand_rungs, wand_scan)
 
-    mod = (wand_scan, dense_scan, facet_hist, vector_scan)[k - 1]
+    mod = (wand_scan, dense_scan, facet_hist, vector_scan, wand_rescore,
+           wand_rungs)[k - 1]
     name = f"k{k}_launches_total"
     n0, m0 = mod.LAUNCHES, pt.METRICS.snapshot().get(name, 0)
     mod._count_launch()

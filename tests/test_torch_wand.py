@@ -6,8 +6,9 @@ index with deletes, built by each package from the same documents.
     on the same terms, bit for bit;
   * phase 2: _rung_topks on the same UBs: values bit-exact, region ids
     equal wherever the values are untied;
-  * phases 3-4: _rescore_regions, _page_topk and _ladder_device on the
-    reference's pools carried across with pools_from_numpy: scores within
+  * phases 3-4: _rescore_regions, _page_topk and _ladder_device (over
+    rescore_page's pages) on the reference's pools carried across with
+    pools_from_numpy: scores within
     rtol 3e-7 (XLA may contract mul+add; the port rounds twice), lanes,
     found counts and ladder codes exact.
 """
@@ -197,6 +198,9 @@ def phases(batch):
     def mine(ids, vals):
         return pw._rescore_regions(tp[0], *tp[2:], *tq, ids, vals)
 
+    def mine_page(ids, vals):
+        return pw.rescore_page(tp[0], *tp[2:], *tq, ids, vals)
+
     def ref(ids, vals):
         return wand_mod._rescore_regions(
             jp[0][0], jp[2][0], jp[3][0], jp[4], jp[5], jp[6], jp[7],
@@ -205,7 +209,8 @@ def phases(batch):
 
     jrungs = [(jnp.asarray(v.numpy()), jnp.asarray(i.numpy()))
               for v, i in rungs]
-    return dict(cnt=cnt, rungs=rungs, jrungs=jrungs, mine=mine, ref=ref)
+    return dict(cnt=cnt, rungs=rungs, jrungs=jrungs, mine=mine,
+                mine_page=mine_page, ref=ref)
 
 
 def _assert_scores_close(a, b):
@@ -245,7 +250,7 @@ def test_page_topk_matches_reference(phases):
 def test_ladder_device_matches_reference(phases, need, multi):
     Bq = phases["cnt"].shape[0]
     out = pw._ladder_device(phases["cnt"], phases["rungs"],
-                            lambda i, v: [phases["mine"](i, v)],
+                            lambda i, v: [phases["mine_page"](i, v)],
                             need=need, multi=multi, s_gt1=True).numpy()
     ref = np.asarray(wand_mod._ladder_device(
         jnp.asarray(phases["cnt"].numpy()), phases["jrungs"],

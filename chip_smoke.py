@@ -41,16 +41,21 @@ Phases, each printing what it found:
              plain versions on the same card tensors, bit for bit: on
              synthetic pools of 16 blocks and 2,048 queries from a seed
              (K5 at K=64 and 256 with unselected buckets, a filter, a
-             mesh part's offset and duplicate ids, T=3 and 8; its fold
-             mode for 1 and 4 queries, from the -inf page and a carried
-             page, at 1, 7 and the default split count; K6 on tied UBs of
-             16, 4 and 1 blocks and of 64 buckets, with phase 1's maxima
-             and without), then at the 2,048-query TopkCount serve batch's
+             mesh part's offset and duplicate ids, T=3 and 8, selections
+             matching exactly 0, 1, 63, 64 and 65 docs and scores within
+             one digit of the select; its fold mode for 1 and 4 queries,
+             from the -inf page and a carried page, at 1, 7 and the
+             default split count; K6 on tied UBs of 16, 4 and 1 blocks
+             and of 64 buckets, with phase 1's maxima and without, on
+             rows of few finite lanes, of one first digit, of keys that
+             differ in their last bits and of +0/-0 ties, and at 77
+             blocks), then at the 2,048-query TopkCount serve batch's
              own shapes (K6 on K1's UBs and maxima; K5 on its rung-1
              selection, K=64, and with rung 2 forced, K=256) and on
-             facet2's filtered batch; each timed with CUDA events beside
-             its bound (k5_bound, k6_bound), its plain version and, for
-             K6, torch.topk(allub, 65);
+             facet2's filtered batch; each timed with CUDA events
+             through its wrapper (ms) and as a launch on prepared
+             tensors (launch_ms) beside its bound (k5_bound, k6_bound),
+             its plain version and, for K6, torch.topk(allub, 65);
   6. K2:     K2 against its plain PyTorch versions on every (block,
              query) pair of the 2,048-query TopkCount batch's dense plan:
              the unfused mode (masked scores) tile by tile, scores bitwise
@@ -799,11 +804,13 @@ def _same_bits(torch, xs, ys, what, tag):
     return err
 
 
-def _k5_pools(torch, rng, *, NBLK, V, Bq, T, S=1):
+def _k5_pools(torch, rng, *, NBLK, V, Bq, T, S=1, one_bin=False):
     """Synthetic pools in the WandState layout on the card, from a numpy
     seed: a pool row a (slot, block) segment (15% absent), ranks the
     exclusive popcount prefix of the row's words, 1 to 3 as impacts (ties
-    everywhere) at each segment's offset, deletes; and a batch of Bq
+    everywhere; with one_bin distinct values in [2, 2.49), so one column's
+    scores share the select's first digit) at each segment's offset,
+    deletes; and a batch of Bq
     queries of up to T columns (some required, some negated, the last row
     all padding).  Returns (pools for K5: ppool, rpool, ipool, sp_prow,
     sp_ioff, delw, sid; tables: slotmap, tslot, treq, tneg, wshard)."""
@@ -819,6 +826,8 @@ def _k5_pools(torch, rng, *, NBLK, V, Bq, T, S=1):
     sizes = per_word.sum(axis=1)
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
     ipool = rng.integers(1, 4, size=int(sizes.sum())).astype(np.float32)
+    if one_bin:
+        ipool = (2.0 + rng.random(len(ipool)) * 0.49).astype(np.float32)
     have = rng.random((V, NBLK)) < 0.85
     rows = np.arange(R, dtype=np.int32).reshape(V, NBLK)
     sp_prow = np.where(have, rows, -1).astype(np.int32)
@@ -904,6 +913,76 @@ def _rand_select(torch, g, Bq, n_buckets, K, p_unsel=0.25):
     return ids, vals
 
 
+def _k5_found_targets(torch, rng, pools, q, K, targets=(0, 1, 63, 64, 65)):
+    """Selections of K buckets a query whose rescore matches exactly a
+    target count of docs (the query's own target, else the next its
+    matches allow): buckets taken largest matched count first while they
+    fit, the rest of the K unselected (-inf UBs) in random places.
+    Returns (ids, vals, the targets reached)."""
+    import numpy as np
+
+    from seekstorm_tpu_torch.ops import wand_rescore as wr
+
+    NBLK = pools[3].shape[1]
+    Bq = q[1].shape[0]
+    every = torch.arange(NBLK * NW, dtype=torch.int32,
+                         device="cuda").expand(Bq, -1)
+    sc, _, _ = wr._rescore_regions(*pools, *q, every,
+                                   torch.ones(every.shape, device="cuda"))
+    counts = (sc > float("-inf")).view(Bq, -1, 32).sum(dim=2).cpu().numpy()
+    del sc
+    ids = rng.integers(0, NBLK * NW, size=(Bq, K)).astype(np.int32)
+    vals = np.full((Bq, K), -np.inf, np.float32)
+    reached = []
+    for row in range(Bq):
+        for j in range(len(targets)):
+            t = targets[(row + j) % len(targets)]
+            order = rng.permutation(NBLK * NW)
+            order = order[np.argsort(-counts[row][order], kind="stable")]
+            pick, left = [], t
+            for b in order:
+                if len(pick) == K or left == 0:
+                    break
+                if 0 < counts[row][b] <= left:
+                    pick.append(b)
+                    left -= counts[row][b]
+            if left == 0:
+                break
+        at = rng.choice(K, size=len(pick), replace=False)
+        ids[row, at] = pick
+        vals[row, at] = 1.0
+        reached.append(t)
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda(),
+            reached)
+
+
+def _k6_adversarial(torch, g, Bq, L1):
+    """allub rows that take every path of the select, by name: fewer than
+    65 finite lanes (a -inf class past the buffer), distinct values in [1,
+    1.25) (one first digit: a refinement), values 1 + j ulp for j < 1024
+    (the last level), and +0/-0 ties with a few positives."""
+    inf = float("-inf")
+    dev = "cuda"
+    few = torch.full((Bq, L1), inf, device=dev)
+    at = torch.rand((Bq, L1), generator=g, device=dev).argsort(dim=1)[:, :40]
+    few.scatter_(1, at, torch.rand((Bq, 40), generator=g, device=dev) + 1)
+    few[:, :4] = 3.0
+    one = 1.0 + torch.rand((Bq, L1), generator=g, device=dev) * 0.24
+    one[torch.rand((Bq, L1), generator=g, device=dev) < 0.2] = inf
+    bits = (0x3F800000 + torch.randint(0, 1024, (Bq, L1), generator=g,
+                                       device=dev, dtype=torch.int32)
+            ).view(torch.float32)
+    zeros = torch.where(torch.rand((Bq, L1), generator=g, device=dev) < 0.5,
+                        -0.0, 0.0)
+    zeros[torch.rand((Bq, L1), generator=g, device=dev) < 0.3] = inf
+    pos = torch.rand((Bq, L1), generator=g, device=dev) < 0.005
+    zeros[pos] = 1.0 + torch.rand(int(pos.sum()), generator=g, device=dev)
+    for x in (few, one, bits, zeros):
+        x[1] = inf
+    return {"few finite": few, "one bin": one, "last bits": bits,
+            "signed zeros": zeros}
+
+
 def _k6_ties(torch, g, Bq, L1, levels=400):
     """allub with UBs from `levels` values (ties within and across groups),
     60% unmatched, one row unmatched and one a single tie class."""
@@ -920,10 +999,13 @@ def phase_k56_synthetic(torch, NBLK=16, Bq=N_QUERIES):
     """K5 and K6 against their plain versions on synthetic inputs at the
     serving shapes (NBLK blocks, Bq queries) from a seed: K5's page mode
     at K=64 and 256 with unselected buckets, a filter, a mesh part's
-    offset and duplicate ids, T of 3 and 8; its fold mode for 1 and 4
-    queries from the -inf page and from a carried page, at the default
-    split count and at 1 and 7; K6 on tied UBs of NBLK, 4 and 1 blocks
-    and of 64 buckets, with phase 1's maxima and without."""
+    offset and duplicate ids, T of 3 and 8, selections matching exactly
+    0, 1, 63, 64 and 65 docs, and one column's scores within one first
+    digit of the select; its fold mode for 1 and 4 queries from the -inf
+    page and from a carried page, at the default split count and at 1 and
+    7; K6 on tied UBs of NBLK, 4 and 1 blocks and of 64 buckets, with
+    phase 1's maxima and without, on _k6_adversarial's rows and at 77
+    blocks (bench.py's 5M docs) for 16 queries."""
     import numpy as np
 
     from seekstorm_tpu_torch.ops import wand_rescore as wr
@@ -972,18 +1054,46 @@ def phase_k56_synthetic(torch, NBLK=16, Bq=N_QUERIES):
                                       "carried page", filtw,
                                       (c_psc, c_plane)))
         del pools, q
+    # adversarial pages: exact matched counts around the page's 64 (the
+    # sorted list and the first unmatched candidates; the select from 65),
+    # and one column's scores in one first digit (the select refines)
+    reached = set()
+    pools, q = _k5_pools(torch, rng, NBLK=2, V=24, Bq=64, T=3)
+    for K in (64, 256):
+        ids, vals, got = _k5_found_targets(torch, rng, pools, q, K)
+        reached |= set(got)
+        e, _ = check_k5(torch, pools, q, ids, vals, f"found targets K={K}")
+        err = max(err, e)
+    check(reached >= {0, 1, 63, 64, 65},
+          f"K5 found targets reached only {sorted(reached)}")
+    pools, q = _k5_pools(torch, rng, NBLK=NBLK, V=96, Bq=256, T=1,
+                         one_bin=True)
+    for K in (64, 256):
+        ids, vals = _rand_select(torch, g, 256, NBLK * NW, K, p_unsel=0.0)
+        e, nf = check_k5(torch, pools, q, ids, vals, f"one bin K={K}")
+        err = max(err, e)
+    err = max(err, check_fold(torch, pools, [q[0]] + [x[:4] for x in q[1:4]]
+                              + [q[4][:, :4]], "one bin"))
+    del pools, q
     for L1, with_max in ((NBLK * NW, True), (4 * NW, True), (NW, True),
                          (64, False)):
         x = _k6_ties(torch, g, Bq, L1)
         err = max(err, check_k6(torch, x, ws.rung_maxima(x) if with_max
                                 else None, f"synthetic L1={L1}"))
+    for name, x in _k6_adversarial(torch, g, 256, NBLK * NW).items():
+        err = max(err, check_k6(torch, x, ws.rung_maxima(x), name))
+    x = _k6_ties(torch, g, 16, 77 * NW, levels=1 << 22)
+    err = max(err, check_k6(torch, x, ws.rung_maxima(x), "77 blocks"))
+    del x
     torch.cuda.empty_cache()
     print(f"[K5/K6] synthetic (NBLK={NBLK}, Bq={Bq}): K5 page mode at "
           f"K=64/256 (unselected, filter, mesh offset, duplicate ids; T=3 "
-          f"and 8), fold mode (Bq 1 and 4, nsplit default/1/7, carried "
-          f"page) and K6 (tied UBs, L1 {NBLK * NW}/{4 * NW}/{NW}/64) bitwise "
-          f"equal to their plain versions ({time.perf_counter() - t0:.1f} "
-          f"s)")
+          f"and 8; matched counts {sorted(reached)}; one-digit scores), "
+          f"fold mode (Bq 1 and 4, nsplit default/1/7, carried page; "
+          f"one-digit scores) and K6 (tied UBs, L1 {NBLK * NW}/{4 * NW}/"
+          f"{NW}/64; few finite, one bin, last bits, signed zeros; 77 "
+          f"blocks) bitwise equal to their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
     return err
 
 
@@ -992,7 +1102,7 @@ def _ladder_inputs(torch, st, idx, reqs, with_filter=False):
     pools (ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid), the batch
     tables on the card, the facet filter's disallowed words (with_filter)
     and phase 1's output under them (allub and the maxima ub4, ub16, g1,
-    from K1)."""
+    from K1); and the WAND state, slots and specs they came from."""
     import numpy as np
 
     from seekstorm_tpu_torch import facets as facets_mod
@@ -1018,7 +1128,7 @@ def _ladder_inputs(torch, st, idx, reqs, with_filter=False):
                                   pools[7], *q, with_counts=True,
                                   filtw=filtw)
     return dict(pools=[pools[0], *pools[2:]], q=q, filtw=filtw, allub=allub,
-                maxima=tuple(maxima))
+                maxima=tuple(maxima), state=state, slots=slots, specs=specs)
 
 
 def k5_bound(torch, pools, q, ids, vals, filtw=None):
@@ -1076,8 +1186,11 @@ def phase_k56(torch, st, idx, card, n_queries=N_QUERIES):
     query TopkCount serve batch's own shapes on phase 4's index: K6 on K1's
     UBs and maxima, K5 on its rung-1 selection (K=64) and with rung 2
     forced (K=256, each selected 128-doc region's four buckets), and both
-    on facet2's filtered batch (filtw); each timed (CUDA events) beside
-    its bound, its plain version and, for K6, torch.topk(allub, 65)."""
+    on facet2's filtered batch (filtw); each timed with CUDA events
+    through its wrapper (ms: what the path pays, the host's checks and
+    allocations included) and as a launch on tensors its launcher prepared
+    (launch_ms: the card's time alone) beside its bound, its plain version
+    and, for K6, torch.topk(allub, 65)."""
     import bench
     import numpy as np
 
@@ -1108,39 +1221,44 @@ def phase_k56(torch, st, idx, card, n_queries=N_QUERIES):
         valsb = torch.repeat_interleave(vals2[:, :wg.K_SEL], 4, dim=1)
         sel = {"rung 1": (ids1, vals1), "rung 2": (idsb.contiguous(),
                                                    valsb.contiguous())}
-        k6_args = (allub, maxima)
-        ms6 = _median_ms(torch, lambda: wg.wand_rungs_cuda(*k6_args))
+        ms6 = _median_ms(torch, lambda: wg.wand_rungs_cuda(allub, maxima))
+        launch6 = _median_ms(torch, wg.rungs_launcher(allub, maxima))
         plain6 = _median_ms(torch, lambda: wg._rung_topks(allub, 0, maxima),
                             n=2, rounds=3)
         lib6 = _median_ms(torch, lambda: torch.topk(allub, wg.KP, dim=1))
         b6, by6 = k6_bound(Bq, L1)
-        rows[(name, "K6")] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6,
-                                  bound_by=by6, library_ms=lib6, err=err6)
+        rows[(name, "K6")] = dict(ms=ms6, launch_ms=launch6,
+                                  plain_ms=plain6, bound_ms=b6, bound_by=by6,
+                                  library_ms=lib6, err=err6)
         print(f"[K5/K6] {name} (Bq={Bq}, L1={L1}): K6 values and ids "
               f"bitwise equal to _rung_topks (maxima given and reduced); "
-              f"K6 {ms6:.4f} ms, plain {plain6:.3f} ms, torch.topk(allub, "
-              f"65) {lib6:.4f} ms, bound {b6:.4f} ms ({by6}), "
+              f"K6 {ms6:.4f} ms through its wrapper, {launch6:.4f} ms a "
+              f"launch, plain {plain6:.3f} ms, torch.topk(allub, 65) "
+              f"{lib6:.4f} ms, bound {b6:.4f} ms ({by6}), "
               f"{100 * b6 / ms6:.1f}% of bound ({card})")
         for rung, (ids, vals) in sel.items():
             args = (inp["pools"], inp["q"], ids, vals)
             e, nf = check_k5(torch, *args, f"{name} {rung}", inp["filtw"])
             err5 = max(err5, e)
-            ms5 = _median_ms(torch, lambda: wr.rescore_page_cuda(
-                *inp["pools"], *inp["q"], ids, vals, inp["filtw"]))
+            ms5 = _median_ms(torch, lambda args=args: wr.rescore_page_cuda(
+                *args[0], *args[1], *args[2:], inp["filtw"]))
+            launch5 = _median_ms(torch, wr.page_launcher(
+                *args[0], *args[1], *args[2:], inp["filtw"]))
             plain5 = _median_ms(torch, lambda: wr.rescore_page_ref(
                 *inp["pools"], *inp["q"], ids, vals, inp["filtw"]),
                 n=2, rounds=3)
             b5, by5 = k5_bound(torch, *args, inp["filtw"])
             rows[(name, "K5", rung)] = dict(
-                ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
-                library_ms=None, err=err5)
+                ms=ms5, launch_ms=launch5, plain_ms=plain5, bound_ms=b5,
+                bound_by=by5, library_ms=None, err=err5)
             print(f"[K5/K6] {name} {rung} (K={ids.shape[1]}, "
                   f"T={inp['q'][1].shape[1]}{', filter' if filt else ''}): "
                   f"psc, plane, n_ge and found bitwise equal to "
-                  f"rescore_page_ref ({nf} matched docs); K5 {ms5:.4f} ms, "
-                  f"plain {plain5:.3f} ms, bound {b5:.4f} ms ({by5}), "
+                  f"rescore_page_ref ({nf} matched docs); K5 {ms5:.4f} ms "
+                  f"through its wrapper, {launch5:.4f} ms a launch, plain "
+                  f"{plain5:.3f} ms, bound {b5:.4f} ms ({by5}), "
                   f"{100 * b5 / ms5:.1f}% of bound ({card})")
-        del inp, rungs, sel, k6_args
+        del inp, rungs, sel
         torch.cuda.empty_cache()
     print(f"[K5/K6] phase 5b: {time.perf_counter() - t_phase:.1f} s")
     k5 = dict(rows[("serve", "K5", "rung 1")], err=err5)
@@ -4139,6 +4257,7 @@ def main() -> int:
         "launches": served["k5_launches"],
         "max_abs_err": max(k56["k5"]["err"], joined["fold_err"]),
         "ms": k56["k5"]["ms"],
+        "launch_ms": k56["k5"]["launch_ms"],
         "plain_ms": k56["k5"]["plain_ms"],
         "bound_ms": k56["k5"]["bound_ms"],
         "bound_by": k56["k5"]["bound_by"],
@@ -4158,6 +4277,7 @@ def main() -> int:
         "launches": served["k6_launches"],
         "max_abs_err": k56["k6"]["err"],
         "ms": k56["k6"]["ms"],
+        "launch_ms": k56["k6"]["launch_ms"],
         "plain_ms": k56["k6"]["plain_ms"],
         "bound_ms": k56["k6"]["bound_ms"],
         "bound_by": k56["k6"]["bound_by"],

@@ -9,43 +9,60 @@
 //
 // Page mode (rescore_page_launch), one CTA a query:
 //   * the query's K selected bucket ids (an id whose UB is -inf is
-//     unselected and sorts last as nblk*NW) are sorted ascending in shared
-//     memory, so candidate index k*32 + bit is the plain version's lane
-//     order;
-//   * a warp takes a bucket and its lane the doc at that bit.  Lane t reads
-//     column t's pool row, impact offset, presence word and rank (all
-//     columns at once, not one after another), lane 31 the deleted and
-//     filter words; shuffles hand them to the warp, which matches
-//     AND(required) & OR(positive) & ~OR(negated) & ~deleted & ~filter.
-//     A lane whose bit is present in a column reads its impact at
-//     ioff + rank + popcount(word & (2^bit - 1)), so only present impacts
-//     are read, and adds w_t * impact in column order with
-//     __fmul_rn / __fadd_rn: the two roundings a term of the host rescore,
-//     where the plain version also adds the +0 of an absent column (which
-//     changes no sum).  An unmatched candidate scores -inf;
-//   * the page is the top-64 of the K*32 scores by (score desc, candidate
-//     asc), selected in shared memory (topk_select.cuh), with the matched
-//     count and the count of matched candidates tying or beating the
-//     page's last entry.
+//     unselected and sorts last as nblk*NW) are ordered ascending by a
+//     bitonic sort in shared memory, so candidate index k*32 + bit is the
+//     plain version's lane order;
+//   * score_buckets loads in three rounds, each a block's loads in flight
+//     together: every (column, bucket) pair's pool row and impact offset,
+//     then its presence word and rank (and each bucket's delete and filter
+//     words); a bucket's matched word is AND(required) & OR(positive) &
+//     ~OR(negated) & ~deleted & ~filter, and an exclusive scan of their
+//     popcounts over the buckets gives every matched doc a slot in
+//     candidate order (found is the list's length); then a thread a
+//     matched doc reads its present impacts at ioff + rank + popcount(word
+//     & (2^bit - 1)) and adds w_t * impact in column order with __fmul_rn /
+//     __fadd_rn: the two roundings a term of the host rescore, where the
+//     plain version also adds the +0 of an absent column (which changes no
+//     sum);
+//   * with found <= 256 one warp sorts the matched list by (score desc,
+//     slot asc) in its registers and the page is its first 64 entries,
+//     then, with found < 64, the first 64 - found unmatched candidates in
+//     candidate order (score -inf; an unselected bucket's lanes clamped to
+//     the last bucket): no selection passes run;
+//   * with found > 256 the page is the top-64 of the matched list by
+//     (score desc, slot asc), selected in shared memory (topk_select.cuh);
+//   * n_ge is found where found <= 64, else the count of matched docs
+//     tying or beating the page's last entry.
 //
 // Fold mode (exact_fold_launch): CTAs (query, split) walk contiguous bucket
 // ranges of all nblk*NW buckets in chunks of CH, keeping a running top-64
-// (the carried page) in shared memory.  A chunk is scored as above into the
-// slots after the carried page, so on ties carried entries come first; a
-// chunk none of whose scores beats the carried page's last entry leaves it
-// as it is.  Split 0 starts from the caller's carried page, the others from
-// (-inf, lane 0); a second launch (fold_merge_kernel) selects the top-64 of
-// the splits' pages in split order and adds their matched counts.  Finite
-// entries are so the global top-64 by (score desc, lane asc) and the rest
-// keep the carried page's padding, which is what the plain loop over
-// blocks (a stable sort of carried | new each block) gives.
+// (the carried page) in shared memory.  A chunk's matched docs are scored
+// as above into a list placed after the carried page, so on ties carried
+// entries come first; a chunk none of whose scores beats the carried
+// page's last entry leaves it as it is.  An unmatched doc of a chunk
+// scores -inf and comes after all 64 carried entries, so it can never
+// enter the page: the selection reads the carried page and the matched
+// list only.  Split 0 starts from the caller's carried page, the others
+// from (-inf, lane 0); a second launch (fold_merge_kernel) selects the
+// top-64 of the splits' pages in split order and adds their matched
+// counts.  Finite entries are so the global top-64 by (score desc, lane
+// asc) and the rest keep the carried page's padding, which is what the
+// plain loop over blocks (a stable sort of carried | new each block) gives.
 //
 // What bounds it on an H100: bytes.  Per (query, column, bucket) it reads
 // the pool row and impact offset (8 bytes), the presence word and rank (8
-// bytes) and one impact for each present doc; the selection is shared
-// memory work that a faster version would shrink (a page rarely needs more
-// than the matched candidates).  This is the simple version: one CTA a
-// query in page mode, a warp's loads of a bucket in flight together.
+// bytes) and one impact for each present doc.  The first version spent its
+// time elsewhere: 32 KB of static shared memory whatever K, a K^2 rank
+// count to order the buckets, three dependent loads a bucket one bucket
+// after another in each warp, and a selection over all K*32 candidates,
+// most of them -inf, with a separate n_ge pass.  Here shared memory is
+// sized to K (dynamic), a warp sorts the ids in its registers, the loads
+// go in three parallel rounds, and a page sorts or selects from the
+// matched docs only.  At K = 64 the kernel asks for eight CTAs an SM (32
+// registers, some spilled: its loads wait more than it computes); at K =
+// 256 its shared memory holds it to four, so it keeps its registers.
+// Queries that share a term read its rows once each, so a kernel with one
+// CTA a query cannot reach the bound, which counts each row once.
 
 #include <cmath>
 #include <cstdint>
@@ -60,9 +77,12 @@ constexpr int P = 64;             // page entries (P_PAGE)
 constexpr int KMAX = 256;         // selected buckets a query in page mode
 constexpr int TMAX = 8;           // columns a query
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int CH = 256;           // buckets a chunk in the fold mode
 constexpr int MAX_SPLITS = 128;   // splits a query in the fold mode
+constexpr int PAIRS = TMAX * KMAX / THREADS;  // (column, bucket) pairs a thread
+
+static_assert(KMAX <= THREADS && CH <= THREADS, "a bucket a thread");
+static_assert(CH <= KMAX, "a chunk fits the page mode's buffers");
 
 struct Pools {
   const uint32_t* ppool;   // [R, NW] presence words
@@ -88,261 +108,373 @@ struct Terms {
   unsigned req, pos, neg;
 };
 
+// Query q's columns into tm, a lane a column.  A whole warp calls it.
 __device__ void load_terms(const Pools& p, int q, Terms& tm) {
-  tm.req = tm.pos = tm.neg = 0u;
-  for (int t = 0; t < TMAX; ++t) {
-    tm.srow[t] = -1;
-    if (t >= p.T) continue;
-    const int s = p.tslot[q * p.T + t];
-    if (s < 0) continue;
-    tm.srow[t] = p.slotmap[s];
-    const bool neg = p.tneg[q * p.T + t] != 0;
-    if (neg) {
-      tm.neg |= 1u << t;
-    } else {
-      tm.pos |= 1u << t;
-      if (p.treq[q * p.T + t] != 0) tm.req |= 1u << t;
+  const int lane = threadIdx.x & 31;
+  int srow = -1;
+  bool neg = false, req = false;
+  if (lane < p.T) {
+    const int s = p.tslot[q * p.T + lane];
+    if (s >= 0) {
+      srow = p.slotmap[s];
+      neg = p.tneg[q * p.T + lane] != 0;
+      req = p.treq[q * p.T + lane] != 0;
     }
+  }
+  const bool live = srow >= 0;
+  const unsigned negm = __ballot_sync(0xffffffffu, live && neg);
+  const unsigned posm = __ballot_sync(0xffffffffu, live && !neg);
+  const unsigned reqm = __ballot_sync(0xffffffffu, live && !neg && req);
+  if (lane < TMAX) tm.srow[lane] = srow;
+  if (lane == 0) {
+    tm.neg = negm;
+    tm.pos = posm;
+    tm.req = reqm;
   }
 }
 
-// The doc at bit `lane` of bucket c (0 <= c < nblk*NW) for query q: its
-// score, or -inf when it does not match.  Called by a whole warp with the
-// query's columns in shared memory: lane t < TMAX reads column t's pool
-// row, presence word and impact base, lane 31 the deleted and filter
-// words, all at once, and the warp shares them by shuffles.
-__device__ __forceinline__ float score_doc(const Pools& p, const Terms& tm,
-                                           int q, int c, int lane) {
-  const int blk = c / NW;
-  const int w = c % NW;
-  uint32_t word = 0u;
-  int at_imp = 0;
-  if (lane < TMAX) {
-    const int sr = tm.srow[lane];
-    if (sr >= 0) {
-      const size_t r = static_cast<size_t>(sr) * p.nblk + blk;
-      const int pr = p.sp_prow[r];
-      if (pr >= 0) {
-        const size_t at = static_cast<size_t>(pr) * NW + w;
-        word = p.ppool[at];
-        at_imp = max(p.sp_ioff[r], 0) + p.rpool[at];
-      }
-    }
-  } else if (lane == 31) {
-    const size_t bw = static_cast<size_t>(blk) * NW + w;
-    word = ~p.delw[bw];
-    if (p.filtw != nullptr) word &= ~p.filtw[bw];
-  }
-  uint32_t pres[TMAX];
-  int base[TMAX];
-  uint32_t andw = __shfl_sync(0xffffffffu, word, 31);   // not deleted
-  uint32_t posw = 0u, negw = 0u;
-#pragma unroll
-  for (int t = 0; t < TMAX; ++t) {
-    pres[t] = __shfl_sync(0xffffffffu, word, t);
-    base[t] = __shfl_sync(0xffffffffu, at_imp, t);
-    if ((tm.req >> t) & 1u) andw &= pres[t];
-    if ((tm.pos >> t) & 1u) posw |= pres[t];
-    if ((tm.neg >> t) & 1u) negw |= pres[t];
-  }
-  const uint32_t mw = andw & posw & ~negw;
-  if (((mw >> lane) & 1u) == 0u) return -INFINITY;
-  const uint32_t below = (1u << lane) - 1u;
-  const float* wq =
-      p.wshard + (static_cast<size_t>(p.sid[blk]) * p.Bq + q) * p.T;
-  float sc = 0.0f;
-#pragma unroll
-  for (int t = 0; t < TMAX; ++t) {
-    if ((pres[t] >> lane) & 1u) {
-      int at = base[t] + __popc(pres[t] & below);
-      at = min(max(at, 0), p.n_imp - 1);
-      sc = __fadd_rn(sc, __fmul_rn(wq[t], p.ipool[at]));
-    }
-  }
-  return sc;
-}
-
-struct PageSmem {
-  float sc[KMAX * 32];
-  int ids[KMAX];
-  int sel[P];
-  Terms tm;
-  int found;
-  int n_ge;
-  topk::Scratch scr;
+// The scorer's buffers in dynamic shared memory, for nk <= KMAX buckets
+// and T columns.
+struct Bufs {
+  float* sc;          // [nk*32] matched docs' scores in candidate order
+  uint32_t* pw;       // [T*nk] presence word of (column, bucket)
+  int* pb;            // [T*nk] impact base of (column, bucket)
+  uint32_t* mw;       // [nk] matched word
+  int* off;           // [nk + 1] matched docs before each bucket
+  int* shard;         // [nk] shard of each bucket's block
+  int* bucket;        // [nk] bucket ids (a caller's)
 };
 
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr size_t bufs_bytes(int nk, int T) {
+  return sizeof(float) * nk * 32 + 2 * sizeof(int) * T * nk +
+         sizeof(int) * (4 * nk + 1);
+}
+
+__device__ Bufs carve(unsigned char* dyn, int nk, int T) {
+  Bufs b;
+  b.sc = reinterpret_cast<float*>(dyn);
+  b.pw = reinterpret_cast<uint32_t*>(b.sc + nk * 32);
+  b.pb = reinterpret_cast<int*>(b.pw + T * nk);
+  b.mw = reinterpret_cast<uint32_t*>(b.pb + T * nk);
+  b.shard = reinterpret_cast<int*>(b.mw + nk);
+  b.bucket = b.shard + nk;
+  b.off = b.bucket + nk;
+  return b;
+}
+
+// The bit of w's r-th (0-based) set bit.
+__device__ __forceinline__ int nth_set_bit(uint32_t w, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width > 0; width >>= 1) {
+    const int c = __popc((w >> pos) & ((1u << width) - 1u));
+    if (r >= c) {
+      r -= c;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
+// The bucket (index into b.bucket) whose matched docs hold slot s.
+__device__ __forceinline__ int bucket_of(const Bufs& b, int nk, int s) {
+  int lo = 0, hi = nk - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (b.off[mid] <= s) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The candidate index k*32 + bit of matched slot s.
+__device__ __forceinline__ int cand_of(const Bufs& b, int nk, int s) {
+  const int k = bucket_of(b, nk, s);
+  return k * 32 + nth_set_bit(b.mw[k], s - b.off[k]);
+}
+
+// Scores query q's docs in b.bucket[0, nk) (an id outside [0, nblk*NW) is
+// no bucket): b.mw, b.off and the matched docs' scores b.sc[0, found) in
+// candidate order.  Returns found.  Every thread calls it; it begins and
+// ends with a barrier.
+__device__ int score_buckets(const Pools& p, const Terms& tm, int q, int nk,
+                             const Bufs& b, int* wsum) {
+  const int tid = threadIdx.x;
+  const int big = p.nblk * NW;
+  const int T = p.T;
+  const int npair = T * nk;
+  __syncthreads();
+  // round 1: the pool row and impact offset of each (column, bucket)
+  int prow[PAIRS], ioff[PAIRS];
+#pragma unroll
+  for (int u = 0; u < PAIRS; ++u) {
+    const int i = tid + u * THREADS;
+    prow[u] = -1;
+    ioff[u] = 0;
+    if (i < npair) {
+      const int t = i / nk;
+      const int c = b.bucket[i - t * nk];
+      const int sr = tm.srow[t];
+      if (sr >= 0 && c >= 0 && c < big) {
+        const size_t r = static_cast<size_t>(sr) * p.nblk + c / NW;
+        prow[u] = p.sp_prow[r];
+        ioff[u] = p.sp_ioff[r];
+      }
+    }
+  }
+  // round 2: the presence word and rank of each, and each bucket's
+  // delete and filter words
+#pragma unroll
+  for (int u = 0; u < PAIRS; ++u) {
+    const int i = tid + u * THREADS;
+    if (i < npair) {
+      uint32_t word = 0u;
+      int base = 0;
+      if (prow[u] >= 0) {
+        const size_t at = static_cast<size_t>(prow[u]) * NW +
+                          b.bucket[i % nk] % NW;
+        word = p.ppool[at];
+        base = max(ioff[u], 0) + p.rpool[at];
+      }
+      b.pw[i] = word;
+      b.pb[i] = base;
+    }
+  }
+  uint32_t live = 0u;
+  if (tid < nk) {
+    const int c = b.bucket[tid];
+    if (c >= 0 && c < big) {
+      live = ~p.delw[c];
+      if (p.filtw != nullptr) live &= ~p.filtw[c];
+      b.shard[tid] = p.sid[c / NW];
+    }
+  }
+  __syncthreads();
+  uint32_t mw = 0u;
+  if (tid < nk) {
+    uint32_t andw = live, posw = 0u, negw = 0u;
+    for (int t = 0; t < T; ++t) {
+      const uint32_t w = b.pw[t * nk + tid];
+      if ((tm.req >> t) & 1u) andw &= w;
+      if ((tm.pos >> t) & 1u) posw |= w;
+      if ((tm.neg >> t) & 1u) negw |= w;
+    }
+    mw = andw & posw & ~negw;
+  }
+  int found;
+  const int ex = topk::block_scan<THREADS>(__popc(mw), found, wsum);
+  if (tid < nk) {
+    b.mw[tid] = mw;
+    b.off[tid] = ex;
+  }
+  if (tid == 0) b.off[nk] = found;
+  __syncthreads();
+  // round 3: a matched doc a thread, its present impacts in column order
+  for (int s = tid; s < found; s += THREADS) {
+    const int k = bucket_of(b, nk, s);
+    const int bit = nth_set_bit(b.mw[k], s - b.off[k]);
+    const uint32_t below = (1u << bit) - 1u;
+    const float* wq =
+        p.wshard + (static_cast<size_t>(b.shard[k]) * p.Bq + q) * T;
+    float sc = 0.0f;
+#pragma unroll
+    for (int t = 0; t < TMAX; ++t) {
+      if (t < T) {
+        const uint32_t w = b.pw[t * nk + k];
+        if ((w >> bit) & 1u) {
+          int at = b.pb[t * nk + k] + __popc(w & below);
+          at = min(max(at, 0), p.n_imp - 1);
+          sc = __fadd_rn(sc, __fmul_rn(wq[t], p.ipool[at]));
+        }
+      }
+    }
+    b.sc[s] = sc;
+  }
+  __syncthreads();
+  return found;
+}
+
+// Resident CTAs an SM the page kernel asks the compiler to make room for:
+// many where K is small (and so is its shared memory); where K = 256 its
+// 43 KB allow about four, so it keeps the registers.
+constexpr int MINB_SMALL = 8;     // K <= 64
+constexpr int MINB_LARGE = 1;
+
+template <int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 rescore_page_kernel(Pools p, const int32_t* ids, const float* vals, int K,
                     int bucket_off, float* psc, int32_t* plane,
-                    int32_t* n_ge, int32_t* found) {
-  __shared__ PageSmem s;
+                    int32_t* n_ge, int32_t* found_out) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ topk::Scratch s;
+  __shared__ Terms tm;
+  __shared__ int sel[P];
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int big = p.nblk * NW;
-  if (tid == 0) {
-    load_terms(p, q, s.tm);
-    s.found = 0;
-    s.n_ge = 0;
+  const Bufs b = carve(dyn, K, p.T);
+  // warp 1 reads the query's columns while warp 0 orders its selected
+  // ids ascending, unselected ones as big (a sort in registers)
+  if (tid >> 5 == 1) load_terms(p, q, tm);
+  if (tid == 0) s.count = 0;
+  topk::sort_first(
+      [&](int i, uint32_t& key, int& idx) {
+        const size_t at = static_cast<size_t>(q) * K + i;
+        idx = vals[at] > -INFINITY ? ids[at] : big;
+        key = static_cast<uint32_t>(idx) ^ 0x80000000u;
+      },
+      K, K, b.bucket);
+  const int found = score_buckets(p, tm, q, K, b, s.wsum[0]);
+  int ge = found;
+  if (found <= topk::SORT_MAX) {
+    // one warp sorts the matched list (no selection passes); past its
+    // end the page takes the unmatched candidates in order
+    topk::sort_first(
+        [&](int i, uint32_t& key, int& idx) {
+          key = topk::desc_key(b.sc[i]);
+          idx = i;
+        },
+        found, min(found, P), sel);
+  } else {
+    topk::select_topk<THREADS>(
+        [&](int i0, uint32_t (&key)[4]) { topk::keys4(b.sc, i0, found, key); },
+        found, P, 0xFFFFFFFFu, sel, s);
   }
-  // the selected ids, unselected ones as big, sorted ascending (rank count)
-  int* key = reinterpret_cast<int*>(s.sc);
-  for (int i = tid; i < K; i += THREADS) {
-    const size_t at = static_cast<size_t>(q) * K + i;
-    key[i] = vals[at] > -INFINITY ? ids[at] : big;
+  if (found > P) {
+    // n_ge: the matched docs that tie or beat the page's last entry
+    const uint32_t last = topk::desc_key(b.sc[sel[P - 1]]);
+    int c = 0;
+    for (int i = tid; i < found; i += THREADS)
+      c += topk::desc_key(b.sc[i]) <= last ? 1 : 0;
+    for (int off = 16; off > 0; off >>= 1)
+      c += __shfl_xor_sync(0xffffffffu, c, off);
+    if (lane == 0 && c) atomicAdd(&s.count, c);
+    __syncthreads();
+    ge = s.count;
   }
-  __syncthreads();
-  for (int i = tid; i < K; i += THREADS) {
-    const int v = key[i];
-    int r = 0;
-    for (int j = 0; j < K; ++j) {
-      const int u = key[j];
-      r += (u < v || (u == v && j < i)) ? 1 : 0;
-    }
-    s.ids[r] = v;
-  }
-  __syncthreads();
-  int nf = 0;
-  for (int k = warp; k < K; k += WARPS) {
-    const int c = s.ids[k];
-    float v = -INFINITY;
-    if (c < big) v = score_doc(p, s.tm, q, c, lane);
-    s.sc[k * 32 + lane] = v;
-    nf += __popc(__ballot_sync(0xffffffffu, v > -INFINITY));
-  }
-  if (lane == 0 && nf) atomicAdd(&s.found, nf);
-  const int n = K * 32;
-  topk::select_topk<THREADS>(
-      [&](int i) { return topk::desc_key(s.sc[i]); }, n, P, 0xFFFFFFFFu,
-      s.sel, s.scr);
-  const float last = s.sc[s.sel[P - 1]];
-  int ge = 0;
-  for (int i = tid; i < n; i += THREADS) {
-    const float v = s.sc[i];
-    ge += (v >= last && v > -INFINITY) ? 1 : 0;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    ge += __shfl_xor_sync(0xffffffffu, ge, off);
-  if (lane == 0 && ge) atomicAdd(&s.n_ge, ge);
   if (tid < P) {
-    const int c = s.sel[tid];
-    const int b = min(s.ids[c >> 5], big - 1);
-    psc[q * P + tid] = s.sc[c];
-    plane[q * P + tid] = (b + bucket_off) * 32 + (c & 31);
+    float v = -INFINITY;
+    int cand;
+    if (tid < found) {
+      const int slot = sel[tid];
+      v = b.sc[slot];
+      cand = cand_of(b, K, slot);
+    } else {
+      // the (tid - found)-th unmatched candidate: the last bucket k with
+      // 32k - off[k] unmatched before it at most that rank
+      const int j = tid - found;
+      int lo = 0, hi = K - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (32 * mid - b.off[mid] <= j) lo = mid;
+        else hi = mid - 1;
+      }
+      cand = lo * 32 + nth_set_bit(~b.mw[lo], j - (32 * lo - b.off[lo]));
+    }
+    const int bk = min(b.bucket[cand >> 5], big - 1);
+    psc[q * P + tid] = v;
+    plane[q * P + tid] = (bk + bucket_off) * 32 + (cand & 31);
   }
-  __syncthreads();
   if (tid == 0) {
-    n_ge[q] = s.n_ge;
-    found[q] = s.found;
+    n_ge[q] = ge;
+    found_out[q] = found;
   }
 }
-
-struct FoldSmem {
-  float sc[P + CH * 32];   // the carried page, then the chunk's scores
-  int lane[P];             // the carried page's lanes
-  int sel[P];
-  Terms tm;
-  int found;
-  topk::Scratch scr;
-};
 
 __global__ void __launch_bounds__(THREADS)
 exact_fold_kernel(Pools p, int per, const float* c_psc, const int32_t* c_plane,
                   float* part_sc, int32_t* part_lane, int32_t* part_found) {
-  __shared__ FoldSmem s;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ topk::Scratch s;
+  __shared__ Terms tm;
+  __shared__ __align__(16) float pg_sc[P];   // the carried page
+  __shared__ int pg_lane[P];
+  __shared__ int sel[P];
   const int q = blockIdx.x;
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int nb = p.nblk * NW;
   const int b0 = min(split * per, nb);
   const int b1 = min(b0 + per, nb);
-  if (tid == 0) {
-    load_terms(p, q, s.tm);
-    s.found = 0;
-  }
+  const Bufs b = carve(dyn, CH, p.T);
+  if (tid < 32) load_terms(p, q, tm);
   if (tid < P) {
     const bool given = split == 0 && c_psc != nullptr;
-    s.sc[tid] = given ? c_psc[q * P + tid] : -INFINITY;
-    s.lane[tid] = given ? c_plane[q * P + tid] : 0;
+    pg_sc[tid] = given ? c_psc[q * P + tid] : -INFINITY;
+    pg_lane[tid] = given ? c_plane[q * P + tid] : 0;
   }
-  __syncthreads();
-  int nf = 0;
+  int total = 0;
   for (int cb = b0; cb < b1; cb += CH) {
     const int nk = min(CH, b1 - cb);
-    for (int k = warp; k < nk; k += WARPS) {
-      const float v = score_doc(p, s.tm, q, cb + k, lane);
-      s.sc[P + k * 32 + lane] = v;
-      nf += __popc(__ballot_sync(0xffffffffu, v > -INFINITY));
-    }
-    __syncthreads();
-    const float theta = s.sc[P - 1];
+    if (tid < nk) b.bucket[tid] = cb + tid;
+    const int nf = score_buckets(p, tm, q, nk, b, s.wsum[0]);
+    total += nf;
+    const float theta = pg_sc[P - 1];
     int beats = 0;
-    for (int i = tid; i < nk * 32; i += THREADS) beats |= s.sc[P + i] > theta;
+    for (int i = tid; i < nf; i += THREADS) beats |= b.sc[i] > theta;
     if (__syncthreads_or(beats)) {
+      const int n = P + nf;
       topk::select_topk<THREADS>(
-          [&](int i) { return topk::desc_key(s.sc[i]); }, P + nk * 32, P,
-          topk::desc_key(theta), s.sel, s.scr);
+          [&](int i0, uint32_t (&key)[4]) {
+            if (i0 < P) topk::keys4(pg_sc, i0, P, key);
+            else topk::keys4(b.sc, i0 - P, nf, key);
+          },
+          n, P, topk::desc_key(theta), sel, s);
       float v = 0.0f;
       int l = 0;
       if (tid < P) {
-        const int c = s.sel[tid];
-        v = s.sc[c];
-        l = c < P ? s.lane[c] : (cb + ((c - P) >> 5)) * 32 + ((c - P) & 31);
+        const int c = sel[tid];
+        if (c < P) {
+          v = pg_sc[c];
+          l = pg_lane[c];
+        } else {
+          v = b.sc[c - P];
+          const int cand = cand_of(b, nk, c - P);
+          l = (cb + (cand >> 5)) * 32 + (cand & 31);
+        }
       }
       __syncthreads();
       if (tid < P) {
-        s.sc[tid] = v;
-        s.lane[tid] = l;
+        pg_sc[tid] = v;
+        pg_lane[tid] = l;
       }
     }
-    __syncthreads();
   }
-  if (lane == 0 && nf) atomicAdd(&s.found, nf);
   __syncthreads();
   const size_t at = (static_cast<size_t>(q) * nsplit + split) * P;
   if (tid < P) {
-    part_sc[at + tid] = s.sc[tid];
-    part_lane[at + tid] = s.lane[tid];
+    part_sc[at + tid] = pg_sc[tid];
+    part_lane[at + tid] = pg_lane[tid];
   }
-  if (tid == 0) part_found[q * nsplit + split] = s.found;
+  if (tid == 0) part_found[q * nsplit + split] = total;
 }
-
-struct MergeSmem {
-  float sc[MAX_SPLITS * P];
-  int sel[P];
-  int found;
-  topk::Scratch scr;
-};
 
 __global__ void __launch_bounds__(THREADS)
 fold_merge_kernel(const float* part_sc, const int32_t* part_lane,
                   const int32_t* part_found, int nsplit, float* psc,
                   int32_t* plane, int32_t* found) {
-  __shared__ MergeSmem s;
+  __shared__ topk::Scratch s;
+  __shared__ int sel[P];
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const int n = nsplit * P;
   const size_t at = static_cast<size_t>(q) * n;
+  const float* row = part_sc + at;
+  topk::select_topk<THREADS>(
+      [&](int i0, uint32_t (&key)[4]) { topk::keys4(row, i0, n, key); }, n,
+      P, 0xFFFFFFFFu, sel, s);
+  if (tid < P) {
+    const int c = sel[tid];
+    psc[q * P + tid] = row[c];
+    plane[q * P + tid] = part_lane[at + c];
+  }
   if (tid == 0) {
     int f = 0;
     for (int i = 0; i < nsplit; ++i) f += part_found[q * nsplit + i];
-    s.found = f;
+    found[q] = f;
   }
-  for (int i = tid; i < n; i += THREADS) s.sc[i] = part_sc[at + i];
-  topk::select_topk<THREADS>(
-      [&](int i) { return topk::desc_key(s.sc[i]); }, n, P, 0xFFFFFFFFu,
-      s.sel, s.scr);
-  if (tid < P) {
-    const int c = s.sel[tid];
-    psc[q * P + tid] = s.sc[c];
-    plane[q * P + tid] = part_lane[at + c];
-  }
-  if (tid == 0) found[q] = s.found;
 }
 
 Pools make_pools(const void* ppool, const void* rpool, const void* ipool,
@@ -372,6 +504,17 @@ Pools make_pools(const void* ppool, const void* rpool, const void* ipool,
   return p;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory: beside its static
+// shared memory (under 16 KB) more than 32 KB must be asked for, and it asks
+// for the most it can ever take (`most`), the same on every call.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t most) {
+  if (bytes <= 32 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(most));
+}
+
 }  // namespace
 
 // Page mode: ids i32[Bq, K] / vals f32[Bq, K] the selected buckets (local
@@ -391,7 +534,12 @@ extern "C" int rescore_page_launch(
   const Pools p = make_pools(ppool, rpool, ipool, n_imp, sp_prow, sp_ioff,
                              delw, sid, filtw, slotmap, tslot, treq, tneg,
                              wshard, nblk, Bq, T);
-  rescore_page_kernel<<<Bq, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = bufs_bytes(K, T);
+  auto kernel = K <= 64 ? rescore_page_kernel<MINB_SMALL>
+                        : rescore_page_kernel<MINB_LARGE>;
+  const cudaError_t err = allow_smem(kernel, smem, bufs_bytes(KMAX, TMAX));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<Bq, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int32_t*>(ids), static_cast<const float*>(vals), K,
       bucket_off, static_cast<float*>(psc), static_cast<int32_t*>(plane),
       static_cast<int32_t*>(n_ge), static_cast<int32_t*>(found));
@@ -420,11 +568,15 @@ extern "C" int exact_fold_launch(
                              wshard, nblk, Bq, T);
   const int nb = nblk * NW;
   const int per = (nb + nsplit - 1) / nsplit;
-  exact_fold_kernel<<<dim3(Bq, nsplit), THREADS, 0, st>>>(
+  const size_t smem = bufs_bytes(CH, T);
+  cudaError_t err =
+      allow_smem(exact_fold_kernel, smem, bufs_bytes(CH, TMAX));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  exact_fold_kernel<<<dim3(Bq, nsplit), THREADS, smem, st>>>(
       p, per, static_cast<const float*>(c_psc),
       static_cast<const int32_t*>(c_plane), static_cast<float*>(part_sc),
       static_cast<int32_t*>(part_lane), static_cast<int32_t*>(part_found));
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fold_merge_kernel<<<Bq, THREADS, 0, st>>>(
       static_cast<const float*>(part_sc),

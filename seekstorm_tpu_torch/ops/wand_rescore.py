@@ -18,12 +18,13 @@ carried entries first on ties; ``exact_scan_ref`` is the plain loop over
 blocks it must equal bit for bit.
 
 K5 takes one CTA a query (page mode) or a (query, bucket range) (fold
-mode), a warp a bucket and a lane a doc, and selects pages in shared
-memory with the radix select of csrc/topk_select.cuh.  ``page_select_ref``
-and ``exact_fold_ref`` restate its selections in numpy (on top of
-``ops/wand_rungs.radix_topk_ref``), so the CPU tests hold the kernel's
-algorithm against ``_page_topk`` and ``exact_scan_ref``; the kernel itself
-meets its plain version on the card (chip_smoke.py).
+mode), scores the matched docs of its buckets into a list in candidate
+order, and pages from that list: sorted whole by one warp when it holds
+at most SORTED docs, else through the select of csrc/topk_select.cuh.
+``page_select_ref`` and ``exact_fold_ref`` restate its pages in numpy (on
+top of ``ops/wand_rungs.radix_topk_ref``), so the CPU tests hold the
+kernel's algorithm against ``_page_topk`` and ``exact_scan_ref``; the
+kernel itself meets its plain version on the card (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ NW = BLOCK_SIZE // 32          # packed words per block == buckets per block
 P_PAGE = 64                    # device page entries per query
 T_MAX = 8                      # columns a query
 K_MAX = 256                    # selected buckets a query in page mode
+SORTED = 256                   # matched docs a page sorts whole (one warp)
 CHUNK = 256                    # buckets a chunk of the fold mode
 MAX_SPLITS = 128               # bucket ranges a query in the fold mode
 
@@ -214,11 +216,17 @@ def exact_scan_ref(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
 # K5's selections, restated in numpy
 
 
-def page_select_ref(score, lane):
+def page_select_ref(score, lane, trace: list | None = None):
     """K5's page in numpy over score f32[Bq, n] / lane i32[Bq, n] in
-    candidate order: the radix select of the top-P_PAGE, then the count
-    of matched candidates tying or beating its last entry.  Returns
-    (psc, plane, n_ge) as _page_topk does."""
+    candidate order (-inf: unmatched).  The matched candidates are listed
+    in candidate order (their slots); with found <= SORTED the page is the
+    list sorted by (score desc, slot asc), then, with found < P_PAGE, the
+    first P_PAGE - found unmatched candidates in candidate order; else the
+    select of the top-P_PAGE of the list (radix_topk_ref); n_ge is found
+    where found <= P_PAGE, else the list's count of scores tying or
+    beating the page's last entry.  Returns (psc, plane, n_ge) as
+    _page_topk does.  `trace`, a list, receives a dict a query: found, and
+    radix_topk_ref's trace where a select ran."""
     score = np.asarray(score, np.float32)
     lane = np.asarray(lane, np.int32)
     Bq = score.shape[0]
@@ -226,10 +234,23 @@ def page_select_ref(score, lane):
     plane = np.empty((Bq, P_PAGE), np.int32)
     n_ge = np.empty(Bq, np.int32)
     for q in range(Bq):
-        sel = radix_topk_ref(desc_keys(score[q]), P_PAGE)
+        matched = np.flatnonzero(score[q] > -np.inf)
+        keys = desc_keys(score[q][matched])
+        t = {"found": len(matched)}
+        if len(matched) <= SORTED:
+            order = matched[np.lexsort((np.arange(len(matched)), keys))]
+            rest = np.flatnonzero(~(score[q] > -np.inf))
+            sel = np.concatenate([order, rest])[:P_PAGE]
+        else:
+            sel = matched[radix_topk_ref(keys, P_PAGE, trace=t)]
+        if len(matched) <= P_PAGE:
+            n_ge[q] = len(matched)
+        else:
+            last = desc_keys(score[q][sel[-1:]])[0]
+            n_ge[q] = int((keys <= last).sum())
+        if trace is not None:
+            trace.append(t)
         psc[q], plane[q] = score[q][sel], lane[q][sel]
-        last = psc[q, -1]
-        n_ge[q] = int(((score[q] >= last) & (score[q] > -np.inf)).sum())
     return psc, plane, n_ge
 
 
@@ -242,13 +263,15 @@ def split_count(n_buckets: int, Bq: int, sms: int) -> int:
 
 def exact_fold_ref(score, lane, carry, nsplit: int, chunk: int = CHUNK):
     """K5's fold mode in numpy over every bucket's rescored docs (score
-    f32[Bq, nb*32] / lane i32[Bq, nb*32] in bucket order): nsplit
-    contiguous bucket ranges, each walked in chunks of `chunk` buckets
-    with a running page after the carried one (split 0 starts from carry
-    (psc, plane), the others from -inf / lane 0); a chunk that beats none
-    of the running page's last entry is skipped; the ranges' pages are
-    merged by one more selection in range order.  Returns (psc, plane,
-    found)."""
+    f32[Bq, nb*32] / lane i32[Bq, nb*32] in bucket order, -inf:
+    unmatched): nsplit contiguous bucket ranges, each walked in chunks of
+    `chunk` buckets with a running page; a chunk none of whose matched
+    docs beats the running page's last entry is skipped, else the page
+    becomes the top-P_PAGE (radix_topk_ref, cut at the last entry's key)
+    of the page followed by the chunk's matched docs in candidate order;
+    split 0 starts from carry (psc, plane), the others from -inf / lane 0;
+    the ranges' pages are merged by one more selection in range order.
+    Returns (psc, plane, found)."""
     score = np.asarray(score, np.float32)
     lane = np.asarray(lane, np.int32)
     c_psc, c_plane = [np.asarray(x) for x in carry]
@@ -268,11 +291,11 @@ def exact_fold_ref(score, lane, carry, nsplit: int, chunk: int = CHUNK):
             for cb in range(b0, b1, chunk):
                 ce = min(cb + chunk, b1)
                 cs = score[q, cb * 32:ce * 32]
-                theta = ps[-1]
-                if not (cs > theta).any():
+                hit = cs > -np.inf
+                if not (cs[hit] > ps[-1]).any():
                     continue
-                allv = np.concatenate([ps, cs])
-                alll = np.concatenate([pl, lane[q, cb * 32:ce * 32]])
+                allv = np.concatenate([ps, cs[hit]])
+                alll = np.concatenate([pl, lane[q, cb * 32:ce * 32][hit]])
                 sel = radix_topk_ref(desc_keys(allv), P_PAGE,
                                      int(desc_keys(ps[-1:])[0]))
                 ps, pl = allv[sel], alll[sel]
@@ -324,10 +347,14 @@ def _pool_args(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid, slotmap,
     return ptrs, (NBLK, Bq, T)
 
 
-def rescore_page_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
-                      slotmap, tslot, treq, tneg, wshard, ids, vals,
-                      filtw=None, bucket_off: int = 0):
-    """K5's page mode on CUDA tensors: the contract of rescore_page_ref."""
+def page_launcher(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                  slotmap, tslot, treq, tneg, wshard, ids, vals, filtw=None,
+                  bucket_off: int = 0, lib=None):
+    """K5's page mode on CUDA tensors, prepared: checks the inputs, makes
+    the outputs and returns a function that launches K5 (from `lib`, by
+    default the library built from csrc/wand_rescore.cu) into them and
+    returns (psc, plane, n_ge, found) as rescore_page_ref does.  Each call
+    of that function is one launch."""
     from .. import _build
 
     dev = ppool.device
@@ -341,31 +368,48 @@ def rescore_page_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
     vals = vals.contiguous()
     _check("ids", ids, torch.int32, (Bq, K), dev)
     _check("vals", vals, torch.float32, (Bq, K), dev)
-    psc = torch.empty((Bq, P_PAGE), dtype=torch.float32, device=dev)
-    plane = torch.empty((Bq, P_PAGE), dtype=torch.int32, device=dev)
-    n_ge = torch.empty(Bq, dtype=torch.int32, device=dev)
-    found = torch.empty(Bq, dtype=torch.int32, device=dev)
-    lib = _build.load("wand_rescore")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _count_launch()
-    with torch.cuda.device(dev):
-        err = lib.rescore_page_launch(
-            *ptrs, ids.data_ptr(), vals.data_ptr(), NBLK, Bq, T, K,
-            int(bucket_off), psc.data_ptr(), plane.data_ptr(),
-            n_ge.data_ptr(), found.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"rescore_page_cuda launch failed (error {err})")
-    return psc, plane, n_ge, found
+    out = (torch.empty((Bq, P_PAGE), dtype=torch.float32, device=dev),
+           torch.empty((Bq, P_PAGE), dtype=torch.int32, device=dev),
+           torch.empty(Bq, dtype=torch.int32, device=dev),
+           torch.empty(Bq, dtype=torch.int32, device=dev))
+    if lib is None:
+        lib = _build.load("wand_rescore")
+    args = (*ptrs, ids.data_ptr(), vals.data_ptr(), NBLK, Bq, T, K,
+            int(bucket_off), *[x.data_ptr() for x in out],
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        _count_launch()
+        with torch.cuda.device(dev):
+            err = lib.rescore_page_launch(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"rescore_page_cuda launch failed (error {err})")
+        return out
+    return launch
+
+
+def rescore_page_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                      slotmap, tslot, treq, tneg, wshard, ids, vals,
+                      filtw=None, bucket_off: int = 0):
+    """K5's page mode on CUDA tensors: the contract of rescore_page_ref."""
+    return page_launcher(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                         slotmap, tslot, treq, tneg, wshard, ids, vals,
+                         filtw, bucket_off)()
 
 
 _SMS: dict = {}
 
 
-def exact_fold_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
-                    slotmap, tslot, treq, tneg, wshard, filtw=None,
-                    carry=None, nsplit: int | None = None):
-    """K5's fold mode on CUDA tensors: the contract of exact_scan_ref.
-    nsplit: bucket ranges a query (split_count's by default)."""
+def fold_launcher(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                  slotmap, tslot, treq, tneg, wshard, filtw=None, carry=None,
+                  nsplit: int | None = None, lib=None):
+    """K5's fold mode on CUDA tensors, prepared: checks the inputs, makes
+    the outputs and returns a function that launches the fold (from `lib`,
+    by default the library built from csrc/wand_rescore.cu) into them and
+    returns (psc, plane, found) as exact_scan_ref does.  nsplit: bucket
+    ranges a query (split_count's by default).  Each call of that function
+    is one launch."""
     from .. import _build
 
     dev = ppool.device
@@ -383,27 +427,39 @@ def exact_fold_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
         nsplit = split_count(NBLK * NW, Bq, _SMS[dev])
     if not 1 <= nsplit <= MAX_SPLITS:
         raise ValueError(f"K5 takes 1 to {MAX_SPLITS} splits, got {nsplit}")
-    part_sc = torch.empty((Bq, nsplit, P_PAGE), dtype=torch.float32,
-                          device=dev)
-    part_lane = torch.empty((Bq, nsplit, P_PAGE), dtype=torch.int32,
-                            device=dev)
-    part_found = torch.empty((Bq, nsplit), dtype=torch.int32, device=dev)
-    psc = torch.empty((Bq, P_PAGE), dtype=torch.float32, device=dev)
-    plane = torch.empty((Bq, P_PAGE), dtype=torch.int32, device=dev)
-    found = torch.empty(Bq, dtype=torch.int32, device=dev)
-    lib = _build.load("wand_rescore")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _count_launch()
-    with torch.cuda.device(dev):
-        err = lib.exact_fold_launch(
-            *ptrs, NBLK, Bq, T, nsplit,
+    part = (torch.empty((Bq, nsplit, P_PAGE), dtype=torch.float32,
+                        device=dev),
+            torch.empty((Bq, nsplit, P_PAGE), dtype=torch.int32, device=dev),
+            torch.empty((Bq, nsplit), dtype=torch.int32, device=dev))
+    out = (torch.empty((Bq, P_PAGE), dtype=torch.float32, device=dev),
+           torch.empty((Bq, P_PAGE), dtype=torch.int32, device=dev),
+           torch.empty(Bq, dtype=torch.int32, device=dev))
+    if lib is None:
+        lib = _build.load("wand_rescore")
+    args = (*ptrs, NBLK, Bq, T, nsplit,
             None if carry is None else c_psc.data_ptr(),
             None if carry is None else c_plane.data_ptr(),
-            part_sc.data_ptr(), part_lane.data_ptr(), part_found.data_ptr(),
-            psc.data_ptr(), plane.data_ptr(), found.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"exact_fold_cuda launch failed (error {err})")
-    return psc, plane, found
+            *[x.data_ptr() for x in part + out],
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        _count_launch()
+        with torch.cuda.device(dev):
+            err = lib.exact_fold_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"exact_fold_cuda launch failed (error {err})")
+        return out
+    return launch
+
+
+def exact_fold_cuda(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                    slotmap, tslot, treq, tneg, wshard, filtw=None,
+                    carry=None, nsplit: int | None = None):
+    """K5's fold mode on CUDA tensors: the contract of exact_scan_ref.
+    nsplit: bucket ranges a query (split_count's by default)."""
+    return fold_launcher(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid,
+                         slotmap, tslot, treq, tneg, wshard, filtw, carry,
+                         nsplit)()
 
 
 def rescore_page(ppool, rpool, ipool, sp_prow, sp_ioff, delw, sid, slotmap,

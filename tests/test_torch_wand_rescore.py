@@ -303,6 +303,119 @@ def test_page_select_ref_equals_page_topk():
                                           y.view(np.int32))
 
 
+def _found_rows(rng, case, Bq=4, n=2048):
+    """Score rows in candidate order with a chosen count of matched
+    (finite) candidates: an int count, or a named adversarial case."""
+    sc = np.full((Bq, n), -np.inf, np.float32)
+    for q in range(Bq):
+        if case == "straddle":               # the 64th ties past the page
+            f = 200
+            v = rng.integers(0, 3, size=f).astype(np.float32) + 1.0
+        elif case == "refine":               # one bin of mixed keys
+            f = 1500
+            v = (2.0 + rng.random(f) * 0.49).astype(np.float32)
+        elif case == "tie_overflow":         # one key past the buffer
+            f = 1200
+            v = np.full(f, 2.0, np.float32)
+            v[:20] = 3.0
+        elif case == "signed_zeros":
+            f = 120
+            v = np.where(rng.random(f) < 0.5, -0.0, 0.0).astype(np.float32)
+            v[:10] = 1.0
+        else:
+            f = case
+            v = rng.integers(0, 4, size=f).astype(np.float32)
+        at = np.sort(rng.choice(n, size=f, replace=False))
+        sc[q, at] = rng.permutation(v)
+    lane = np.sort(rng.integers(0, 1 << 24, size=(Bq, n)),
+                   axis=1).astype(np.int32)
+    return sc, lane
+
+
+@pytest.mark.parametrize("case", [0, 1, 63, 64, 65, 256, 257, "straddle",
+                                  "refine", "tie_overflow", "signed_zeros"])
+def test_page_select_ref_found_cases(case):
+    """K5's page, restated, on rows of a chosen matched count: found <= 256
+    sorts the matched list (found < 64 appends the first unmatched
+    candidates; no select runs), found > 256 selects from the matched list
+    (a mixed bin that refines, a tie class larger than the buffer); ties
+    across the 64th entry and +0/-0 besides; all equal to _page_topk bit
+    for bit."""
+    rng = np.random.default_rng(17)
+    sc, lane = _found_rows(rng, case)
+    want = wr._page_topk(torch.from_numpy(sc), torch.from_numpy(lane))
+    trace = []
+    got = wr.page_select_ref(sc, lane, trace)
+    for x, y in zip(want, got):
+        np.testing.assert_array_equal(x.numpy().view(np.int32),
+                                      y.view(np.int32))
+    found = [t["found"] for t in trace]
+    if isinstance(case, int):
+        assert found == [case] * len(found)
+        assert all(("level" in t) == (case > wr.SORTED) for t in trace)
+    if case == "straddle":
+        assert (got[2] > P).all()
+    if case == "refine":
+        assert all(t["level"] >= 1 for t in trace)
+    if case == "tie_overflow":
+        assert all(t["tie_overflow"] for t in trace)
+
+
+def _pick_buckets(counts, target, K, rng):
+    """At most K bucket ids whose matched counts add up to target (None if
+    the greedy pick misses), largest count first while they fit."""
+    order = rng.permutation(len(counts))
+    order = order[np.argsort(-counts[order], kind="stable")]
+    picked, left = [], target
+    for b in order:
+        if len(picked) == K or left == 0:
+            break
+        if 0 < counts[b] <= left:
+            picked.append(b)
+            left -= counts[b]
+    return None if left else np.array(picked, np.int64)
+
+
+@pytest.mark.parametrize("K", [64, 256])
+def test_page_select_ref_exact_found_on_pools(K):
+    """Rescored synthetic pools whose selections match exactly 0, 1, 63,
+    64 and 65 docs (and more): the picked buckets, the rest of the K
+    unselected (-inf UBs, in random places); the restated page equals
+    _page_topk, and rescore_page's found is the target."""
+    rng = np.random.default_rng(40 + K)
+    pools, q = _synth_pools(rng)
+    NBLK = pools[3].shape[1]
+    Bq = q[1].shape[0]
+    every = torch.arange(NBLK * NW, dtype=torch.int32).expand(Bq, -1)
+    sc, _, _ = wr._rescore_regions(*pools, *q, every,
+                                   torch.ones(every.shape))
+    counts = (sc.numpy() > -np.inf).reshape(Bq, -1, 32).sum(axis=2)
+    targets = [0, 1, 63, 64, 65, 100]
+    ids = rng.integers(0, NBLK * NW, size=(Bq, K)).astype(np.int32)
+    vals = np.full((Bq, K), -np.inf, np.float32)
+    want = np.zeros(Bq, np.int32)
+    for row in range(Bq):
+        # the row's own target, else the next one its matches allow
+        for j in range(len(targets)):
+            t = targets[(row + j) % len(targets)]
+            pick = _pick_buckets(counts[row], t, K, rng)
+            if pick is not None:
+                break
+        at = rng.choice(K, size=len(pick), replace=False)
+        ids[row, at] = pick
+        vals[row, at] = 1.0
+        want[row] = t
+    ids, vals = torch.from_numpy(ids), torch.from_numpy(vals)
+    sc, lane, found = wr._rescore_regions(*pools, *q, ids, vals)
+    np.testing.assert_array_equal(found.numpy(), want)
+    assert set(targets[:5]) <= set(want.tolist())
+    psc, plane, n_ge, _ = wr.rescore_page(*pools, *q, ids, vals)
+    got = wr.page_select_ref(sc.numpy(), lane.numpy())
+    for x, y in zip((psc, plane, n_ge), got):
+        np.testing.assert_array_equal(x.numpy().view(np.int32),
+                                      y.view(np.int32))
+
+
 @pytest.mark.parametrize("K", [64, 256])
 def test_page_select_ref_on_rescored_pools(K):
     """The restated page over rescore scores of synthetic pools with ties

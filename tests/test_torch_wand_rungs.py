@@ -54,8 +54,52 @@ def _rank_keys(rng, Bq, L1):
     return np.where(matched, keys[None, :], -np.inf).astype(np.float32)
 
 
+def _few_finite(rng, Bq, L1, n_fin=40):
+    """Fewer than K_SEL+1 finite lanes a row: each rung's 65th entry lies
+    in the -inf class, which holds far more lanes than the select keeps."""
+    x = np.full((Bq, L1), -np.inf, np.float32)
+    for q in range(Bq):
+        at = rng.choice(L1, size=n_fin if q != 1 else 0, replace=False)
+        x[q, at] = rng.permutation(len(at)) * 0.5 + 0.5
+        x[q, at[:4]] = 3.0                      # and one tie class
+    return x
+
+
+def _one_bin(rng, Bq, L1):
+    """Distinct values in [1, 1.25): one bin of the keys' leading 11 bits
+    holds every finite lane, so the select refines it (level 1)."""
+    x = (1.0 + rng.random((Bq, L1)) * 0.24).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = -np.inf
+    x[1] = -np.inf
+    return x
+
+
+def _last_bits(rng, Bq, L1):
+    """Values 1.0 + j ulp, j < 1024, each many times: keys that differ in
+    their last 10 bits only (the select's last level, a bin of one key)."""
+    j = rng.integers(0, 1024, size=(Bq, L1)).astype(np.uint32)
+    x = (np.uint32(0x3F800000) + j).view(np.float32)
+    x[1] = -np.inf
+    return x
+
+
+def _signed_zeros(rng, Bq, L1):
+    """Rows of +0 and -0 (tied) with a few positives and -inf."""
+    x = np.where(rng.random((Bq, L1)) < 0.5, -0.0, 0.0).astype(np.float32)
+    x[rng.random(x.shape) < 0.3] = -np.inf
+    pos = rng.random(x.shape) < 0.005
+    x[pos] = 1.0 + rng.permutation(int(pos.sum())).astype(np.float32)
+    x[1] = -np.inf
+    return x
+
+
 INPUTS = {
     "ties": lambda rng: (_ties(rng, 12, 3 * NW), True),
+    "few_finite": lambda rng: (_few_finite(rng, 5, 3 * NW), True),
+    "few_finite_reduced": lambda rng: (_few_finite(rng, 5, 2 * NW), False),
+    "one_bin": lambda rng: (_one_bin(rng, 4, 2 * NW), True),
+    "last_bits": lambda rng: (_last_bits(rng, 4, 2 * NW), True),
+    "blocks77": lambda rng: (_ties(rng, 3, 77 * NW, levels=1 << 22), True),
     "ties_reduced": lambda rng: (_ties(rng, 12, 3 * NW), False),
     "one_block": lambda rng: (_ties(rng, 9, NW), True),
     "short": lambda rng: (_ties(rng, 9, 64, 20, p_none=0.3), False),
@@ -63,6 +107,16 @@ INPUTS = {
     "padded": lambda rng: (_ties(rng, 9, 512), False),
     "rank_by_key": lambda rng: (_rank_keys(rng, 12, 2 * NW), False),
 }
+
+
+# the restatement's cases: INPUTS; a row of +0 and -0 ties, where the
+# reference's lax.top_k picks its own signs within a tie class (values equal
+# as floats, bits not), so it is held against the port's plain version only;
+# and 8 blocks of UBs from 12 levels, whose 65th group maximum ties a few
+# hundred lanes (K6 selects from its list of the lanes under the cut)
+SELECT_INPUTS = dict(
+    INPUTS, signed_zeros=lambda rng: (_signed_zeros(rng, 5, 2 * NW), True),
+    coarse_ties=lambda rng: (_ties(rng, 4, 8 * NW, levels=12), True))
 
 
 def _maxima(allub, with_maxima):
@@ -96,13 +150,13 @@ def test_rung_topks_match_reference(name):
         assert (i.numpy()[:, L:] == 0).all()
 
 
-@pytest.mark.parametrize("name", list(INPUTS))
+@pytest.mark.parametrize("name", list(SELECT_INPUTS))
 def test_rung_select_ref_equals_plain(name):
     """K6's stages restated in numpy (radix selects of the groups, then of
     the selected groups' lanes past the kg-th group maximum) equal
     _rung_topks bit for bit, ids included, on the same inputs."""
     rng = np.random.default_rng(100 + len(name))
-    x, with_maxima = INPUTS[name](rng)
+    x, with_maxima = SELECT_INPUTS[name](rng)
     allub = torch.from_numpy(x)
     maxima = _maxima(allub, with_maxima)
     want = wg._rung_topks(allub, 0, maxima)
@@ -112,6 +166,76 @@ def test_rung_select_ref_equals_plain(name):
         np.testing.assert_array_equal(wv.numpy().view(np.int32),
                                       gv.view(np.int32))
         np.testing.assert_array_equal(wi.numpy(), gi)
+
+
+def test_rung_select_ref_covers_every_path():
+    """Over SELECT_INPUTS, the restated stage 2 takes every path: the
+    lanes under a finite cut sorted whole or selected from a list, and the
+    select over every lane with a bin kept whole, a -inf or tie class that
+    overflows the buffer (its first r in candidate order), refinements to
+    the second and third level; rungs with the group cut (every rung at 77
+    blocks), with a sub-group cut (rungs 2 and 3 below 17 and 65 blocks)
+    and with none, and groups of -inf lanes only left out."""
+    seen = []
+    for name in SELECT_INPUTS:
+        rng = np.random.default_rng(100 + len(name))
+        x, with_maxima = SELECT_INPUTS[name](rng)
+        maxima = _maxima(torch.from_numpy(x), with_maxima)
+        trace = []
+        wg.rung_select_ref(
+            x, None if maxima is None else [m.numpy() for m in maxima],
+            trace)
+        seen += [dict(t, name=name) for t in trace]
+    sel = [t for t in seen if t["path"] == "select"]
+    assert {t["path"] for t in seen} == {"sort", "list", "select"}
+    assert any(t["level"] == 0 and not t["tie_overflow"] for t in sel)
+    assert any(t["tie_overflow"] for t in sel if t["name"] == "few_finite")
+    assert any(t["level"] == 1 for t in sel if t["name"] == "one_bin")
+    assert any(t["level"] == 2 for t in sel if t["name"] == "last_bits")
+    assert any(not t["cut"] and t["rung"] > 0 for t in seen)
+    assert all(t["cut"] for t in seen if t["name"] == "blocks77")
+    assert max(t["sorted"] for t in sel) > KP
+    # rungs 2 and 3 cut by their sub-groups' maxima, and groups of -inf
+    # lanes left out
+    assert any(t["cut"] and t["rung"] > 0 for t in seen
+               if t["name"] == "ties")
+    assert any(t["groups"] < t["kg"] for t in seen
+               if t["name"] == "few_finite")
+
+
+RADIX_CASES = {
+    # (keys, k, cut, the level that ends the search, overflowed tie bin)
+    "spread": (lambda r: r.integers(0, 1 << 32, 8192, dtype=np.uint32),
+               65, None, 0, False),
+    "tie_class": (lambda r: np.where(r.random(8192) < 0.002,
+                                     r.integers(0, 1 << 20, 8192),
+                                     0xFF800000).astype(np.uint32),
+                  65, None, 0, True),
+    "one_bin": (lambda r: (0x3F800000 + r.integers(0, 1 << 21, 4096)
+                           ).astype(np.uint32), 65, None, 1, False),
+    "last_bits": (lambda r: (0x3F800000 + np.arange(8192) % 1024
+                             ).astype(np.uint32), 65, None, 2, False),
+    "cut": (lambda r: r.integers(0, 1 << 12, 5000).astype(np.uint32) << 20,
+            64, 200 << 20, 0, False),
+    "k1": (lambda r: r.integers(0, 3, 1000).astype(np.uint32) << 28,
+           1, None, 0, True),
+}
+
+
+@pytest.mark.parametrize("name", list(RADIX_CASES))
+def test_radix_topk_ref_paths(name):
+    """radix_topk_ref, path by path, against a stable sort by (key,
+    index) of the keys at or below the cut."""
+    make, k, cut, level, tie = RADIX_CASES[name]
+    keys = make(np.random.default_rng(3))
+    n = len(keys)
+    ok = np.arange(n) if cut is None else np.flatnonzero(keys <= cut)
+    want = ok[np.lexsort((ok, keys[ok]))][:k]
+    trace = {}
+    got = wg.radix_topk_ref(keys, k, 0xFFFFFFFF if cut is None else cut,
+                            trace)
+    np.testing.assert_array_equal(got, want)
+    assert (trace["level"], trace["tie_overflow"]) == (level, tie)
 
 
 def test_ties_across_groups_follow_group_rank():
@@ -156,6 +280,17 @@ def test_k6_wrapper_checks_inputs_before_launch():
         wg.wand_rungs_cuda(x, (ub4, ub16, g1[:, :3]))
     with pytest.raises(ValueError, match="multiple of 128"):
         wg.wand_rungs_cuda(torch.zeros((4, 64)), ws.rung_maxima(x))
+
+
+def test_k6_rows_start_on_16_bytes():
+    """K6 reads rows as float4s: its launcher copies a view that starts
+    off 16 bytes and passes an aligned tensor as it is."""
+    x = torch.arange(4 * 64 + 1, dtype=torch.float32)
+    view = x[1:].view(4, 64)
+    assert view.data_ptr() % 16 != 0
+    got = wg._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert wg._aligned(x) is x
 
 
 def test_k6_refuses_other_devices():

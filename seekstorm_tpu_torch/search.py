@@ -235,123 +235,126 @@ class _QuerySpec:
 def _build_specs(
     index: Index, queries: list[str], default_types: list[QueryType]
 ) -> tuple[list[_Slot], list[_QuerySpec]]:
-    from .ngram import segment_phrase
+    with METRICS.timer("search_parse"):
+        from .ngram import segment_phrase
 
-    flags = index.meta.ngram_indexing
-    frequent = getattr(index, "_frequent_words", frozenset())
-    expand = getattr(index, "_expand_ngrams", False)
+        flags = index.meta.ngram_indexing
+        frequent = getattr(index, "_frequent_words", frozenset())
+        expand = getattr(index, "_expand_ngrams", False)
 
-    slot_of: dict[int, int] = {}
-    slots: list[_Slot] = []
-    specs: list[_QuerySpec] = []
+        slot_of: dict[int, int] = {}
+        slots: list[_Slot] = []
+        specs: list[_QuerySpec] = []
 
-    def get_slot(term: str) -> int:
-        h = term_hash(term)
-        if h not in slot_of:
-            slot_of[h] = len(slots)
-            if expand and NGRAM_SEP in term:
-                parts = term.split(NGRAM_SEP)
-                slots.append(_Slot(h, term, [],
-                                   idf_hash=term_hash(parts[0]),
-                                   tf_hash=term_hash(parts[0])))
-            else:
-                slots.append(_Slot(h, term, []))
-        return slot_of[h]
-
-    def get_virtual_slots(term: str, h: int) -> list[int]:
-        """Weight-only companion slots for constituents 2..k of an n-gram
-        (Bm25f constituent scoring; see lexindex._expand_ngram_segments)."""
-        parts = term.split(NGRAM_SEP)
-        out = []
-        for j in range(2, len(parts) + 1):
-            vh = ngram_virtual_hash(h, j)
-            if vh not in slot_of:
-                slot_of[vh] = len(slots)
-                slots.append(_Slot(vh, term, [],
-                                   idf_hash=term_hash(parts[j - 1]),
-                                   tf_hash=term_hash(parts[j - 1]),
-                                   virtual=True))
-            out.append(slot_of[vh])
-        return out
-
-    for q, default_type in zip(queries, default_types):
-        pq = parse_query(q, index.analyzer)
-        weights: dict[int, float] = {}
-        required: dict[int, bool] = {}
-        negated: dict[int, bool] = {}
-        phrase_groups: list[list] = []
-
-        phrase_term_idx = {i for ph in pq.phrases for i in ph}
-        implicit_phrase = (
-            default_type == QueryType.Phrase
-            and not pq.phrases
-            and sum(1 for t in pq.terms if not t.negated) > 1
-        )
-
-        def add_term(term: str, req: bool, neg: bool):
-            s_ = get_slot(term)
-            if s_ in negated and negated[s_] and not neg:
-                negated[s_] = False  # positive occurrence wins
-            if s_ not in negated:
-                negated[s_] = neg
-            required[s_] = required.get(s_, False) or (req and not neg)
-            if not negated[s_]:
-                weights[s_] = 1.0
+        def get_slot(term: str) -> int:
+            h = term_hash(term)
+            if h not in slot_of:
+                slot_of[h] = len(slots)
                 if expand and NGRAM_SEP in term:
-                    for vs in get_virtual_slots(term, slots[s_].hash):
-                        weights[vs] = 1.0
-                        negated.setdefault(vs, False)
-            return s_
+                    parts = term.split(NGRAM_SEP)
+                    slots.append(_Slot(h, term, [],
+                                       idf_hash=term_hash(parts[0]),
+                                       tf_hash=term_hash(parts[0])))
+                else:
+                    slots.append(_Slot(h, term, []))
+            return slot_of[h]
 
-        def add_phrase(tokens: list[str], neg: bool):
-            # n-gram segment rewriting (reference NGRAM_SEARCH.md:60-80)
-            if flags and frequent:
-                segments = segment_phrase(tokens, frequent, flags)
-            else:
-                segments = [(t, i, 1) for i, t in enumerate(tokens)]
-            group = []
-            for term, off, _ln in segments:
-                s_ = add_term(term, True, neg)
-                group.append((s_, off))
-            if len(group) >= 1 and not neg:
-                phrase_groups.append(group)
+        def get_virtual_slots(term: str, h: int) -> list[int]:
+            """Weight-only companion slots for constituents 2..k of an n-gram
+            (Bm25f constituent scoring; see
+            lexindex._expand_ngram_segments)."""
+            parts = term.split(NGRAM_SEP)
+            out = []
+            for j in range(2, len(parts) + 1):
+                vh = ngram_virtual_hash(h, j)
+                if vh not in slot_of:
+                    slot_of[vh] = len(slots)
+                    slots.append(_Slot(vh, term, [],
+                                       idf_hash=term_hash(parts[j - 1]),
+                                       tf_hash=term_hash(parts[j - 1]),
+                                       virtual=True))
+                out.append(slot_of[vh])
+            return out
 
-        for i, t in enumerate(pq.terms):
-            if i in phrase_term_idx or implicit_phrase:
-                continue
-            neg = t.negated or default_type == QueryType.Not
-            req = t.required or default_type in (
-                QueryType.Intersection, QueryType.Phrase
+        for q, default_type in zip(queries, default_types):
+            pq = parse_query(q, index.analyzer)
+            weights: dict[int, float] = {}
+            required: dict[int, bool] = {}
+            negated: dict[int, bool] = {}
+            phrase_groups: list[list] = []
+
+            phrase_term_idx = {i for ph in pq.phrases for i in ph}
+            implicit_phrase = (
+                default_type == QueryType.Phrase
+                and not pq.phrases
+                and sum(1 for t in pq.terms if not t.negated) > 1
             )
-            add_term(t.term, req, neg)
 
-        for ph in pq.phrases:
-            tokens = [pq.terms[i].term for i in ph]
-            add_phrase(tokens, pq.terms[ph[0]].negated)
-        if implicit_phrase:
-            tokens = [t.term for t in pq.terms if not t.negated]
-            add_phrase(tokens, False)
-            for t in pq.terms:
-                if t.negated:
-                    add_term(t.term, False, True)
+            def add_term(term: str, req: bool, neg: bool):
+                s_ = get_slot(term)
+                if s_ in negated and negated[s_] and not neg:
+                    negated[s_] = False  # positive occurrence wins
+                if s_ not in negated:
+                    negated[s_] = neg
+                required[s_] = required.get(s_, False) or (req and not neg)
+                if not negated[s_]:
+                    weights[s_] = 1.0
+                    if expand and NGRAM_SEP in term:
+                        for vs in get_virtual_slots(term, slots[s_].hash):
+                            weights[vs] = 1.0
+                            negated.setdefault(vs, False)
+                return s_
 
-        # single-segment phrases are exact by construction (the n-gram or
-        # single term IS the phrase) — no position verification needed
-        phrase_groups = [g for g in phrase_groups if len(g) > 1]
+            def add_phrase(tokens: list[str], neg: bool):
+                # n-gram segment rewriting (reference NGRAM_SEARCH.md:60-80)
+                if flags and frequent:
+                    segments = segment_phrase(tokens, frequent, flags)
+                else:
+                    segments = [(t, i, 1) for i, t in enumerate(tokens)]
+                group = []
+                for term, off, _ln in segments:
+                    s_ = add_term(term, True, neg)
+                    group.append((s_, off))
+                if len(group) >= 1 and not neg:
+                    phrase_groups.append(group)
 
-        specs.append(
-            _QuerySpec(
-                slots=sorted(
-                    set(list(weights) + [s for s, n in negated.items() if n])
-                ),
-                weights=weights,
-                required=required,
-                negated=negated,
-                phrases=phrase_groups,
-                parsed=pq,
+            for i, t in enumerate(pq.terms):
+                if i in phrase_term_idx or implicit_phrase:
+                    continue
+                neg = t.negated or default_type == QueryType.Not
+                req = t.required or default_type in (
+                    QueryType.Intersection, QueryType.Phrase
+                )
+                add_term(t.term, req, neg)
+
+            for ph in pq.phrases:
+                tokens = [pq.terms[i].term for i in ph]
+                add_phrase(tokens, pq.terms[ph[0]].negated)
+            if implicit_phrase:
+                tokens = [t.term for t in pq.terms if not t.negated]
+                add_phrase(tokens, False)
+                for t in pq.terms:
+                    if t.negated:
+                        add_term(t.term, False, True)
+
+            # single-segment phrases are exact by construction (the n-gram or
+            # single term IS the phrase) — no position verification needed
+            phrase_groups = [g for g in phrase_groups if len(g) > 1]
+
+            specs.append(
+                _QuerySpec(
+                    slots=sorted(
+                        set(list(weights)
+                            + [s for s, n in negated.items() if n])
+                    ),
+                    weights=weights,
+                    required=required,
+                    negated=negated,
+                    phrases=phrase_groups,
+                    parsed=pq,
+                )
             )
-        )
-    return slots, specs
+        return slots, specs
 
 
 def _wand_facet_codes(index, state, codes_list) -> np.ndarray:
@@ -736,6 +739,12 @@ def search_batch(index: Index, requests: list[SearchRequest],
     group); queries and paging may differ freely within a group.  With a
     mesh attached (``Index.attach_mesh``) the batch runs on the mesh's
     devices, whose family `device` must name."""
+    with METRICS.batch():
+        return _search_batch(index, requests, device)
+
+
+def _search_batch(index: Index, requests: list[SearchRequest],
+                  device) -> list[ResultSet]:
     dev = resolve_device(device)
     m = getattr(index, "_mesh", None)
     if m is not None and m.lead.type != dev.type:
@@ -1547,164 +1556,169 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
                       sorting=False, sort_desc=True,
                       tail_phrase_counts=None, phrase_escalate_ok=True,
                       canonical=None):
-    # phrase verification + final assembly
-    for bi, qi in enumerate(live):
-        spec = live_specs[bi]
-        scores, gids = merged_scores[bi], merged_ids[bi]
-        if canonical is None or not canonical[bi]:
-            # dedupe defensively (re-runs can concatenate duplicates)
-            _, first = np.unique(gids, return_index=True)
-            keepmask = np.zeros(len(gids), dtype=bool)
-            keepmask[first] = True
-            scores, gids = scores[keepmask], gids[keepmask]
-            order = np.lexsort((gids, -scores))
-            scores, gids = scores[order], gids[order]
-        if spec.phrases:
-            pd = None
-            if with_counts:
-                # exact committed phrase-match set (host posting
-                # intersection + vectorized position join, phrase.py);
-                # retrieved results check membership, tail docs verify
-                # per doc
-                pd = _phrase_exact_committed(index, slots, spec,
-                                             requests[qi])
-                if len(gids):
-                    S_ = index.shard_count
-                    sid = (gids % S_).astype(np.int64)
-                    loc = (gids // S_).astype(np.int64)
-                    committed = np.array(
-                        [index.shards[x].committed_doc_count for x in sid])
-                    is_tail = loc >= committed
-                    keep = np.isin(gids, pd)
-                    for row in np.flatnonzero(is_tail):
-                        keep[row] = _phrase_ok(index, slots, spec,
-                                               int(gids[row]))
-                    scores, gids = scores[keep], gids[keep]
-                counts[bi] = len(pd) + (
-                    int(tail_phrase_counts[bi])
-                    if tail_phrase_counts is not None else 0)
-                counts_exact[bi] = True
-            elif len(gids):
-                # Topk-only: the device candidates already satisfy the
-                # boolean/filter constraints — verify positional
-                # adjacency per retrieved candidate, in score order,
-                # stopping once the requested page is filled (instead of
-                # walking the full posting intersection)
-                want = requests[qi].offset + requests[qi].length
-                kept: list[int] = []
-                for row in range(len(gids)):
-                    if _phrase_ok(index, slots, spec, int(gids[row])):
-                        kept.append(row)
-                        if len(kept) >= want:
-                            break
-                scores, gids = scores[kept], gids[kept]
-            # candidate-cliff escalation (reference parity: phrase checks
-            # run on EVERY intersected doc, add_result.rs:38-92, so a
-            # phrase match can never silently drop off a page): when the
-            # verified page is short, rebuild it from the exact committed
-            # phrase set, scored from the host CSR; verified realtime
-            # tail rows keep their oracle scores.
-            want = requests[qi].offset + requests[qi].length
-            if (phrase_escalate_ok
-                    and len(gids) < want
-                    and not sorting
-                    and not any(slots[s].virtual for s in spec.slots)):
-                if pd is None:
+    with METRICS.timer("search_finalize"):
+        # phrase verification + final assembly
+        for bi, qi in enumerate(live):
+            spec = live_specs[bi]
+            scores, gids = merged_scores[bi], merged_ids[bi]
+            if canonical is None or not canonical[bi]:
+                # dedupe defensively (re-runs can concatenate duplicates)
+                _, first = np.unique(gids, return_index=True)
+                keepmask = np.zeros(len(gids), dtype=bool)
+                keepmask[first] = True
+                scores, gids = scores[keepmask], gids[keepmask]
+                order = np.lexsort((gids, -scores))
+                scores, gids = scores[order], gids[order]
+            if spec.phrases:
+                pd = None
+                if with_counts:
+                    # exact committed phrase-match set (host posting
+                    # intersection + vectorized position join, phrase.py);
+                    # retrieved results check membership, tail docs verify
+                    # per doc
                     pd = _phrase_exact_committed(index, slots, spec,
                                                  requests[qi])
-                S_ = index.shard_count
-                if len(gids):
-                    committed = np.array(
-                        [index.shards[int(g % S_)].committed_doc_count
-                         for g in gids])
-                    is_tail = (gids // S_) >= committed
-                    t_sc, t_g = scores[is_tail], gids[is_tail]
-                else:
-                    t_sc = np.zeros(0, np.float32)
-                    t_g = np.zeros(0, np.int64)
-                if len(pd) + len(t_g) > len(gids):
-                    sc_pd = _score_gids(index, slots, spec, pd,
-                                        requests[qi].realtime)
-                    allsc = np.concatenate([sc_pd, t_sc])
-                    allg = np.concatenate([pd, t_g])
-                    order3 = np.lexsort((allg, -allsc))
-                    scores, gids = (allsc[order3].astype(np.float32),
-                                    allg[order3])
-        rs = ResultSet()
-        rs.query_terms = [slots[s].term for s in spec.weights
-                          if not slots[s].virtual]
-        rs.result_count_total = int(counts[bi]) if with_counts else 0
-        rs.count_exact = bool(counts_exact[bi])
-        page = slice(requests[qi].offset, requests[qi].offset + requests[qi].length)
-        if sorting:
-            # device rank = key (desc) or -key (asc); report the real key
-            vals = scores if sort_desc else -scores
-            # multi-key tie-breaking over the candidate window (reference
-            # result_ordering_root min_heap.rs:56-545): sub-sort ties of the
-            # primary key by the remaining sort fields using host columns
-            sort_fields = requests[qi].result_sort
-            if len(sort_fields) > 1 and len(gids):
-                rt2 = facets_mod.get_runtime(index)
-                keys = [(-vals if sort_fields[0].order != "Ascending"
-                         else vals)]
-                for rs_f in sort_fields[1:]:
-                    col = np.zeros(len(gids), np.float32)
-                    for row, g in enumerate(gids):
-                        v = rt2.raw_value(rs_f.field, int(g))
-                        col[row] = 0.0 if v is None else float(v)
-                    keys.append(-col if rs_f.order != "Ascending" else col)
-                keys.append(gids)
-                order2 = np.lexsort(tuple(reversed(keys)))
-                vals, gids = vals[order2], gids[order2]
-            rs.results = [
-                ResultObject(doc_id=int(g), score=float(v))
-                for v, g in zip(vals[page], gids[page])
-            ]
-        else:
-            # .tolist() yields native Python scalars in one C pass —
-            # per-element int()/float() numpy-scalar unwrap was ~30% of
-            # the assembly cost at large batch
-            rs.results = [
-                ResultObject(doc_id=g, score=s)
-                for s, g in zip(scores[page].tolist(), gids[page].tolist())
-            ]
-        rs.result_count = len(rs.results)
-        if facet_specs and fc_total is not None:
-            rs.facets = {}
-            for fi, (qf, labels, nc) in enumerate(facet_specs):
-                vec = fc_total[fi, bi, :nc].copy()
-                if qf.ranges is not None and qf.ranges.range_type != \
-                        "CountWithinRange":
-                    # cumulative range counts (reference RangeType
-                    # search.rs:220-228, cumulation search.rs:3660-3764)
-                    if qf.ranges.range_type == "CountAboveRange":
-                        vec = np.cumsum(vec[::-1])[::-1]
-                    elif qf.ranges.range_type == "CountBelowRange":
-                        vec = np.cumsum(vec)
-                if isinstance(labels, tuple) and labels and \
-                        labels[0] == "__SETS__":
-                    # StringSet: expand set-ordinal histogram to value counts
-                    set_members = labels[1]
-                    vcounts: dict[str, int] = {}
-                    for so in np.flatnonzero(vec):
-                        if so < len(set_members):
-                            for v in set_members[so]:
-                                vcounts[v] = vcounts.get(v, 0) + int(vec[so])
-                    pairs = sorted(
-                        vcounts.items(), key=lambda kv: (-kv[1], str(kv[0]))
-                    )[: qf.length]
-                else:
-                    nz = np.flatnonzero(vec)
-                    pairs = sorted(
-                        ((labels[c] if labels else int(c), int(vec[c]))
-                         for c in nz),
-                        key=lambda kv: (-kv[1], str(kv[0])),
-                    )[: qf.length]
-                rs.facets[qf.field] = pairs
-        _attach_docs(index, requests[qi], rs)
-        results[qi] = rs
+                    if len(gids):
+                        S_ = index.shard_count
+                        sid = (gids % S_).astype(np.int64)
+                        loc = (gids // S_).astype(np.int64)
+                        committed = np.array(
+                            [index.shards[x].committed_doc_count for x in sid])
+                        is_tail = loc >= committed
+                        keep = np.isin(gids, pd)
+                        for row in np.flatnonzero(is_tail):
+                            keep[row] = _phrase_ok(index, slots, spec,
+                                                   int(gids[row]))
+                        scores, gids = scores[keep], gids[keep]
+                    counts[bi] = len(pd) + (
+                        int(tail_phrase_counts[bi])
+                        if tail_phrase_counts is not None else 0)
+                    counts_exact[bi] = True
+                elif len(gids):
+                    # Topk-only: the device candidates already satisfy the
+                    # boolean/filter constraints — verify positional
+                    # adjacency per retrieved candidate, in score order,
+                    # stopping once the requested page is filled (instead of
+                    # walking the full posting intersection)
+                    want = requests[qi].offset + requests[qi].length
+                    kept: list[int] = []
+                    for row in range(len(gids)):
+                        if _phrase_ok(index, slots, spec, int(gids[row])):
+                            kept.append(row)
+                            if len(kept) >= want:
+                                break
+                    scores, gids = scores[kept], gids[kept]
+                # candidate-cliff escalation (reference parity: phrase checks
+                # run on EVERY intersected doc, add_result.rs:38-92, so a
+                # phrase match can never silently drop off a page): when the
+                # verified page is short, rebuild it from the exact committed
+                # phrase set, scored from the host CSR; verified realtime
+                # tail rows keep their oracle scores.
+                want = requests[qi].offset + requests[qi].length
+                if (phrase_escalate_ok
+                        and len(gids) < want
+                        and not sorting
+                        and not any(slots[s].virtual for s in spec.slots)):
+                    if pd is None:
+                        pd = _phrase_exact_committed(index, slots, spec,
+                                                     requests[qi])
+                    S_ = index.shard_count
+                    if len(gids):
+                        committed = np.array(
+                            [index.shards[int(g % S_)].committed_doc_count
+                             for g in gids])
+                        is_tail = (gids // S_) >= committed
+                        t_sc, t_g = scores[is_tail], gids[is_tail]
+                    else:
+                        t_sc = np.zeros(0, np.float32)
+                        t_g = np.zeros(0, np.int64)
+                    if len(pd) + len(t_g) > len(gids):
+                        sc_pd = _score_gids(index, slots, spec, pd,
+                                            requests[qi].realtime)
+                        allsc = np.concatenate([sc_pd, t_sc])
+                        allg = np.concatenate([pd, t_g])
+                        order3 = np.lexsort((allg, -allsc))
+                        scores, gids = (allsc[order3].astype(np.float32),
+                                        allg[order3])
+            rs = ResultSet()
+            rs.query_terms = [slots[s].term for s in spec.weights
+                              if not slots[s].virtual]
+            rs.result_count_total = int(counts[bi]) if with_counts else 0
+            rs.count_exact = bool(counts_exact[bi])
+            page = slice(requests[qi].offset,
+                         requests[qi].offset + requests[qi].length)
+            if sorting:
+                # device rank = key (desc) or -key (asc); report the real key
+                vals = scores if sort_desc else -scores
+                # multi-key tie-breaking over the candidate window (reference
+                # result_ordering_root min_heap.rs:56-545): sub-sort ties of
+                # the primary key by the remaining sort fields using host columns
+                sort_fields = requests[qi].result_sort
+                if len(sort_fields) > 1 and len(gids):
+                    rt2 = facets_mod.get_runtime(index)
+                    keys = [(-vals if sort_fields[0].order != "Ascending"
+                             else vals)]
+                    for rs_f in sort_fields[1:]:
+                        col = np.zeros(len(gids), np.float32)
+                        for row, g in enumerate(gids):
+                            v = rt2.raw_value(rs_f.field, int(g))
+                            col[row] = 0.0 if v is None else float(v)
+                        keys.append(-col if rs_f.order != "Ascending" else col)
+                    keys.append(gids)
+                    order2 = np.lexsort(tuple(reversed(keys)))
+                    vals, gids = vals[order2], gids[order2]
+                rs.results = [
+                    ResultObject(doc_id=int(g), score=float(v))
+                    for v, g in zip(vals[page], gids[page])
+                ]
+            else:
+                # .tolist() yields native Python scalars in one C pass —
+                # per-element int()/float() numpy-scalar unwrap was ~30% of
+                # the assembly cost at large batch
+                rs.results = [
+                    ResultObject(doc_id=g, score=s)
+                    for s, g in zip(scores[page].tolist(), gids[page].tolist())
+                ]
+            rs.result_count = len(rs.results)
+            if facet_specs and fc_total is not None:
+                rs.facets = {}
+                for fi, (qf, labels, nc) in enumerate(facet_specs):
+                    vec = fc_total[fi, bi, :nc].copy()
+                    if qf.ranges is not None and qf.ranges.range_type != \
+                            "CountWithinRange":
+                        # cumulative range counts (reference RangeType
+                        # search.rs:220-228, cumulation search.rs:3660-3764)
+                        if qf.ranges.range_type == "CountAboveRange":
+                            vec = np.cumsum(vec[::-1])[::-1]
+                        elif qf.ranges.range_type == "CountBelowRange":
+                            vec = np.cumsum(vec)
+                    if isinstance(labels, tuple) and labels and \
+                            labels[0] == "__SETS__":
+                        # StringSet: expand set-ordinal histogram to value
+                        # counts
+                        set_members = labels[1]
+                        vcounts: dict[str, int] = {}
+                        for so in np.flatnonzero(vec):
+                            if so < len(set_members):
+                                for v in set_members[so]:
+                                    vcounts[v] = (vcounts.get(v, 0)
+                                                  + int(vec[so]))
+                        pairs = sorted(
+                            vcounts.items(),
+                            key=lambda kv: (-kv[1], str(kv[0])),
+                        )[: qf.length]
+                    else:
+                        nz = np.flatnonzero(vec)
+                        pairs = sorted(
+                            ((labels[c] if labels else int(c), int(vec[c]))
+                             for c in nz),
+                            key=lambda kv: (-kv[1], str(kv[0])),
+                        )[: qf.length]
+                    rs.facets[qf.field] = pairs
+            _attach_docs(index, requests[qi], rs)
+            results[qi] = rs
 
-    return [r or ResultSet() for r in results]
+        return [r or ResultSet() for r in results]
 
 
 def _merge_tail(
@@ -1715,125 +1729,147 @@ def _merge_tail(
 ) -> None:
     """Score the uncommitted level-0 tail with the numpy oracle and merge
     (including tail facet counting / filtering / sort keys)."""
-    hashes = [
-        (term_hash(sl.term), sl.tf_hash) if sl.tf_hash is not None
-        else sl.hash
-        for sl in slots
-    ]
-    postings, tail_dfs, n_tail = index.tail_postings(shard, hashes, boosts)
-    if n_tail <= 0:
-        return
-    lex = shard.lexical
-    d = lex.directory
-    tail_deleted = np.zeros(n_tail, dtype=bool)
-    base = shard.tail_start
-    for sid in shard.deleted:
-        if base <= sid < base + n_tail:
-            tail_deleted[sid - base] = True
+    with METRICS.timer("tail_merge"):
+        with METRICS.timer("tail_gather"):
+            hashes = [
+                (term_hash(sl.term), sl.tf_hash) if sl.tf_hash is not None
+                else sl.hash
+                for sl in slots
+            ]
+            postings, tail_dfs, n_tail = index.tail_postings(shard, hashes,
+                                                             boosts)
+            if n_tail <= 0:
+                return
+            lex = shard.lexical
+            d = lex.directory
+            tail_deleted = np.zeros(n_tail, dtype=bool)
+            base = shard.tail_start
+            for sid in shard.deleted:
+                if base <= sid < base + n_tail:
+                    tail_deleted[sid - base] = True
 
-    # facet filter / codes / sort keys over the tail (host values)
-    tail_vals = {}
+            # facet filter / codes / sort keys over the tail (host values)
+            tail_vals = {}
 
-    def _tail_col(field):
-        sf = index.schema_map[field]
-        if sf.facet_id in tail_vals:
-            return tail_vals[sf.facet_id]
-        vals = shard.level0.facet_values.get(sf.facet_id, [])
-        start = shard.partial_on_disk
-        vv = vals[start : start + n_tail]
-        if sf.field_type == FieldType.Point:
-            lat = np.array([v[0] if v else 0.0 for v in vv])
-            lon = np.array([v[1] if v else 0.0 for v in vv])
-            col = geo_mod.encode_morton_2_d(lat, lon)
-        else:
-            col = np.array(
-                [0 if v is None else v for v in vv], dtype=np.float64
-            )
-        tail_vals[sf.facet_id] = col
-        return col
-
-    if req0 is not None and req0.facet_filter:
-        for f in req0.facet_filter:
-            sf = index.schema_map[f.field]
-            col = _tail_col(f.field)
-            if f.values is not None:
-                if sf.field_type.is_string_facet:
-                    tab = getattr(index, "_facet_tables", {}).get(
-                        sf.facet_id, {"": 0}
+            def _tail_col(field):
+                sf = index.schema_map[field]
+                if sf.facet_id in tail_vals:
+                    return tail_vals[sf.facet_id]
+                vals = shard.level0.facet_values.get(sf.facet_id, [])
+                start = shard.partial_on_disk
+                vv = vals[start : start + n_tail]
+                if sf.field_type == FieldType.Point:
+                    lat = np.array([v[0] if v else 0.0 for v in vv])
+                    lon = np.array([v[1] if v else 0.0 for v in vv])
+                    col = geo_mod.encode_morton_2_d(lat, lon)
+                else:
+                    col = np.array(
+                        [0 if v is None else v for v in vv], dtype=np.float64
                     )
-                    vals = [tab.get(str(v), -1) for v in f.values]
+                tail_vals[sf.facet_id] = col
+                return col
+
+            if req0 is not None and req0.facet_filter:
+                for f in req0.facet_filter:
+                    sf = index.schema_map[f.field]
+                    col = _tail_col(f.field)
+                    if f.values is not None:
+                        if sf.field_type.is_string_facet:
+                            tab = getattr(index, "_facet_tables", {}).get(
+                                sf.facet_id, {"": 0}
+                            )
+                            vals = [tab.get(str(v), -1) for v in f.values]
+                        else:
+                            vals = [float(v) for v in f.values]
+                        tail_deleted |= ~np.isin(col, vals)
+                    elif f.range is not None:
+                        lo, hi = f.range
+                        tail_deleted |= ~((col >= lo) & (col <= hi))
+
+            tail_key = None
+            if sorting and req0 is not None and req0.result_sort:
+                rs0 = req0.result_sort[0]
+                sf = index.schema_map[rs0.field]
+                col = _tail_col(rs0.field)
+                if sf.field_type == FieldType.Point:
+                    tail_key = geo_mod.point_distance(
+                        col, float(rs0.base[0]), float(rs0.base[1])
+                    ).astype(np.float32)
                 else:
-                    vals = [float(v) for v in f.values]
-                tail_deleted |= ~np.isin(col, vals)
-            elif f.range is not None:
-                lo, hi = f.range
-                tail_deleted |= ~((col >= lo) & (col <= hi))
+                    tail_key = col.astype(np.float32)
 
-    tail_key = None
-    if sorting and req0 is not None and req0.result_sort:
-        rs0 = req0.result_sort[0]
-        sf = index.schema_map[rs0.field]
-        col = _tail_col(rs0.field)
-        if sf.field_type == FieldType.Point:
-            tail_key = geo_mod.point_distance(
-                col, float(rs0.base[0]), float(rs0.base[1])
-            ).astype(np.float32)
-        else:
-            tail_key = col.astype(np.float32)
-
-    n_docs = lex.doc_count + n_tail
-    for qi, spec in enumerate(specs):
-        term_ps, dfs, reqs, negs = [], [], [], []
-        for s in spec.slots:
-            sl = slots[s]
-            ti = d.lookup(sl.idf_hash if sl.idf_hash is not None else sl.hash)
-            df_c = int(d.df[ti]) if ti >= 0 else 0
-            term_ps.append(postings[s])
-            dfs.append(df_c + tail_dfs[s])
-            reqs.append(bool(spec.required.get(s)) and not spec.negated.get(s))
-            negs.append(bool(spec.negated.get(s)))
-        sc, matched = score_query(
-            n_docs, n_tail, term_ps, dfs, reqs, negs, tail_deleted
-        )
-        if with_counts:
-            if spec.phrases and tail_phrase_counts is not None:
-                # exact: phrase-verify every AND-matched tail doc (the
-                # tail is <= 64K docs; its phrase candidates are few)
-                for li in np.flatnonzero(matched):
-                    g = (int(li) + base) * index.shard_count + shard.shard_id
-                    if _phrase_ok(index, slots, spec, g):
-                        tail_phrase_counts[qi] += 1
+        n_docs = lex.doc_count + n_tail
+        # seconds summed over the queries and observed once: scoring (with
+        # the count), then the selection and the append; facet counting in
+        # neither
+        score_s = select_s = 0.0
+        entries = 0
+        t_a = time.perf_counter()
+        for qi, spec in enumerate(specs):
+            term_ps, dfs, reqs, negs = [], [], [], []
+            for s in spec.slots:
+                sl = slots[s]
+                ti = d.lookup(sl.idf_hash if sl.idf_hash is not None
+                              else sl.hash)
+                df_c = int(d.df[ti]) if ti >= 0 else 0
+                term_ps.append(postings[s])
+                dfs.append(df_c + tail_dfs[s])
+                reqs.append(bool(spec.required.get(s))
+                            and not spec.negated.get(s))
+                negs.append(bool(spec.negated.get(s)))
+            sc, matched = score_query(
+                n_docs, n_tail, term_ps, dfs, reqs, negs, tail_deleted
+            )
+            if with_counts:
+                if spec.phrases and tail_phrase_counts is not None:
+                    # exact: phrase-verify every AND-matched tail doc (the
+                    # tail is <= 64K docs; its phrase candidates are few)
+                    for li in np.flatnonzero(matched):
+                        g = ((int(li) + base) * index.shard_count
+                             + shard.shard_id)
+                        if _phrase_ok(index, slots, spec, g):
+                            tail_phrase_counts[qi] += 1
+                else:
+                    counts[qi] += int(matched.sum())
+            t_b = time.perf_counter()
+            score_s += t_b - t_a
+            if facet_specs and fc_total is not None:
+                for fi, (qf, labels, nc) in enumerate(facet_specs):
+                    sf = index.schema_map[qf.field]
+                    col = _tail_col(qf.field)
+                    if qf.ranges is not None:
+                        if sf.field_type == FieldType.Point:
+                            col = geo_mod.point_distance(
+                                col, float(qf.ranges.base[0]),
+                                float(qf.ranges.base[1]),
+                            )
+                            if qf.ranges.unit == "Miles":
+                                col = col * 0.621371192
+                        bounds = np.array(
+                            [float(r[1]) for r in qf.ranges.ranges])
+                        codes = np.searchsorted(bounds, col, side="right")
+                    else:
+                        codes = col.astype(np.int64)
+                    codes = np.clip(codes, 0, fcm - 1)
+                    np.add.at(fc_total[fi, qi], codes[matched], 1)
+                t_b = time.perf_counter()
+            if sorting and tail_key is not None:
+                rank = np.where(
+                    matched, tail_key if sort_desc else -tail_key,
+                    np.float32(-np.inf),
+                ).astype(np.float32)
+                s2, ids = topk_from_scores(rank, min(n_tail, 1024))
             else:
-                counts[qi] += int(matched.sum())
-        if facet_specs and fc_total is not None:
-            for fi, (qf, labels, nc) in enumerate(facet_specs):
-                sf = index.schema_map[qf.field]
-                col = _tail_col(qf.field)
-                if qf.ranges is not None:
-                    if sf.field_type == FieldType.Point:
-                        col = geo_mod.point_distance(
-                            col, float(qf.ranges.base[0]),
-                            float(qf.ranges.base[1]),
-                        )
-                        if qf.ranges.unit == "Miles":
-                            col = col * 0.621371192
-                    bounds = np.array([float(r[1]) for r in qf.ranges.ranges])
-                    codes = np.searchsorted(bounds, col, side="right")
-                else:
-                    codes = col.astype(np.int64)
-                codes = np.clip(codes, 0, fcm - 1)
-                np.add.at(fc_total[fi, qi], codes[matched], 1)
-        if sorting and tail_key is not None:
-            rank = np.where(
-                matched, tail_key if sort_desc else -tail_key,
-                np.float32(-np.inf),
-            ).astype(np.float32)
-            s2, ids = topk_from_scores(rank, min(n_tail, 1024))
-        else:
-            s2, ids = topk_from_scores(sc, min(n_tail, 1024))
-        gids = (ids + base) * index.shard_count + shard.shard_id
-        merged_scores[qi] = np.concatenate([merged_scores[qi], s2])
-        merged_ids[qi] = np.concatenate([merged_ids[qi], gids])
+                s2, ids = topk_from_scores(sc, min(n_tail, 1024))
+            gids = (ids + base) * index.shard_count + shard.shard_id
+            merged_scores[qi] = np.concatenate([merged_scores[qi], s2])
+            merged_ids[qi] = np.concatenate([merged_ids[qi], gids])
+            entries += len(s2)
+            t_a = time.perf_counter()
+            select_s += t_a - t_b
+        METRICS.observe("tail_score", score_s)
+        METRICS.observe("tail_select", select_s)
+        METRICS.inc("tail_entries_total", entries)
 
 
 def _phrase_ok(index: Index, slots, spec: _QuerySpec, global_id: int) -> bool:

@@ -17,7 +17,8 @@ raises instead of serving from the CPU; every index it creates or opens and
 every search it runs (queries, the v2 binary query, delete by query) is on
 that device.  /metrics renders the port's METRICS, whose
 ``k1_launches_total`` ... ``k6_launches_total`` count the hand-written
-kernels' launches, and /trace drives the port's torch.profiler hooks.
+kernels' launches, and /trace drives the port's torch.profiler hooks
+from any request thread (its trace holds the program's timer spans).
 """
 
 from __future__ import annotations

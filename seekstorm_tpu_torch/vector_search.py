@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .index import Index, Shard
+from .metrics import METRICS
 from .quantize import (
     preprocess_vectors,
     quantize_prepared,
@@ -139,80 +140,85 @@ def vector_search_batch(index: Index, requests, device) -> list:
                 with_counts, k, use_ff, _field_ok, euclidean,
                 cand, counts, obs_cl, obs_vec, device)
 
-    for shard in index.shards:
-        if index.vectors is None:
-            break
-        # realtime tail (exact f32 scan)
-        if req0.realtime:
-            tail = index.vectors.tail_rows(shard) if index.vectors else None
-            if tail is not None:
-                raw, docid, fieldid, chunkid = tail
-                tp = preprocess_vectors(raw, vc.similarity, vc.quantization)
-                dots = xp @ tp.T
-                sc = similarity_scores(
-                    dots, (xp * xp).sum(1), (tp * tp).sum(1), vc.similarity
-                )
-                if req0.field_filter and index.vectors.vector_fields:
-                    allowed = {
-                        sf.vector_field_id
-                        for sf in index.vectors.vector_fields
-                        if sf.field in req0.field_filter
-                    }
-                    fmask = np.isin(fieldid, list(allowed))
-                    sc = np.where(fmask[None, :], sc, -np.inf)
-                # tail deletes
-                dmask = np.array(
-                    [d in shard.deleted for d in docid], dtype=bool
-                )
-                sc = np.where(dmask[None, :], -np.inf, sc)
-                ok = sc >= score_min[:, None]
-                sc = np.where(ok, sc, -np.inf)
-                counts += ok.sum(axis=1)
-                obs_vec += len(docid)  # the whole tail is scanned
-                tgids = (docid.astype(np.int64) * index.shard_count
-                         + shard.shard_id)
-                for qi in range(B):
-                    order = np.argsort(-sc[qi])[:k]
-                    m = np.isfinite(sc[qi][order])
-                    sel = order[m]
-                    if len(sel):
-                        cand[qi].append((sc[qi][sel].astype(np.float32),
-                                         tgids[sel]))
+    with METRICS.timer("vector_tail"):
+        for shard in index.shards:
+            if index.vectors is None:
+                break
+            # realtime tail (exact f32 scan)
+            if req0.realtime:
+                tail = (index.vectors.tail_rows(shard) if index.vectors
+                        else None)
+                if tail is not None:
+                    raw, docid, fieldid, chunkid = tail
+                    tp = preprocess_vectors(raw, vc.similarity,
+                                            vc.quantization)
+                    dots = xp @ tp.T
+                    sc = similarity_scores(
+                        dots, (xp * xp).sum(1), (tp * tp).sum(1), vc.similarity
+                    )
+                    if req0.field_filter and index.vectors.vector_fields:
+                        allowed = {
+                            sf.vector_field_id
+                            for sf in index.vectors.vector_fields
+                            if sf.field in req0.field_filter
+                        }
+                        fmask = np.isin(fieldid, list(allowed))
+                        sc = np.where(fmask[None, :], sc, -np.inf)
+                    # tail deletes
+                    dmask = np.array(
+                        [d in shard.deleted for d in docid], dtype=bool
+                    )
+                    sc = np.where(dmask[None, :], -np.inf, sc)
+                    ok = sc >= score_min[:, None]
+                    sc = np.where(ok, sc, -np.inf)
+                    counts += ok.sum(axis=1)
+                    obs_vec += len(docid)  # the whole tail is scanned
+                    tgids = (docid.astype(np.int64) * index.shard_count
+                             + shard.shard_id)
+                    for qi in range(B):
+                        order = np.argsort(-sc[qi])[:k]
+                        m = np.isfinite(sc[qi][order])
+                        sel = order[m]
+                        if len(sel):
+                            cand[qi].append((sc[qi][sel].astype(np.float32),
+                                             tgids[sel]))
 
-    out = []
-    for qi, r in enumerate(requests):
-        rs = ResultSet()
-        if cand[qi]:
-            s = np.concatenate([c[0] for c in cand[qi]])
-            g = np.concatenate([c[1] for c in cand[qi]])
-            # dedupe multi-vector docs to their best score: sort by
-            # (gid asc, score desc), keep each gid's first row, then rank
-            # by (score desc, gid asc)
-            order = np.lexsort((-s, g))
-            gs, ss = g[order], s[order]
-            uniq_g, first = np.unique(gs, return_index=True)
-            us = ss[first]
-            rank = np.lexsort((uniq_g, -us))
-            n_ranked = len(rank)
-            page = rank[r.offset : r.offset + r.length]
-            rs.results = [
-                ResultObject(
-                    doc_id=int(uniq_g[i]),
-                    score=float(score_to_user(us[i], vc.similarity)),
-                )
-                for i in page
-            ]
-        else:
-            n_ranked = 0
-            rs.results = []
-        rs.result_count = len(rs.results)
-        rs.result_count_total = int(counts[qi]) if with_counts else n_ranked
-        rs.observed_vector_count = int(obs_vec[qi])
-        rs.observed_cluster_count = int(obs_cl[qi])
-        from .search import _attach_docs
+    with METRICS.timer("vector_merge"):
+        out = []
+        for qi, r in enumerate(requests):
+            rs = ResultSet()
+            if cand[qi]:
+                s = np.concatenate([c[0] for c in cand[qi]])
+                g = np.concatenate([c[1] for c in cand[qi]])
+                # dedupe multi-vector docs to their best score: sort by
+                # (gid asc, score desc), keep each gid's first row, then rank
+                # by (score desc, gid asc)
+                order = np.lexsort((-s, g))
+                gs, ss = g[order], s[order]
+                uniq_g, first = np.unique(gs, return_index=True)
+                us = ss[first]
+                rank = np.lexsort((uniq_g, -us))
+                n_ranked = len(rank)
+                page = rank[r.offset : r.offset + r.length]
+                rs.results = [
+                    ResultObject(
+                        doc_id=int(uniq_g[i]),
+                        score=float(score_to_user(us[i], vc.similarity)),
+                    )
+                    for i in page
+                ]
+            else:
+                n_ranked = 0
+                rs.results = []
+            rs.result_count = len(rs.results)
+            rs.result_count_total = (int(counts[qi]) if with_counts
+                                     else n_ranked)
+            rs.observed_vector_count = int(obs_vec[qi])
+            rs.observed_cluster_count = int(obs_cl[qi])
+            from .search import _attach_docs
 
-        _attach_docs(index, r, rs)
-        out.append(rs)
+            _attach_docs(index, r, rs)
+            out.append(rs)
     return out
 
 
@@ -293,64 +299,69 @@ def _scan_committed_shard(index, shard, qb, mode, np_eff, score_min,
     dev = index.vectors.device(shard, device)
     if dev["n_rows"] <= 0:
         return
-    quantized = dev["quantized"]
-    qd = qb.data.astype(np.int8) if quantized else qb.data
+    METRICS.inc("vector_dispatch_total")
+    with METRICS.timer("vector_scan"):
+        quantized = dev["quantized"]
+        qd = qb.data.astype(np.int8) if quantized else qb.data
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    qargs = (put(qd), put(qb.scale), put(qb.zp), put(qb.qsum),
-             put(qb.norm2))
-    exhaustive = mode == AnnMode.All or dev["n_clusters"] <= 1
-    crs = dev["cluster_row_start"]
-    tile_ids = np.zeros(0, np.int32)
-    if exhaustive:
-        obs_cl += dev["n_clusters"]
-        obs_vec += dev["n_rows"]
-    else:
-        sel, _mscores = medoid_select(
-            dev["med_data"], dev["m_scale"], dev["m_zp"], dev["m_qsum"],
-            dev["m_norm2"], dev["m_valid"], dev["always_scan"],
-            *qargs, put(cluster_thr),
-            quantized=quantized, euclidean=euclidean,
-            nprobe=min(np_eff, dev["n_clusters"]) if np_eff else 0,
+        qargs = (put(qd), put(qb.scale), put(qb.zp), put(qb.qsum),
+                 put(qb.norm2))
+        exhaustive = mode == AnnMode.All or dev["n_clusters"] <= 1
+        crs = dev["cluster_row_start"]
+        tile_ids = np.zeros(0, np.int32)
+        if exhaustive:
+            obs_cl += dev["n_clusters"]
+            obs_vec += dev["n_rows"]
+        else:
+            with METRICS.timer("vector_select"):
+                sel, _mscores = medoid_select(
+                    dev["med_data"], dev["m_scale"], dev["m_zp"],
+                    dev["m_qsum"], dev["m_norm2"], dev["m_valid"],
+                    dev["always_scan"],
+                    *qargs, put(cluster_thr),
+                    quantized=quantized, euclidean=euclidean,
+                    nprobe=min(np_eff, dev["n_clusters"]) if np_eff else 0,
+                )
+                sel = sel.cpu().numpy()[:, : dev["n_clusters"]]
+                obs_cl += sel.sum(axis=1)
+                obs_vec += (sel @ np.diff(crs)).astype(np.int64)
+                # union of tiles covered by any selected cluster
+                any_sel = sel.any(axis=0)
+                tiles = set()
+                for c in np.flatnonzero(any_sel):
+                    t0 = int(crs[c]) // TILE
+                    t1 = ((int(crs[c + 1]) - 1) // TILE
+                          if crs[c + 1] > crs[c] else t0)
+                    tiles.update(range(t0, t1 + 1))
+                tile_ids = np.array(sorted(tiles), dtype=np.int32)
+        nt_pad = ceil_pow2(max(len(tile_ids), 1), 4)
+        tid = np.full(nt_pad, -1, np.int32)
+        tid[: len(tile_ids)] = tile_ids
+
+        field_ok = field_ok_fn(dev["nf_pad"])
+        ts, rows, cnt = vector_scan_topk(
+            dev["data"], dev["scale"], dev["zp"], dev["qsum"], dev["norm2"],
+            dev["docid"], dev["fieldid"],
+            deleted_mask(shard, device),
+            put(tid), put(field_ok),
+            *qargs, put(score_min),
+            k=k, quantized=quantized, euclidean=euclidean,
+            with_counts=with_counts, exhaustive=exhaustive,
+            use_field_filter=use_ff,
         )
-        sel = sel.cpu().numpy()[:, : dev["n_clusters"]]
-        obs_cl += sel.sum(axis=1)
-        obs_vec += (sel @ np.diff(crs)).astype(np.int64)
-        # union of tiles covered by any selected cluster
-        any_sel = sel.any(axis=0)
-        tiles = set()
-        for c in np.flatnonzero(any_sel):
-            t0 = int(crs[c]) // TILE
-            t1 = (int(crs[c + 1]) - 1) // TILE if crs[c + 1] > crs[c] else t0
-            tiles.update(range(t0, t1 + 1))
-        tile_ids = np.array(sorted(tiles), dtype=np.int32)
-    nt_pad = ceil_pow2(max(len(tile_ids), 1), 4)
-    tid = np.full(nt_pad, -1, np.int32)
-    tid[: len(tile_ids)] = tile_ids
-
-    field_ok = field_ok_fn(dev["nf_pad"])
-    ts, rows, cnt = vector_scan_topk(
-        dev["data"], dev["scale"], dev["zp"], dev["qsum"], dev["norm2"],
-        dev["docid"], dev["fieldid"],
-        deleted_mask(shard, device),
-        put(tid), put(field_ok),
-        *qargs, put(score_min),
-        k=k, quantized=quantized, euclidean=euclidean,
-        with_counts=with_counts, exhaustive=exhaustive,
-        use_field_filter=use_ff,
-    )
-    ts, rows, cnt = ts.cpu().numpy(), rows.cpu().numpy(), cnt.cpu().numpy()
-    counts += cnt
-    h_doc = dev["h_docid"]
-    gids_all = (h_doc[rows].astype(np.int64) * index.shard_count
-                + shard.shard_id)                     # [B, k]
-    finite = np.isfinite(ts)
-    for qi in range(B):
-        m = finite[qi]
-        if m.any():
-            cand[qi].append((ts[qi][m], gids_all[qi][m]))
+        ts, rows, cnt = ts.cpu().numpy(), rows.cpu().numpy(), cnt.cpu().numpy()
+        counts += cnt
+        h_doc = dev["h_docid"]
+        gids_all = (h_doc[rows].astype(np.int64) * index.shard_count
+                    + shard.shard_id)                     # [B, k]
+        finite = np.isfinite(ts)
+        for qi in range(B):
+            m = finite[qi]
+            if m.any():
+                cand[qi].append((ts[qi][m], gids_all[qi][m]))
 
 
 def _scan_committed_mesh(index, mesh, qb, mode, np_eff, score_min,
@@ -365,58 +376,62 @@ def _scan_committed_mesh(index, mesh, qb, mode, np_eff, score_min,
     from .ops.vector import medoid_mesh, vector_scan_mesh
     from .vector_index import TILE
 
-    dev = index.vectors.device_stacked(mesh)
-    hs = dev["per_shard"]
-    S = index.shard_count
-    SL = S // mesh.devices.size
-    quantized = dev["quantized"]
-    q = ((qb.data.astype(np.int8) if quantized else qb.data), qb.scale,
-         qb.zp, qb.qsum, qb.norm2)
-    exhaustive = (mode == AnnMode.All
-                  or all(h["n_clusters"] <= 1 for h in hs))
-    if exhaustive:
-        tid = np.full((S, 1), -1, np.int32)
-        for h in hs:
-            obs_cl += h["n_clusters"]
-            obs_vec += h["n_rows"]
-    else:
-        any_sel, ocl, ovec = medoid_mesh(
-            dev["positions"], q, cluster_thr, C_pad=dev["C_pad"],
-            quantized=quantized,
-            euclidean=euclidean, nprobe=int(np_eff) if np_eff else 0,
-            lead=mesh.lead)
-        any_sel = any_sel.cpu().numpy()
-        obs_cl += ocl.cpu().numpy()
-        obs_vec += ovec.cpu().numpy()
-        per_tiles = []
-        for s, h in enumerate(hs):
-            crs = h["cluster_row_start"]
-            tiles = set()
-            for c in np.flatnonzero(any_sel[s, : h["n_clusters"]]):
-                t0 = int(crs[c]) // TILE
-                t1 = ((int(crs[c + 1]) - 1) // TILE
-                      if crs[c + 1] > crs[c] else t0)
-                tiles.update(range(t0, t1 + 1))
-            per_tiles.append(sorted(tiles))
-        nt_sel = ceil_pow2(max(max(len(t) for t in per_tiles), 1), 4)
-        tid = np.full((S, nt_sel), -1, np.int32)
-        for s, t in enumerate(per_tiles):
-            tid[s, : len(t)] = t
+    METRICS.inc("vector_dispatch_total")
+    with METRICS.timer("vector_scan"):
+        dev = index.vectors.device_stacked(mesh)
+        hs = dev["per_shard"]
+        S = index.shard_count
+        SL = S // mesh.devices.size
+        quantized = dev["quantized"]
+        q = ((qb.data.astype(np.int8) if quantized else qb.data), qb.scale,
+             qb.zp, qb.qsum, qb.norm2)
+        exhaustive = (mode == AnnMode.All
+                      or all(h["n_clusters"] <= 1 for h in hs))
+        if exhaustive:
+            tid = np.full((S, 1), -1, np.int32)
+            for h in hs:
+                obs_cl += h["n_clusters"]
+                obs_vec += h["n_rows"]
+        else:
+            with METRICS.timer("vector_select"):
+                any_sel, ocl, ovec = medoid_mesh(
+                    dev["positions"], q, cluster_thr, C_pad=dev["C_pad"],
+                    quantized=quantized,
+                    euclidean=euclidean, nprobe=int(np_eff) if np_eff else 0,
+                    lead=mesh.lead)
+                any_sel = any_sel.cpu().numpy()
+                obs_cl += ocl.cpu().numpy()
+                obs_vec += ovec.cpu().numpy()
+                per_tiles = []
+                for s, h in enumerate(hs):
+                    crs = h["cluster_row_start"]
+                    tiles = set()
+                    for c in np.flatnonzero(any_sel[s, : h["n_clusters"]]):
+                        t0 = int(crs[c]) // TILE
+                        t1 = ((int(crs[c + 1]) - 1) // TILE
+                              if crs[c + 1] > crs[c] else t0)
+                        tiles.update(range(t0, t1 + 1))
+                    per_tiles.append(sorted(tiles))
+                nt_sel = ceil_pow2(max(max(len(t) for t in per_tiles), 1), 4)
+                tid = np.full((S, nt_sel), -1, np.int32)
+                for s, t in enumerate(per_tiles):
+                    tid[s, : len(t)] = t
 
-    positions = [
-        dict(p, deleted=[deleted_mask(index.shards[d * SL + j], p["device"])
-                         for j in range(SL)])
-        for d, p in enumerate(dev["positions"])]
-    ts, gid, cnt = vector_scan_mesh(
-        positions, tid, field_ok_fn(dev["nf_pad"]), q, score_min, S=S, k=k,
-        quantized=quantized, euclidean=euclidean, with_counts=with_counts,
-        exhaustive=exhaustive, use_field_filter=use_ff,
-        pool_tiles=dev["n_tiles"], lead=mesh.lead)
-    ts, gid, cnt = ts.cpu().numpy(), gid.cpu().numpy(), cnt.cpu().numpy()
-    counts += cnt
-    finite = np.isfinite(ts)
-    for qi in range(len(score_min)):
-        m = finite[qi]
-        if m.any():
-            cand[qi].append((ts[qi][m].astype(np.float32),
-                             gid[qi][m].astype(np.int64)))
+        positions = [
+            dict(p, deleted=[deleted_mask(index.shards[d * SL + j],
+                                          p["device"])
+                             for j in range(SL)])
+            for d, p in enumerate(dev["positions"])]
+        ts, gid, cnt = vector_scan_mesh(
+            positions, tid, field_ok_fn(dev["nf_pad"]), q, score_min, S=S, k=k,
+            quantized=quantized, euclidean=euclidean, with_counts=with_counts,
+            exhaustive=exhaustive, use_field_filter=use_ff,
+            pool_tiles=dev["n_tiles"], lead=mesh.lead)
+        ts, gid, cnt = ts.cpu().numpy(), gid.cpu().numpy(), cnt.cpu().numpy()
+        counts += cnt
+        finite = np.isfinite(ts)
+        for qi in range(len(score_min)):
+            m = finite[qi]
+            if m.any():
+                cand[qi].append((ts[qi][m].astype(np.float32),
+                                 gid[qi][m].astype(np.int64)))

@@ -19,6 +19,7 @@
 
 import concurrent.futures as cf
 import importlib
+import json
 import os
 import re
 import subprocess
@@ -263,6 +264,48 @@ def test_metrics_endpoint(client):
     assert "seekstorm_queries_total" in text
     assert "seekstorm_docs_indexed_total" in text
     assert "seekstorm_commits_total" in text
+
+
+def test_trace_from_two_request_threads(client, server, tmp_path):
+    """/trace/start and /trace/stop sent from two threads (each request
+    on a server thread of its own) both answer 200, and the written
+    session holds the program's spans, each with a batch id, inside the
+    profiler's window."""
+    iid = client.create_index({"index_name": "traced", "schema": [
+        {"field": "body", "field_type": "Text", "index_lexical": True}]})
+    client.index_documents(iid, [{"body": f"w{i % 7} w{i % 11}"}
+                                 for i in range(200)])
+    client.commit_index(iid)
+    client.index_documents(iid, [{"body": "w1 w2"}] * 20)
+
+    def post(path, body=None):
+        got = []
+        t = threading.Thread(target=lambda: got.append(client._call(
+            "POST", path, body, apikey=server["master"])))
+        t.start()
+        t.join(60)
+        assert not t.is_alive()
+        return got[0]
+
+    assert post("/trace/start", {"log_dir": str(tmp_path)}) == {
+        "tracing": True}
+    r = client.query(iid, {"query": "w1 w2", "query_type_default": "Union",
+                           "realtime": True})
+    assert r["count_total"] > 0
+    assert post("/trace/stop") == {"stopped": True}
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    (w,) = [e for e in events if e.get("cat") == "Trace"
+            and e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "seekstorm"]
+    names = {e["name"] for e in spans}
+    assert {"search_batch", "search_parse", "tail_merge",
+            "search_finalize"} <= names
+    assert len({e["args"]["batch"] for e in spans}) == 1
+    assert all(e["args"]["batch"] > 0 for e in spans)
+    for e in spans:
+        assert w["ts"] - 1e3 <= e["ts"]
+        assert e["ts"] + e["dur"] <= w["ts"] + w["dur"] + 1e3
 
 
 def test_pdf_file_upload(client):

@@ -42,7 +42,6 @@ from . import geo
 from .docstore import LevelDocStore, compress_doc, decompress_doc
 from .lexindex import (CommittedLevel, ShardLexical, build_shard_lexical,
                        build_shard_lexical_cached)
-from .oracle import OracleTermPostings, bm25_components, term_impacts
 from .schema import (
     BLOCK_SIZE,
     FACET_DTYPES,
@@ -1120,88 +1119,7 @@ class Index:
             self.vectors.reload_shard(shard)
 
     # ------------------------------------------------------------------
-    # realtime (level-0 tail) oracle postings
-
-    def tail_postings(
-        self, shard: Shard, hashes: list, boosts: np.ndarray
-    ) -> tuple[list[OracleTermPostings | None], list[int], int]:
-        """Oracle postings over the uncommitted tail of a shard.
-
-        `hashes` entries are term hashes, or `(hash, tf_hash)` pairs for
-        n-gram constituent scoring (Bm25f): docids come from the n-gram's
-        postings, tfs from the constituent's postings at those docs, and
-        the reported df is the CONSTITUENT's tail df (it drives idf).
-
-        Returns (postings with docids relative to tail start, tail dfs,
-        tail doc count)."""
-        l0 = shard.level0
-        start = shard.partial_on_disk
-        n_tail = l0.doc_count - start
-        end = start + n_tail
-        F = shard.n_fields
-        avg = self._avg_len(shard)
-        out: list[OracleTermPostings | None] = []
-        dfs: list[int] = []
-        native = isinstance(l0, NativeLevel0)
-
-        def lookup(h):
-            """(docids i64[], tfs u16[,F]) of a term in level 0, or None."""
-            if native:
-                hit = l0.acc.term_postings(h)
-                if hit is None:
-                    return None
-                return hit[0].astype(np.int64), hit[1]
-            tp = l0.terms.get(h)
-            if tp is None:
-                return None
-            return (
-                np.asarray(tp.docids, dtype=np.int64),
-                np.asarray(tp.tfs, dtype=np.uint16).reshape(-1, F),
-            )
-
-        for entry in hashes:
-            h, tf_hash = entry if isinstance(entry, tuple) else (entry, None)
-            hit = lookup(h)
-            if hit is None:
-                out.append(None)
-                dfs.append(0)
-                continue
-            docids, tf = hit
-            if tf_hash is not None:
-                chit = lookup(tf_hash)
-                if chit is not None:
-                    cd, ctf = chit
-                    pos = np.minimum(
-                        np.searchsorted(cd, docids), len(cd) - 1
-                    )
-                    found = cd[pos] == docids
-                    tf = np.where(found[:, None], ctf[pos], tf)
-                    dfs.append(int(np.sum((cd >= start) & (cd < end))))
-                else:
-                    dfs.append(int(np.sum((docids >= start)
-                                          & (docids < end))))
-            else:
-                dfs.append(int(np.sum((docids >= start) & (docids < end))))
-            # bound by the entry-time doc-count snapshot: a concurrent
-            # ingest can land postings (in the C++ accumulator) for a doc
-            # whose Python-side doclen append hasn't happened yet — reading
-            # past `end` raced exactly that window (caught by
-            # test_threaded_ingest_realtime_search_stress)
-            sel = (docids >= start) & (docids < end)
-            if not sel.any():
-                out.append(None)
-                continue
-            tf = tf[sel]
-            dl = np.frombuffer(
-                b"".join(l0.doclen[i] for i in docids[sel]), dtype=np.uint8
-            ).reshape(-1, F)
-            comps = bm25_components(dl, avg)
-            imps = term_impacts(tf, comps, boosts)
-            out.append(
-                OracleTermPostings(docids=docids[sel] - start, impacts=imps,
-                                   positions=None)
-            )
-        return out, dfs, n_tail
+    # realtime (level-0 tail) positions
 
     def tail_positions(
         self, shard: Shard, h: int, tail_docid: int

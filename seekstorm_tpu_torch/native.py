@@ -226,8 +226,10 @@ def load() -> C.CDLL | None:
     lib.st_accum_load.argtypes = [C.c_void_p, u64p, i64p, u16p, u16p, u16p,
                                   u8p, C.c_int64, C.c_int64, C.c_int32]
     lib.st_accum_term_postings.restype = C.c_int64
-    lib.st_accum_term_postings.argtypes = [C.c_void_p, C.c_uint64, u16p,
-                                           u16p, C.c_int64]
+    # buffers as addresses: a realtime batch makes one call a term, and
+    # ndarray.ctypes.data_as costs more than the call
+    lib.st_accum_term_postings.argtypes = [C.c_void_p, C.c_uint64,
+                                           C.c_void_p, C.c_void_p, C.c_int64]
     lib.st_accum_term_doc_positions.restype = C.c_int64
     lib.st_accum_term_doc_positions.argtypes = [C.c_void_p, C.c_uint64,
                                                 C.c_int32, u16p, u16p,
@@ -644,17 +646,19 @@ class NativeAccumulator:
         )
 
     def term_postings(self, h: int):
-        n = self.lib.st_accum_term_postings(self.ptr, C.c_uint64(h), None,
-                                            None, 0)
-        if n <= 0:
-            return None
-        docids = np.zeros(n, np.uint16)
-        tfs = np.zeros((n, self.n_fields), np.uint16)
-        self.lib.st_accum_term_postings(
-            self.ptr, C.c_uint64(h), _arr(docids, C.c_uint16),
-            _arr(tfs, C.c_uint16), n,
-        )
-        return docids, tfs
+        """(docids u16[n], tfs u16[n, F]) of a term, docids ascending, or
+        None where the accumulator lacks it."""
+        fn = self.lib.st_accum_term_postings
+        n = fn(self.ptr, h, None, None, 0)
+        while n > 0:
+            docids = np.empty(n, np.uint16)
+            tfs = np.empty((n, self.n_fields), np.uint16)
+            got = fn(self.ptr, h, docids.ctypes.data, tfs.ctypes.data, n)
+            if got >= 0:
+                return (docids[:got], tfs[:got]) if got else None
+            # an ingest grew the list between the two calls
+            n = fn(self.ptr, h, None, None, 0)
+        return None
 
     def term_doc_positions(self, h: int, docid: int):
         tfs = np.zeros(self.n_fields, np.uint16)

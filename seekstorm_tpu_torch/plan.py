@@ -73,11 +73,13 @@ class DensePlan:
 
 
 def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
-               prune_budget: int, mode: str = "imp") -> DensePlan | None:
+               prune_budget: int, mode: str = "imp",
+               tails=None) -> DensePlan | None:
     """Select the blocks `specs` are scored on in `shard` and emit the
     pair list.  mode="qt" takes the reference's query-tiled limit
     (PRUNE_BLOCKS) for full coverage, "imp" and "tf" FULL_PLAN_BLOCKS;
     "tf" emits the segments of the full postings and the dense-term rows.
+    `tails`: the batch's realtime tails (tail.BatchTails) for the idf.
     None when no block is selected."""
     lex = shard.lexical
     d = lex.directory
@@ -120,7 +122,8 @@ def plan_shard(index, shard, slots, specs, realtime: bool, need_full: bool,
 
     from .search import _shard_idf
 
-    idf = _shard_idf(shard, slots, realtime, hs=hs, found=found, ti_c=ti_c)
+    idf = _shard_idf(shard, slots, realtime, hs=hs, found=found, ti_c=ti_c,
+                     tails=tails)
 
     # per-query slot masks (search.py:518-529)
     n_blocks = lex.n_blocks

@@ -74,11 +74,12 @@ from .index import Index, Shard
 from .lexindex import STASH_K
 from .metrics import METRICS
 from .ngram import NGRAM_SEP
-from .oracle import score_query, topk_from_scores, verify_phrase
+from .oracle import verify_phrase
 from .ops import wand as wand_mod
 from .parallel import mesh
 from .rewrite import rewrite_query
 from .schema import BLOCK_SIZE, FieldType
+from .tail import BatchTails, TailView, score_pairs, select, slot_weights
 from .tokenizer import ParsedQuery, parse_query
 from .utils import ceil_pow2, ngram_virtual_hash, term_hash
 
@@ -407,12 +408,16 @@ def _wand_filter_words(index, state, mask) -> np.ndarray:
 def _shard_idf(shard: Shard, slots: list[_Slot], realtime: bool,
                hs: np.ndarray | None = None,
                found: np.ndarray | None = None,
-               ti_c: np.ndarray | None = None) -> np.ndarray:
+               ti_c: np.ndarray | None = None,
+               tails: BatchTails | None = None) -> np.ndarray:
     """Per-shard per-slot BM25 idf, realtime-df aware — the single source of
-    truth for the dense planner (_plan_shard) and the WAND path (ops/wand.py).
+    truth for the dense planner (_plan_shard), the WAND path (ops/wand.py)
+    and the join.
 
     hs/found/ti_c are _plan_shard's already-computed directory lookups for
-    the slots' own hashes; recomputed when absent."""
+    the slots' own hashes; recomputed when absent.  `tails` are the
+    batch's realtime tails, whose view of this shard the tail merge
+    scores; without them the shard's tail is read here."""
     lex = shard.lexical
     d = lex.directory
     if d is None or len(d.hash) == 0:
@@ -444,26 +449,10 @@ def _shard_idf(shard: Shard, slots: list[_Slot], realtime: bool,
     n_docs = lex.doc_count
     df_total = df.copy()
     if realtime:
-        l0 = shard.level0
-        start = shard.partial_on_disk
-        tail = l0.doc_count - start
-        n_docs += tail
-        if tail > 0:
-            acc = getattr(l0, "acc", None)
-            # per-slot tail-df lookups only when an uncommitted tail
-            # exists — on a fully committed index this loop is ~225
-            # native calls per batch of pure overhead
-            for v, sl in enumerate(slots):
-                h = sl.idf_hash if sl.idf_hash is not None else sl.hash
-                if acc is not None:
-                    hit = acc.term_postings(h)
-                    if hit is not None:
-                        df_total[v] += int(np.sum(hit[0] >= start))
-                else:
-                    tp = l0.terms.get(h)
-                    if tp is not None:
-                        df_total[v] += int(np.sum(
-                            np.asarray(tp.docids) >= start))
+        tail = (tails.get(shard) if tails is not None
+                else TailView(shard, slots))
+        n_docs += tail.n_tail
+        df_total = df_total + tail.idf_df(slots)
     return np.where(
         df_total > 0,
         np.log1p((n_docs - df_total + 0.5) / (df_total + 0.5)),
@@ -490,15 +479,13 @@ def _join_backend_ok(device) -> bool:
     return torch.device(device).type == "cpu"
 
 
-def _join_shard_infos(index: Index, slots: list[_Slot], realtime: bool):
+def _join_shard_infos(index: Index, slots: list[_Slot], realtime: bool,
+                      tails: BatchTails | None = None):
     """Per-shard join-path planning state: slot posting-window layouts
-    (cached on the shard between commits) + per-shard idf.  Returns None
-    when any shard disqualifies the path (deletes, stale format, too many
-    blocks)."""
+    (cached on the shard between commits) + per-shard idf (over the
+    batch's `tails`).  Returns None when any shard disqualifies the path
+    (deletes, stale format, too many blocks)."""
     hs = np.array([sl.hash for sl in slots], dtype=np.uint64)
-    idf_hs = np.array(
-        [sl.idf_hash if sl.idf_hash is not None else sl.hash
-         for sl in slots], dtype=np.uint64)
     V = len(slots)
     out = []
     for shard in index.shards:
@@ -512,36 +499,8 @@ def _join_shard_infos(index: Index, slots: list[_Slot], realtime: bool):
         found = ti < T
         tc = np.minimum(ti, max(T - 1, 0))
         found &= (d.hash[tc] == hs) if T else False
-        df = np.where(found, d.df[tc], 0).astype(np.int64)
-        if not np.array_equal(idf_hs, hs):
-            ci = np.searchsorted(d.hash, idf_hs)
-            cf = ci < T
-            cc = np.minimum(ci, max(T - 1, 0))
-            cf &= (d.hash[cc] == idf_hs) if T else False
-            df = np.where(cf, d.df[cc], df)
-        n_docs = lex.doc_count
-        df_total = df.copy()
-        if realtime:
-            l0 = shard.level0
-            start = shard.partial_on_disk
-            n_docs += l0.doc_count - start
-            acc = getattr(l0, "acc", None)
-            for v, sl in enumerate(slots):
-                h = sl.idf_hash if sl.idf_hash is not None else sl.hash
-                if acc is not None:
-                    hit = acc.term_postings(h)
-                    if hit is not None:
-                        df_total[v] += int(np.sum(hit[0] >= start))
-                else:
-                    tp = l0.terms.get(h)
-                    if tp is not None:
-                        df_total[v] += int(
-                            np.sum(np.asarray(tp.docids) >= start))
-        idf = np.where(
-            df_total > 0,
-            np.log1p((n_docs - df_total + 0.5) / (df_total + 0.5)),
-            0.0,
-        ).astype(np.float32)
+        idf = _shard_idf(shard, slots, realtime, hs=hs, found=found,
+                         ti_c=tc, tails=tails)
 
         cache = getattr(lex, "_join_cache", None)
         if cache is None:
@@ -932,6 +891,9 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
         index, [r.query for r in requests],
         [r.query_type_default for r in requests])
 
+    # the realtime tails this batch reads, one view a shard
+    tails = BatchTails(slots, req0.realtime)
+
     results: list[ResultSet | None] = [None] * len(requests)
     live: list[int] = []
     warm = getattr(index, "_warmup_cache", None) or {}
@@ -1088,7 +1050,8 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                     skey_sig + (sort_desc, "bmax"),
                     lambda: wrank_host.reshape(-1, 32).max(axis=1)
                     .reshape(wstate.nblk, BLOCK_SIZE // 32))
-            idf_ps = np.stack([_shard_idf(sh, slots, req0.realtime)
+            idf_ps = np.stack([_shard_idf(sh, slots, req0.realtime,
+                                          tails=tails)
                                for sh in index.shards])      # [S, V]
             wsc, wgid, wcnt, wfc, whandled = wand_mod.run_batch(
                 index, slots, [live_specs[i] for i in wrows], idf_ps,
@@ -1117,7 +1080,7 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
             and not req0.result_sort
             and k <= STASH_K
             and _join_backend_ok(device)):
-        infos = _join_shard_infos(index, slots, req0.realtime)
+        infos = _join_shard_infos(index, slots, req0.realtime, tails)
         jrows = []
         if infos is not None:
             with METRICS.timer("lex_plan"):
@@ -1162,7 +1125,8 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
         ts, gid, cnt, fcounts, all_full = _dense_rows(
             index, slots, [live_specs[i] for i in rest_rows], req0.realtime,
             need_full, need, k, with_counts, stacked,
-            filtered=bool(req0.facet_filter), aux=aux, mode=mode)
+            filtered=bool(req0.facet_filter), aux=aux, mode=mode,
+            tails=tails)
         if ts is not None:
             for r, qi in enumerate(rest_rows):
                 valid = np.isfinite(ts[r])
@@ -1181,8 +1145,9 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
     # them
     canonical = wanded.copy()
     for shard in index.shards:
-        if req0.realtime and shard.tail_len() > 0:
-            _merge_tail(index, shard, slots, live_specs, boosts,
+        tail = tails.get(shard)
+        if tail is not None and tail.n_tail > 0:
+            _merge_tail(index, tail, slots, live_specs, boosts,
                         merged_scores, merged_ids, counts, with_counts,
                         req0, facet_specs, fc_total, fcm, sorting, sort_desc,
                         tail_phrase_counts=tail_phrase_counts)
@@ -1193,7 +1158,7 @@ def _lexical_search_batch(index: Index, requests: list[SearchRequest],
                              fc_total, sorting, sort_desc,
                              tail_phrase_counts=tail_phrase_counts,
                              phrase_escalate_ok=mode == "imp",
-                             canonical=canonical)
+                             canonical=canonical, tails=tails)
 
 
 def _compact_slots(slots, specs):
@@ -1218,13 +1183,15 @@ def _compact_slots(slots, specs):
 
 def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
                 need: int, k: int, with_counts: bool, stacked,
-                filtered: bool = False, aux=None, mode: str = "imp"):
+                filtered: bool = False, aux=None, mode: str = "imp",
+                tails: BatchTails | None = None):
     """The dense path for `specs` (search.py:1646-1750) on the index's
     StackedIndex, in impact mode or, for a batch with a boost profile of
     its own, tf mode: plan every shard, scan, and re-run in full when a
     pruned plan's k-th score falls below a bound it left unscored.  aux:
     the batch's facet codes, sort key, filter words and (tf mode) boosts
-    for StackedIndex.run.  Returns (ts f32[B, k], gid i64[B, k], cnt i64[B],
+    for StackedIndex.run; `tails`, the batch's realtime tails, for the
+    idf.  Returns (ts f32[B, k], gid i64[B, k], cnt i64[B],
     fcounts i64[NF, B, fcm], all_full), or Nones when no shard selected a
     block."""
     aux = aux or {}
@@ -1243,7 +1210,7 @@ def _dense_rows(index, slots, specs, realtime: bool, need_full: bool,
         with METRICS.timer("lex_plan"):
             return [plan_mod.plan_shard(index, sh, slots, specs, realtime,
                                         full, plan_mod.PRUNE_BLOCKS,
-                                        mode=mode)
+                                        mode=mode, tails=tails)
                     for sh in index.shards]
 
     plans = plans_for(cover_full)
@@ -1503,17 +1470,20 @@ def _phrase_exact_committed(index, slots, spec, request) -> np.ndarray:
     return cand
 
 
-def _score_gids(index, slots, spec, gids, realtime) -> np.ndarray:
+def _score_gids(index, slots, spec, gids, realtime,
+                tails: BatchTails | None = None) -> np.ndarray:
     """Exact imp-mode BM25F scores of arbitrary committed global ids from
     the host CSR (idf x stored impact, accumulated in ascending slot id,
-    the same arithmetic as the device scorer)."""
+    the same arithmetic as the device scorer); the idf over the batch's
+    realtime `tails`."""
     S = index.shard_count
     out = np.zeros(len(gids), np.float32)
     if not len(gids):
         return out
     sid = (gids % S).astype(np.int64)
     loc = (gids // S).astype(np.int64)
-    idf_by_shard = [_shard_idf(sh, slots, realtime) for sh in index.shards]
+    idf_by_shard = [_shard_idf(sh, slots, realtime, tails=tails)
+                    for sh in index.shards]
     for t in sorted(spec.weights):
         if spec.negated.get(t):
             continue
@@ -1555,7 +1525,7 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
                       with_counts, facet_specs=(), fc_total=None,
                       sorting=False, sort_desc=True,
                       tail_phrase_counts=None, phrase_escalate_ok=True,
-                      canonical=None):
+                      canonical=None, tails=None):
     with METRICS.timer("search_finalize"):
         # phrase verification + final assembly
         for bi, qi in enumerate(live):
@@ -1634,7 +1604,7 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
                         t_g = np.zeros(0, np.int64)
                     if len(pd) + len(t_g) > len(gids):
                         sc_pd = _score_gids(index, slots, spec, pd,
-                                            requests[qi].realtime)
+                                            requests[qi].realtime, tails)
                         allsc = np.concatenate([sc_pd, t_sc])
                         allg = np.concatenate([pd, t_g])
                         order3 = np.lexsort((allg, -allsc))
@@ -1722,28 +1692,25 @@ def _finalize_lexical(index, requests, results, live, live_specs, slots,
 
 
 def _merge_tail(
-    index: Index, shard: Shard, slots, specs, boosts,
+    index: Index, tail: TailView, slots, specs, boosts,
     merged_scores, merged_ids, counts, with_counts,
     req0=None, facet_specs=(), fc_total=None, fcm=1,
     sorting=False, sort_desc=True, tail_phrase_counts=None,
 ) -> None:
-    """Score the uncommitted level-0 tail with the numpy oracle and merge
-    (including tail facet counting / filtering / sort keys)."""
+    """Score a shard's uncommitted level-0 tail, as the batch's view of it
+    holds it, for every query of the batch in one pass over the batch's
+    (query, posting) pairs (tail.py), and merge: counts, tail facet counts,
+    the facet filter and sort keys over the tail, and each query's first
+    min(n_tail, 1024) tail docs appended to its candidates."""
+    shard = tail.shard
+    n_tail, base = tail.n_tail, tail.base
     with METRICS.timer("tail_merge"):
         with METRICS.timer("tail_gather"):
-            hashes = [
-                (term_hash(sl.term), sl.tf_hash) if sl.tf_hash is not None
-                else sl.hash
-                for sl in slots
-            ]
-            postings, tail_dfs, n_tail = index.tail_postings(shard, hashes,
-                                                             boosts)
-            if n_tail <= 0:
-                return
             lex = shard.lexical
-            d = lex.directory
+            indptr, pdoc, pimp, tail_df = tail.postings(
+                slots, boosts, index._avg_len(shard))
+            w = slot_weights(lex, slots, lex.doc_count + n_tail, tail_df)
             tail_deleted = np.zeros(n_tail, dtype=bool)
-            base = shard.tail_start
             for sid in shard.deleted:
                 if base <= sid < base + n_tail:
                     tail_deleted[sid - base] = True
@@ -1756,8 +1723,7 @@ def _merge_tail(
                 if sf.facet_id in tail_vals:
                     return tail_vals[sf.facet_id]
                 vals = shard.level0.facet_values.get(sf.facet_id, [])
-                start = shard.partial_on_disk
-                vv = vals[start : start + n_tail]
+                vv = vals[tail.start : tail.end]
                 if sf.field_type == FieldType.Point:
                     lat = np.array([v[0] if v else 0.0 for v in vv])
                     lon = np.array([v[1] if v else 0.0 for v in vv])
@@ -1798,78 +1764,56 @@ def _merge_tail(
                 else:
                     tail_key = col.astype(np.float32)
 
-        n_docs = lex.doc_count + n_tail
-        # seconds summed over the queries and observed once: scoring (with
-        # the count), then the selection and the append; facet counting in
-        # neither
-        score_s = select_s = 0.0
-        entries = 0
+        # seconds of the scoring (with the count), then of the selection and
+        # the append; facet counting in neither
         t_a = time.perf_counter()
-        for qi, spec in enumerate(specs):
-            term_ps, dfs, reqs, negs = [], [], [], []
-            for s in spec.slots:
-                sl = slots[s]
-                ti = d.lookup(sl.idf_hash if sl.idf_hash is not None
-                              else sl.hash)
-                df_c = int(d.df[ti]) if ti >= 0 else 0
-                term_ps.append(postings[s])
-                dfs.append(df_c + tail_dfs[s])
-                reqs.append(bool(spec.required.get(s))
-                            and not spec.negated.get(s))
-                negs.append(bool(spec.negated.get(s)))
-            sc, matched = score_query(
-                n_docs, n_tail, term_ps, dfs, reqs, negs, tail_deleted
-            )
-            if with_counts:
-                if spec.phrases and tail_phrase_counts is not None:
-                    # exact: phrase-verify every AND-matched tail doc (the
-                    # tail is <= 64K docs; its phrase candidates are few)
-                    for li in np.flatnonzero(matched):
-                        g = ((int(li) + base) * index.shard_count
-                             + shard.shard_id)
-                        if _phrase_ok(index, slots, spec, g):
-                            tail_phrase_counts[qi] += 1
+        sp = score_pairs(specs, indptr, pdoc, pimp, w, n_tail, tail_deleted)
+        mq, md = sp.q[sp.matched], sp.doc[sp.matched]
+        if with_counts:
+            phr = np.array([bool(spec.phrases) and tail_phrase_counts
+                            is not None for spec in specs], bool)
+            counts += np.bincount(mq[~phr[mq]], minlength=len(specs))
+            # exact: phrase-verify every matched tail doc (the tail is
+            # <= 64K docs; its phrase candidates are few)
+            for qi, li in zip(mq[phr[mq]].tolist(), md[phr[mq]].tolist()):
+                g = (li + base) * index.shard_count + shard.shard_id
+                if _phrase_ok(index, slots, specs[qi], g):
+                    tail_phrase_counts[qi] += 1
+        score_s = time.perf_counter() - t_a
+        if facet_specs and fc_total is not None:
+            for fi, (qf, labels, nc) in enumerate(facet_specs):
+                sf = index.schema_map[qf.field]
+                col = _tail_col(qf.field)
+                if qf.ranges is not None:
+                    if sf.field_type == FieldType.Point:
+                        col = geo_mod.point_distance(
+                            col, float(qf.ranges.base[0]),
+                            float(qf.ranges.base[1]),
+                        )
+                        if qf.ranges.unit == "Miles":
+                            col = col * 0.621371192
+                    bounds = np.array(
+                        [float(r[1]) for r in qf.ranges.ranges])
+                    codes = np.searchsorted(bounds, col, side="right")
                 else:
-                    counts[qi] += int(matched.sum())
-            t_b = time.perf_counter()
-            score_s += t_b - t_a
-            if facet_specs and fc_total is not None:
-                for fi, (qf, labels, nc) in enumerate(facet_specs):
-                    sf = index.schema_map[qf.field]
-                    col = _tail_col(qf.field)
-                    if qf.ranges is not None:
-                        if sf.field_type == FieldType.Point:
-                            col = geo_mod.point_distance(
-                                col, float(qf.ranges.base[0]),
-                                float(qf.ranges.base[1]),
-                            )
-                            if qf.ranges.unit == "Miles":
-                                col = col * 0.621371192
-                        bounds = np.array(
-                            [float(r[1]) for r in qf.ranges.ranges])
-                        codes = np.searchsorted(bounds, col, side="right")
-                    else:
-                        codes = col.astype(np.int64)
-                    codes = np.clip(codes, 0, fcm - 1)
-                    np.add.at(fc_total[fi, qi], codes[matched], 1)
-                t_b = time.perf_counter()
-            if sorting and tail_key is not None:
-                rank = np.where(
-                    matched, tail_key if sort_desc else -tail_key,
-                    np.float32(-np.inf),
-                ).astype(np.float32)
-                s2, ids = topk_from_scores(rank, min(n_tail, 1024))
-            else:
-                s2, ids = topk_from_scores(sc, min(n_tail, 1024))
-            gids = (ids + base) * index.shard_count + shard.shard_id
-            merged_scores[qi] = np.concatenate([merged_scores[qi], s2])
-            merged_ids[qi] = np.concatenate([merged_ids[qi], gids])
-            entries += len(s2)
-            t_a = time.perf_counter()
-            select_s += t_a - t_b
+                    codes = col.astype(np.int64)
+                codes = np.clip(codes, 0, fcm - 1)
+                np.add.at(fc_total[fi], (mq, codes[md]), 1)
+        t_b = time.perf_counter()
+        if sorting and tail_key is not None:
+            rank = (tail_key if sort_desc else -tail_key)[md]
+        else:
+            rank = sp.score[sp.matched]
+        bounds, ids, s2 = select(mq, md, rank, len(specs), min(n_tail, 1024))
+        gids = (ids + base) * index.shard_count + shard.shard_id
+        for qi in range(len(specs)):
+            a, b = bounds[qi], bounds[qi + 1]
+            merged_scores[qi] = np.concatenate([merged_scores[qi], s2[a:b]])
+            merged_ids[qi] = np.concatenate([merged_ids[qi], gids[a:b]])
         METRICS.observe("tail_score", score_s)
-        METRICS.observe("tail_select", select_s)
-        METRICS.inc("tail_entries_total", entries)
+        METRICS.observe("tail_select", time.perf_counter() - t_b)
+        METRICS.inc("tail_entries_total", len(ids))
+        METRICS.inc("tail_postings_total", sp.n_pairs)
 
 
 def _phrase_ok(index: Index, slots, spec: _QuerySpec, global_id: int) -> bool:

@@ -1,8 +1,9 @@
 """The port's timers, counters and trace spans (``metrics.py``) on the CPU.
 
   * A realtime lexical batch moves the parse, tail merge (gather, score,
-    select) and finalize timers, and ``tail_entries_total`` counts the tail
-    entries the merge appended; a realtime vector batch moves the committed
+    select) and finalize timers, ``tail_entries_total`` counts the tail
+    entries the merge appended and ``tail_postings_total`` the (query,
+    posting) pairs it scored; a realtime vector batch moves the committed
     scan (with its cluster selection), tail and merge timers and
     ``vector_dispatch_total``, and no lexical dispatch.
   * Under ``start_trace`` each timer is also a span in the written trace:
@@ -99,8 +100,11 @@ def test_lexical_batch_moves_every_timer(lexical):
     for name in LEX_TIMERS:
         assert _moved(s0, s1, f"{name}_count") > 0, name
         assert _moved(s0, s1, f"{name}_seconds_total") > 0, name
-    # one merge a shard with a tail, each observing its per-query sums once
-    assert _moved(s0, s1, "tail_merge_count") == 2
+    # a shard with a tail observes tail_merge and tail_gather twice, at its
+    # view's first use (the idf of the batch's route) and in its merge; the
+    # merge observes its scoring and selection once
+    assert _moved(s0, s1, "tail_merge_count") == 4
+    assert _moved(s0, s1, "tail_gather_count") == 4
     assert _moved(s0, s1, "tail_score_count") == 2
     assert _moved(s0, s1, "tail_select_count") == 2
     # the tail docs each query matches: every one is appended (< 1,024)
@@ -108,6 +112,11 @@ def test_lexical_batch_moves_every_timer(lexical):
                for q in QUERIES)
     assert want > 0
     assert _moved(s0, s1, "tail_entries_total") == want
+    # the (query, posting) pairs the merge scores: each query term's tail
+    # docs
+    pairs = sum(sum(w in doc.split() for doc in tail)
+                for q in QUERIES for w in set(q.split()))
+    assert _moved(s0, s1, "tail_postings_total") == pairs
     assert _moved(s0, s1, "vector_dispatch_total") == 0
 
 

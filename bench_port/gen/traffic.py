@@ -1,15 +1,22 @@
 """The one traffic generator: it reads a cell's parameters (its file under
-``bench_port/workloads/``) and a configuration's, and draws from ``--seed``
-the query pool, the uncommitted tail and the order in which clients send the
-pool's queries.  Every draw has its own generator, so one seed gives one
-pool, one tail and one schedule whatever the window's length.
+``bench_port/workloads/``) and draws from ``--seed`` the order in which
+clients send the pool's queries and the sample the check compares.  A
+deployment kind (``bench_port/kinds/<kind>.py``) draws its query pool from
+``pool_rng(cell, seed)`` and its uncommitted tail from ``rng_for(seed,
+TAIL)``.  Every draw has its own generator, so one seed gives one pool, one
+tail and one schedule whatever the window's length.
+
+Two cell parameters fix the work a run does whatever its seed, where the
+seed would otherwise change it: ``pool_seed`` draws the pool from that
+number, so every seed serves the same queries, and ``"schedule": "epochs"``
+sends each of them once an epoch (a permutation of the pool drawn from the
+seed, batch after batch), so every seed serves them equally often, in its
+own order.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from . import corpus, vectors
 
 POOL, TAIL, SAMPLE = 1, 2, 3
 CLIENT = 100          # + client number: each client's schedule
@@ -42,35 +49,31 @@ def text_queries(n: int, rng, mix: dict) -> list[tuple[str, str]]:
     return out
 
 
-def pool(cell: dict, config: dict, seed: int):
-    """The cell's query pool: (query, type) pairs, or f32 vectors [n, d]."""
-    rng = rng_for(seed, POOL)
-    if config["kind"] == "text":
-        return text_queries(int(cell["pool"]), rng, cell["mix"])
-    centers = vectors.proxy_centers(config["dataset"], config["data_seed"])
-    return vectors.rows_near(config["dataset"], centers, int(cell["pool"]),
-                             rng)
-
-
-def tail(cell: dict, config: dict, seed: int):
-    """The uncommitted tail every run ingests anew: corpus.corpus_tokens
-    arrays for text, f32 rows [n, d] for vectors."""
-    rng = rng_for(seed, TAIL)
-    if config["kind"] == "text":
-        return corpus.corpus_tokens(int(cell["tail"]), int(config["vocab"]),
-                                    rng)
-    centers = vectors.proxy_centers(config["dataset"], config["data_seed"])
-    return vectors.rows_near(config["dataset"], centers, int(cell["tail"]),
-                             rng)
+def pool_rng(cell: dict, seed: int) -> np.random.Generator:
+    """The pool's stream: the cell's ``pool_seed`` where it has one, else
+    the run's seed."""
+    return rng_for(int(cell.get("pool_seed", seed)), POOL)
 
 
 def client_batches(cell: dict, seed: int, client: int):
-    """An endless sequence of batches of pool indices for one client, drawn
-    with replacement: the same seed and client give the same sequence."""
+    """An endless sequence of batches of pool indices for one client: drawn
+    with replacement, or with ``"schedule": "epochs"`` cut from successive
+    permutations of the pool.  The same seed and client give the same
+    sequence."""
     rng = rng_for(seed, CLIENT + client)
     n, b = int(cell["pool"]), int(cell["batch"])
+    schedule = cell.get("schedule", "replacement")
+    if schedule not in ("replacement", "epochs"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule == "replacement":
+        while True:
+            yield rng.integers(0, n, size=b)
+    queue = np.zeros(0, np.int64)
     while True:
-        yield rng.integers(0, n, size=b)
+        while len(queue) < b:
+            queue = np.concatenate([queue, rng.permutation(n)])
+        yield queue[:b]
+        queue = queue[b:]
 
 
 def check_sample(cell: dict, seed: int) -> np.ndarray:

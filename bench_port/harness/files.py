@@ -1,17 +1,34 @@
-"""Where the benchmark's data lives, and how a cell, a configuration and a
-metric are found by name.  Adding one is adding a file:
+"""Where the benchmark's data lives, and how a cell, a configuration, a kind
+of deployment and a metric are found by name.  Adding one is adding a file:
 
-- ``configs/<config>.json``: a deployment's sizes, source and guarantees;
-- ``workloads/<cell>.json``: a cell's traffic parameters, its check and its
-  end-to-end metrics;
+- ``configs/<config>.json``: a deployment's sizes, source and guarantees,
+  and its ``kind``;
+- ``kinds/<kind>.py``: a kind of deployment, with KIND (its file's stem),
+  TINY (the CPU tests' configuration and cell sizes), ``pool`` and ``tail``
+  (the draws from ``traffic.pool_rng(cell, seed)`` and
+  ``traffic.rng_for(seed, TAIL)``) and ``System``:
+  ``build``, ``open``, ``ingest_tail``, ``requests``, ``readings``,
+  ``recorder``, ``work`` and ``judge``, with its plain reference under
+  ``reference/``;
+- ``workloads/<cell>.json``: a cell's traffic parameters (with
+  ``pool_seed`` and ``"schedule": "epochs"`` where every seed should do the
+  same work, ``gen/traffic.py``), its ``request``
+  (any ``SearchRequest`` field by its name, ``harness/requests.py``), its
+  check and its end-to-end metrics;
 - ``metrics/<metric>.py``: one metric, with NAME, UNIT, BETTER, SOURCE,
   LAYER (per-layer metrics), MOVES and ``read(run)``.
+
+A new kind's layers need no trace file: the port's own ``METRICS`` timers
+are recorded as ``timer.<name>`` spans by ``harness/trace.py`` whatever
+code observes them, and its counters reach a metric through
+``RunRecord.delta``.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]          # bench_port/
@@ -34,6 +51,23 @@ def load_config(name: str) -> dict:
     if not path.is_file():
         raise SystemExit(f"no configuration {name!r}: {path} does not exist")
     return json.loads(path.read_text())
+
+
+def load_kind(name: str):
+    """The module of the deployment kind `name`, ``kinds/<name>.py``."""
+    path = HERE / "kinds" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"no deployment kind {name!r}: {path} does not "
+                         f"exist")
+    spec = importlib.util.spec_from_file_location(f"bench_port_kind_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    if getattr(mod, "KIND", None) != path.stem:
+        raise SystemExit(f"{path} defines the kind "
+                         f"{getattr(mod, 'KIND', None)!r}")
+    return mod
 
 
 def metric_modules() -> dict:

@@ -10,6 +10,9 @@ starts and taken away when it stops, so an untraced run runs the program
 untouched; a SPANS target missing from the port fails the traced run.  The
 profiler records the device; one ``record_function`` marker in the thread
 that starts it puts the spans on the trace's clock.
+
+``DeviceTrace`` records the card's operations alone, for an untraced run of
+a cell whose end-to-end metrics read the device trace.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import threading
 import time
 from collections import defaultdict
 
@@ -119,6 +123,113 @@ class Trace:
         cpu_lo = 1e6 * self.t0 + off if off is not None else (
             min((a for a, _, _ in dev), default=0.0))
         return summarize(dev, spans, cpu_lo, self.window_s, top)
+
+
+class DeviceTrace:
+    """torch.profiler recording the card alone, for an untraced run.  Its
+    start takes seconds (7-8 on an H100 machine, far longer beside a busy
+    client), so set-up does not pay it: the client's first request starts
+    it, in an owner thread that also stops it, waits until it runs, and
+    launches a marker kernel on the idle card, which divides the window's
+    operations from set-up's.  The requests from then on are counted.
+    Without a card it records nothing."""
+
+    MARK = "spin_kernel"          # torch.cuda._sleep's kernel
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.prof = None
+        self.error = None
+        self.queries = 0
+        self.marked = False
+        self._thread = None
+        self._ready = threading.Event()
+        self._stop = threading.Event()
+
+    def before(self) -> None:
+        """In the client, before each request: the first starts the trace,
+        waits for it and marks the card."""
+        if self.marked or not self.torch.cuda.is_available():
+            return
+        self._thread = threading.Thread(target=self._own, daemon=True,
+                                        name="bench_port.device_trace")
+        self._thread.start()
+        self._ready.wait()
+        if self.error is not None:
+            raise RuntimeError(f"the device trace did not start: "
+                               f"{self.error!r}")
+        self.torch.cuda.synchronize()
+        self.torch.cuda._sleep(1000)
+        self.marked, self.t0 = True, time.perf_counter()
+
+    def after(self, queries: int) -> None:
+        """In the client, after each request answered."""
+        if self.marked:
+            self.queries += queries
+
+    def counting(self, search):
+        """`search` with ``before`` ahead of each request and ``after``
+        once it is answered."""
+        def counted(rs):
+            self.before()
+            res = search(rs)
+            self.after(len(rs))
+            return res
+        return counted
+
+    def _own(self) -> None:
+        try:
+            self.prof = self.torch.profiler.profile(
+                activities=[self.torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+        except BaseException as e:        # reported by before()
+            self.error, self.prof = e, None
+        finally:
+            self._ready.set()
+        self._stop.wait()
+        if self.prof is not None:
+            try:
+                self.prof.stop()
+            except BaseException as e:    # reported by stop()
+                self.error = e
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self.torch.cuda.synchronize()
+        self.window_s = time.perf_counter() - self.t0
+        self._stop.set()
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError(f"the device trace did not stop: "
+                               f"{self.error!r}")
+
+    def summary(self, top: int = 10) -> dict | None:
+        """``summarize`` over the operations from the marker's end on, and
+        the queries the requests sent after it answered; None where nothing
+        was counted."""
+        if self.prof is None or not self.marked:
+            return None
+        dev = []
+        for e in self.prof.profiler.kineto_results.events():
+            a, d = _start_us(e), _dur_us(e)
+            if str(e.device_type()).rsplit(".", 1)[-1] != "CPU" and d > 0:
+                dev.append((a, a + d, e.name()))
+        ops, lo = after_mark(dev, self.MARK)
+        return {**summarize(ops, [], lo, self.window_s, top),
+                "queries": self.queries}
+
+
+def after_mark(dev, mark: str):
+    """(the operations that start at or after the end of the last one
+    named like `mark`, that end); every operation and the first start where
+    there is no marker."""
+    marks = [b for a, b, n in dev if mark in n]
+    if not marks:
+        return dev, min((a for a, _, _ in dev), default=0.0)
+    end = max(marks)
+    return [(a, b, n) for a, b, n in dev
+            if a >= end and mark not in n], end
 
 
 def summarize(dev, spans, lo: float, window_s: float, top: int = 10) -> dict:

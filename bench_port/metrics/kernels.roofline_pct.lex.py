@@ -11,7 +11,7 @@ UNIT = "%"
 BETTER = "higher"
 SOURCE = "device_trace"
 LAYER = "kernels (csrc/*.cu, the card)"
-MOVES = "qps"
+MOVES = "kernel_us_per_query"
 
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12

@@ -7,7 +7,7 @@ UNIT = "us/query"
 BETTER = "lower"
 SOURCE = "program_span"
 LAYER = "search (search.py: parse, tail merge, finalize)"
-MOVES = "qps"
+MOVES = "kernel_us_per_query"
 
 
 def read(run):

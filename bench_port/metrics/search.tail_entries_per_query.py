@@ -7,7 +7,7 @@ UNIT = "entries/query"
 BETTER = "lower"
 SOURCE = "program_counter"
 LAYER = "search (search.py: parse, tail merge, finalize)"
-MOVES = "qps"
+MOVES = "kernel_us_per_query"
 
 
 def read(run):

@@ -6,7 +6,7 @@ UNIT = "ms"
 BETTER = "lower"
 SOURCE = "program_span"
 LAYER = "WAND dispatch (ops/wand.py: K1, K6, K5, glue, fetch)"
-MOVES = "qps"
+MOVES = "kernel_us_per_query"
 
 
 def read(run):

@@ -6,7 +6,7 @@ UNIT = "1/kquery"
 BETTER = "lower"
 SOURCE = "program_counter"
 LAYER = "WAND routing (ops/wand.wand_auto)"
-MOVES = "qps"
+MOVES = "kernel_us_per_query"
 
 
 def read(run):

@@ -13,9 +13,10 @@ seconds a run that found no cached index spent building it, left out of
 setup_s; 0 otherwise), and last the numbers the check compared with their
 limits, which also end standard error.
 
---trace 0 reports the cell's end-to-end metrics; --trace 1 runs the window
-under torch.profiler with host spans and reports the per-layer metrics that
-BENCHMARK.json lists for the cell.
+--trace 0 reports the cell's end-to-end metrics (with torch.profiler
+recording the card alone where one of them reads the device trace); --trace
+1 runs the window under torch.profiler with host spans and reports the
+per-layer metrics that BENCHMARK.json lists for the cell.
 """
 
 from __future__ import annotations
@@ -96,12 +97,14 @@ def io_counts() -> str:
 
 
 def cache_key(config: dict) -> str:
-    """Hash of the configuration, the generators, the index build and the
-    port's sources: a tree never opens an index another tree built."""
+    """Hash of the configuration, the generators, the index build (its
+    kind's file), the plain references (the build saves what they read) and
+    the port's sources: a tree never opens an index another tree built."""
     h = hashlib.sha256(json.dumps(config, sort_keys=True).encode())
     paths = set()
     for pat in PORT_SOURCES + ("bench_port/gen/*.py",
-                               "bench_port/harness/systems.py"):
+                               f"bench_port/kinds/{config['kind']}.py",
+                               "bench_port/reference/*.py"):
         paths.update(p for p in ROOT.glob(pat) if p.is_file()
                      and "__pycache__" not in p.parts)
     for p in sorted(paths):
@@ -138,10 +141,10 @@ def build(config: dict, device: str, where: Path) -> int:
     """The build process: the committed index into `where`; fails, and
     leaves the cache unready, where it loaded JAX or the JAX package."""
     import seekstorm_tpu_torch as st
-    from harness.systems import SYSTEMS
 
     t0 = time.perf_counter()
-    SYSTEMS[config["kind"]](config, None, 0).build(st, where, device)
+    files.load_kind(config["kind"]).System(config, None, 0).build(
+        st, where, device)
     bad = forbidden_modules()
     if bad:
         log(f"forbidden modules loaded by the build: {', '.join(bad)}")
@@ -177,10 +180,9 @@ def run_cell(cell: dict, config: dict, seed: int, seconds: float,
 
     import seekstorm_tpu_torch as st
     from harness.loop import closed_loop
-    from harness.systems import SYSTEMS
-    from harness.trace import Trace
+    from harness.trace import DeviceTrace, Trace
 
-    system = SYSTEMS[config["kind"]](config, cell, seed)
+    system = files.load_kind(config["kind"]).System(config, cell, seed)
     where, build_s = cached_index(config, device, cache)
     log(f"[setup] cache {where.name}: " + (
         f"built in {build_s:.1f} s, reported apart as index_build_s and "
@@ -195,6 +197,15 @@ def run_cell(cell: dict, config: dict, seed: int, seconds: float,
         return st.search_batch(idx, rs, device=device)
     if fault is not None:
         search = fault(search)
+    # an untraced run of a cell with an end-to-end metric read from the
+    # device trace records the card alone, from the window's first request
+    # on (the control's runs report no metric that counts)
+    mods = files.metric_modules()
+    dtr = (DeviceTrace(torch) if not (trace or control) and any(
+        mods[n].SOURCE == "device_trace" for n in cell["end_to_end"])
+        else None)
+    if dtr is not None:
+        search = dtr.counting(search)
 
     # warm every query of the pool, in batches of the cell's size
     t_w = time.perf_counter()
@@ -205,12 +216,7 @@ def run_cell(cell: dict, config: dict, seed: int, seconds: float,
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    extra = {}
-    if config["kind"] == "vector":
-        dev_state = idx.vectors.device(idx.shards[0], torch.device(device))
-        extra = dict(n_clusters=int(dev_state["n_clusters"]),
-                     n_rows=int(dev_state["n_rows"]), dim=int(
-                         config["vector"]["dim"]))
+    extra = system.readings(idx, device)
     log(f"[setup] tail {n_tail}, pool {len(reqs)}, warm-up {n_warm} batches "
         f"in {time.perf_counter() - t_w:.1f} s")
 
@@ -223,13 +229,21 @@ def run_cell(cell: dict, config: dict, seed: int, seconds: float,
                       else lambda name: contextlib.nullcontext())
     if tr is not None:
         tr.stop()
+    if dtr is not None:
+        dtr.stop()
     snap1 = st.METRICS.snapshot()
+    log(f"[window] {run['done']} queries answered in {run['elapsed_s']:.3f}"
+        f" s: {run['done'] / max(run['elapsed_s'], 1e-9):.1f} queries/s" + (
+            f"; the device trace counted {dtr.queries}, from "
+            f"{dtr.t0 - run['t_start']:.1f} s on" if dtr is not None
+            and dtr.marked else ""))
     setup_s = start_age + (run["t_start"] - t_import) - build_s
     peak = (max(torch.cuda.max_memory_allocated(d)
                 for d in range(int(cell["chips"])))
             if device != "cpu" else 0)
     trace_sum = tr.summary() if tr is not None else None
-    del idx, search, tr
+    device_sum = dtr.summary() if dtr is not None else trace_sum
+    del idx, search, tr, dtr
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
@@ -247,7 +261,8 @@ def run_cell(cell: dict, config: dict, seed: int, seconds: float,
 
     rec = RunRecord(cell=cell, config=config, seconds=seconds,
                     setup_s=setup_s, run=run, snap0=snap0, snap1=snap1,
-                    trace=trace_sum, system=system, extra=extra)
+                    trace=trace_sum, device_trace=device_sum,
+                    system=system, extra=extra)
     dev = {"platform": "gpu" if device != "cpu" else "cpu",
            "kind": (torch.cuda.get_device_name(0) if device != "cpu"
                     else "cpu"),
@@ -289,7 +304,9 @@ def _result(record, cell, trace, trace_sum, numbers, check, dev, run,
 class RunRecord:
     """What a metric's ``read`` sees: the cell and configuration, the
     window's requests (``run``), the program's METRICS before and after the
-    window, the trace summary (traced runs), the served work."""
+    window, the trace summary (``trace``: traced runs), the device trace's
+    summary (``device_trace``: traced runs, and untraced runs of a cell
+    with an end-to-end metric read from it), the served work."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)

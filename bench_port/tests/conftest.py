@@ -1,5 +1,6 @@
 """Shared set-up of the benchmark's CPU tests: the harness's folders on the
-path, the ``card`` marker, and cells cut to a size a CPU test can hold."""
+path, the ``card`` marker, and cells cut to a size a CPU test can hold (each
+kind's ``TINY``)."""
 
 from __future__ import annotations
 
@@ -13,14 +14,6 @@ for p in (str(HERE), str(HERE.parent)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# name -> (config sizes, cell sizes) for the CPU
-TINY = {
-    "text": ({"n_docs": 20_000}, {"pool": 192, "batch": 64, "tail": 200}),
-    "vector": ({"n_vectors": 12_000}, {"pool": 96, "batch": 32,
-                                       "tail": 200}),
-}
-
-
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs an NVIDIA card (skips inside the test "
@@ -28,12 +21,12 @@ def pytest_configure(config):
 
 
 def tiny(name: str):
-    """(cell, config) of a cell, cut to TINY's sizes."""
+    """(cell, config) of a cell, cut to its kind's TINY sizes."""
     from harness import files
 
     cell = files.load_cell(name)
     config = files.load_config(cell["config"])
-    c_over, cell_over = TINY[config["kind"]]
+    c_over, cell_over = files.load_kind(config["kind"]).TINY
     config.update(c_over)
     cell.update(cell_over)
     cell["check"] = dict(cell["check"], sample=48)

@@ -21,7 +21,8 @@ NEW = {
                             "vector.merge_us_per_query"],
 }
 BEFORE = {
-    "wiki1m.topkcount_b512": ["entry.batch_p95_ms", "search.host_us_per_query",
+    "wiki1m.topkcount_b512": ["entry.batch_p95_ms.lex", "entry.qps.lex",
+                              "search.host_us_per_query",
                               "wand.dispatch_ms", "wand.fallbacks_per_kq"],
     "sift1m.nprobe16_b64": ["entry.batch_p95_ms"],
 }

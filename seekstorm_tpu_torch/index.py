@@ -687,8 +687,10 @@ class Index:
                     # concurrent per-shard interleaving)
                     for j, (oi, d) in enumerate(chunk):
                         ids[oi] = (base + first + j) * self.shard_count + si
-                        if self.vectors is not None:
-                            self.vectors.ingest(sh.shard_id, first + j, d)
+                    if self.vectors is not None:
+                        self.vectors.ingest(
+                            sh.shard_id,
+                            [(first + j, d) for j, (_, d) in enumerate(chunk)])
                     if sh.level0.doc_count >= BLOCK_SIZE:
                         with self._lock:
                             self._commit_shard(sh, reload=False)
@@ -740,7 +742,7 @@ class Index:
             )
             gid = (base + local) * self.shard_count + shard.shard_id
             if self.vectors is not None:
-                self.vectors.ingest(shard.shard_id, local, doc)
+                self.vectors.ingest(shard.shard_id, [(local, doc)])
             if shard.level0.doc_count >= BLOCK_SIZE:
                 # bulk-ingest fast path: pack the full level but defer the
                 # O(levels) directory/HBM rebuild until the next search or
@@ -851,7 +853,7 @@ class Index:
             )
             gid = (base + local) * self.shard_count + shard.shard_id
             if self.vectors is not None:
-                self.vectors.ingest(shard.shard_id, local, doc)
+                self.vectors.ingest(shard.shard_id, [(local, doc)])
             if shard.level0.doc_count >= BLOCK_SIZE:
                 self._commit_shard(shard, reload=False)
         return gid

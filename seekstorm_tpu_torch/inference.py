@@ -59,6 +59,10 @@ def _resolve_predefined(name: str) -> Path | None:
     return None
 
 
+# texts a gather in Model2Vec.encode: [block, tokens, dim] float32 at once
+_ENCODE_BLOCK = 4096
+
+
 class Model2Vec:
     """Static-embedding model: tokenize -> gather -> mean-pool."""
 
@@ -102,14 +106,24 @@ class Model2Vec:
         return cls(emb, tok)
 
     def encode(self, texts: list[str]) -> np.ndarray:
-        """Mean-pooled embeddings [n, dim]."""
+        """Mean-pooled embeddings [n, dim], bit for bit each text's
+        ``embeddings[ids].mean(axis=0)``: texts of one token count are
+        gathered together, ``_ENCODE_BLOCK`` at a time, and summed over
+        their tokens in order (the sequential float32 sum of that mean)."""
         out = np.zeros((len(texts), self.dim), dtype=np.float32)
+        by_len: dict[int, list[int]] = {}
+        ids = []
         for i, t in enumerate(texts):
-            ids = self._token_ids(t)
-            if len(ids):
-                ids = ids[ids < len(self.embeddings)]
-            if len(ids):
-                out[i] = self.embeddings[ids].mean(axis=0)
+            a = self._token_ids(t)
+            a = a[a < len(self.embeddings)]
+            ids.append(a)
+            if len(a):
+                by_len.setdefault(len(a), []).append(i)
+        for n, rows in by_len.items():
+            for b in range(0, len(rows), _ENCODE_BLOCK):
+                r = rows[b:b + _ENCODE_BLOCK]
+                x = self.embeddings[np.stack([ids[i] for i in r])]
+                out[r] = np.add.reduce(x, axis=1) / n
         return out
 
     def _token_ids(self, text: str) -> np.ndarray:

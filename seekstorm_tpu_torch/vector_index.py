@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .clustering import cluster_level
+from .metrics import METRICS
 from .quantize import (
     QuantizedBatch,
     pad_dim,
@@ -104,26 +105,38 @@ class IndexVectors:
                 self.cfg.dim = self.model.dim
 
     # ------------------------------------------------------------------
-    def ingest(self, shard_id: int, level_local_docid: int, doc: dict) -> None:
-        """Extract external embeddings from a document
-        (reference external-inference ingest, vector.rs:544-746)."""
-        sv = self.shards[shard_id]
-        for sf in self.vector_fields:
-            val = doc.get(sf.field)
-            if val is None:
-                continue
-            if self.model is not None and isinstance(val, str):
-                # internal inference: chunk + embed (reference vector.rs:561)
-                from .inference import chunk_text
+    def ingest(self, shard_id: int, docs: list[tuple[int, dict]]) -> None:
+        """The vectors of (level-local doc id, document) pairs, in order:
+        external embeddings as given (reference external-inference ingest,
+        vector.rs:544-746), text fields chunked and embedded, the chunks of
+        all the documents in one call (reference vector.rs:500 embeds a
+        shard's chunks 256 at a time)."""
+        with METRICS.timer("vector_ingest"):
+            self._ingest(self.shards[shard_id], docs)
 
-                chunks = chunk_text(val, self.cfg.chunk_size)
-                vecs = list(self.model.encode(chunks)) if chunks else []
-            else:
-                vecs = self._as_vectors(val)
-            for ci, v in enumerate(vecs):
-                sv.level0.append(
-                    (level_local_docid, sf.vector_field_id, ci, v)
-                )
+    def _ingest(self, sv: ShardVectors, docs) -> None:
+        rows = []          # (doc id, field id, chunk id, vector or None)
+        texts = []         # chunks to embed, one a None row above
+        for local, doc in docs:
+            for sf in self.vector_fields:
+                val = doc.get(sf.field)
+                if val is None:
+                    continue
+                if self.model is not None and isinstance(val, str):
+                    # internal inference: chunk + embed (reference
+                    # vector.rs:561)
+                    from .inference import chunk_text
+
+                    chunks = chunk_text(val, self.cfg.chunk_size)
+                    texts.extend(chunks)
+                    vecs = [None] * len(chunks)
+                else:
+                    vecs = self._as_vectors(val)
+                rows.extend((local, sf.vector_field_id, ci, v)
+                            for ci, v in enumerate(vecs))
+        embedded = iter(self.model.encode(texts) if texts else ())
+        sv.level0.extend(r if r[3] is not None else
+                         (r[0], r[1], r[2], next(embedded)) for r in rows)
 
     def _as_vectors(self, val) -> list[np.ndarray]:
         if isinstance(val, np.ndarray):
@@ -140,6 +153,10 @@ class IndexVectors:
     def pack_shard_level(self, shard, lvl_path: Path, lvl_id: int) -> None:
         """Quantize + cluster + persist this shard's level-0 vectors as the
         level's vector section (called from Index._commit_shard)."""
+        with METRICS.timer("vector_pack"):
+            self._pack_shard_level(shard, lvl_path, lvl_id)
+
+    def _pack_shard_level(self, shard, lvl_path: Path, lvl_id: int) -> None:
         sv = self.shards[shard.shard_id]
         rows = sv.level0
         d = self.cfg.dim

@@ -68,13 +68,12 @@ def vector_search_batch(index: Index, requests, device) -> list:
             )
         # embed query strings with the index's Model2Vec model
         missing = [i for i, r in enumerate(requests) if r.query_vector is None]
-        embs = model.encode([requests[i].query for i in missing])
-        import dataclasses as _dc
-
+        with METRICS.timer("vector_embed"):
+            embs = model.encode([requests[i].query for i in missing])
         requests = list(requests)
         for j, i in enumerate(missing):
-            requests[i] = _dc.replace(requests[i],
-                                      query_vector=embs[j].tolist())
+            requests[i] = dataclasses.replace(requests[i],
+                                              query_vector=embs[j].tolist())
         req0 = requests[0]
     xp, qb = _quantize_queries(index, requests)
     euclidean = vc.similarity == VectorSimilarity.Euclidean
@@ -85,6 +84,9 @@ def vector_search_batch(index: Index, requests, device) -> list:
     with_counts = req0.result_type in (ResultType.Count, ResultType.TopkCount)
     need = req0.offset + req0.length
     k = ceil_pow2(max(need, req0.top_n, 10) * 2, 16)
+    # each query's list must hold its page's distinct docs: a doc may have
+    # several rows (chunks), so k rows can hold fewer (_widened)
+    need_q = np.array([r.offset + r.length for r in requests], np.int64)
 
     cand: list[list] = [[] for _ in range(B)]
     counts = np.zeros(B, np.int64)
@@ -131,13 +133,13 @@ def vector_search_batch(index: Index, requests, device) -> list:
                     for sh in index.shards)):
         _scan_committed_mesh(
             index, mesh, qb, mode, np_eff, score_min, cluster_thr,
-            with_counts, k, use_ff, _field_ok, euclidean,
+            with_counts, k, need_q, use_ff, _field_ok, euclidean,
             cand, counts, obs_cl, obs_vec)
     elif index.vectors is not None:
         for shard in index.shards:
             _scan_committed_shard(
                 index, shard, qb, mode, np_eff, score_min, cluster_thr,
-                with_counts, k, use_ff, _field_ok, euclidean,
+                with_counts, k, need_q, use_ff, _field_ok, euclidean,
                 cand, counts, obs_cl, obs_vec, device)
 
     with METRICS.timer("vector_tail"):
@@ -173,6 +175,10 @@ def vector_search_batch(index: Index, requests, device) -> list:
                     sc = np.where(ok, sc, -np.inf)
                     counts += ok.sum(axis=1)
                     obs_vec += len(docid)  # the whole tail is scanned
+                    if len(docid) > 1 and not (np.diff(docid) > 0).all():
+                        # several rows a doc (chunks): each doc's best row,
+                        # so the top k below are k distinct docs
+                        sc, docid = _best_row_per_doc(sc, docid)
                     tgids = (docid.astype(np.int64) * index.shard_count
                              + shard.shard_id)
                     for qi in range(B):
@@ -185,6 +191,7 @@ def vector_search_batch(index: Index, requests, device) -> list:
 
     with METRICS.timer("vector_merge"):
         out = []
+        n_rows = n_docs = 0
         for qi, r in enumerate(requests):
             rs = ResultSet()
             if cand[qi]:
@@ -197,6 +204,8 @@ def vector_search_batch(index: Index, requests, device) -> list:
                 gs, ss = g[order], s[order]
                 uniq_g, first = np.unique(gs, return_index=True)
                 us = ss[first]
+                n_rows += len(s)
+                n_docs += len(uniq_g)
                 rank = np.lexsort((uniq_g, -us))
                 n_ranked = len(rank)
                 page = rank[r.offset : r.offset + r.length]
@@ -219,6 +228,8 @@ def vector_search_batch(index: Index, requests, device) -> list:
 
             _attach_docs(index, r, rs)
             out.append(rs)
+        METRICS.inc("vector_candidates_total", n_rows)
+        METRICS.inc("vector_docs_total", n_docs)
     return out
 
 
@@ -251,21 +262,66 @@ def hybrid_search_batch(index: Index, requests, device) -> list:
     vec = vector_search_batch(index, vec_reqs, device)
 
     out = []
-    for r, lr, vr in zip(requests, lex, vec):
-        fused: dict[int, float] = {}
-        for rank, res in enumerate(lr.results):
-            fused[res.doc_id] = fused.get(res.doc_id, 0.0) + 1.0 / (RRF_K + rank)
-        for rank, res in enumerate(vr.results):
-            fused[res.doc_id] = fused.get(res.doc_id, 0.0) + 1.0 / (RRF_K + rank)
-        ranked = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))
-        rs = ResultSet()
-        page = ranked[r.offset : r.offset + r.length]
-        rs.results = [ResultObject(doc_id=g, score=s) for g, s in page]
-        rs.result_count = len(rs.results)
-        rs.result_count_total = len(ranked)
-        _attach_docs(index, r, rs)
-        out.append(rs)
+    with METRICS.timer("hybrid_fuse"):
+        for r, lr, vr in zip(requests, lex, vec):
+            fused: dict[int, float] = {}
+            for rank, res in enumerate(lr.results):
+                fused[res.doc_id] = (fused.get(res.doc_id, 0.0)
+                                     + 1.0 / (RRF_K + rank))
+            for rank, res in enumerate(vr.results):
+                fused[res.doc_id] = (fused.get(res.doc_id, 0.0)
+                                     + 1.0 / (RRF_K + rank))
+            ranked = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))
+            rs = ResultSet()
+            page = ranked[r.offset : r.offset + r.length]
+            rs.results = [ResultObject(doc_id=g, score=s) for g, s in page]
+            rs.result_count = len(rs.results)
+            rs.result_count_total = len(ranked)
+            _attach_docs(index, r, rs)
+            out.append(rs)
     return out
+
+
+def _best_row_per_doc(sc: np.ndarray, docid: np.ndarray):
+    """sc [B, R] row scores and docid [R] (several rows a doc) to each
+    doc's best score [B, D] and the docs [D], ascending."""
+    order = np.argsort(docid, kind="stable")
+    d = docid[order]
+    start = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
+    return np.maximum.reduceat(sc[:, order], start, axis=1), d[start]
+
+
+def _short_lists(ts: np.ndarray, gid: np.ndarray, need: np.ndarray,
+                 k: int) -> np.ndarray:
+    """Positions of the queries some of whose sources' lists (ts, gid
+    [n, S*k]: S lists of k rows, best first, -inf past the matches) are
+    full and hold fewer distinct docs than the query's `need`: rows past
+    the k-th may hold docs its page needs."""
+    n = len(ts)
+    full = np.isfinite(ts.reshape(n, -1, k)[:, :, -1])
+    g = np.sort(gid.reshape(n, -1, k), axis=2)
+    distinct = 1 + (g[:, :, 1:] != g[:, :, :-1]).sum(axis=2)
+    return np.flatnonzero((full & (distinct < need[:, None])).any(axis=1))
+
+
+def _widened(scan, k: int, need: np.ndarray):
+    """Each query's (scores, gids) rows from `scan(queries, k)` (numpy
+    [n, S*k] each, S sources' lists of k rows; queries None: the whole
+    batch), the queries whose lists fall short rescanned at twice the
+    rows until every source's list holds the query's `need` distinct docs
+    or every row that matches.  Counts the widened queries in
+    ``vector_widened_total``."""
+    ts, gid = scan(None, k)
+    rows = list(zip(ts, gid))
+    todo = _short_lists(ts, gid, need, k)
+    METRICS.inc("vector_widened_total", len(todo))
+    while len(todo):
+        k *= 2
+        ts, gid = scan(todo, k)
+        for j, qi in enumerate(todo):
+            rows[qi] = (ts[j], gid[j])
+        todo = todo[_short_lists(ts, gid, need[todo], k)]
+    return rows
 
 
 def deleted_mask(shard: Shard, device) -> torch.Tensor:
@@ -288,14 +344,14 @@ def deleted_mask(shard: Shard, device) -> torch.Tensor:
 
 
 def _scan_committed_shard(index, shard, qb, mode, np_eff, score_min,
-                          cluster_thr, with_counts, k, use_ff, field_ok_fn,
-                          euclidean, cand, counts, obs_cl, obs_vec, device):
+                          cluster_thr, with_counts, k, need, use_ff,
+                          field_ok_fn, euclidean, cand, counts, obs_cl,
+                          obs_vec, device):
     """Committed scan of one shard on `device` (reference
     search_vector_shard, vector.rs:1202)."""
     from .ops.vector import medoid_select, vector_scan_topk
     from .vector_index import TILE
 
-    B = len(score_min)
     dev = index.vectors.device(shard, device)
     if dev["n_rows"] <= 0:
         return
@@ -307,8 +363,8 @@ def _scan_committed_shard(index, shard, qb, mode, np_eff, score_min,
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        qargs = (put(qd), put(qb.scale), put(qb.zp), put(qb.qsum),
-                 put(qb.norm2))
+        q_host = (qd, qb.scale, qb.zp, qb.qsum, qb.norm2)
+        qargs = tuple(put(a) for a in q_host)
         exhaustive = mode == AnnMode.All or dev["n_clusters"] <= 1
         crs = dev["cluster_row_start"]
         tile_ids = np.zeros(0, np.int32)
@@ -341,32 +397,39 @@ def _scan_committed_shard(index, shard, qb, mode, np_eff, score_min,
         tid = np.full(nt_pad, -1, np.int32)
         tid[: len(tile_ids)] = tile_ids
 
-        field_ok = field_ok_fn(dev["nf_pad"])
-        ts, rows, cnt = vector_scan_topk(
-            dev["data"], dev["scale"], dev["zp"], dev["qsum"], dev["norm2"],
-            dev["docid"], dev["fieldid"],
-            deleted_mask(shard, device),
-            put(tid), put(field_ok),
-            *qargs, put(score_min),
-            k=k, quantized=quantized, euclidean=euclidean,
-            with_counts=with_counts, exhaustive=exhaustive,
-            use_field_filter=use_ff,
-        )
-        ts, rows, cnt = ts.cpu().numpy(), rows.cpu().numpy(), cnt.cpu().numpy()
-        counts += cnt
+        field_ok = put(field_ok_fn(dev["nf_pad"]))
+        tid = put(tid)
+        deleted = deleted_mask(shard, device)
         h_doc = dev["h_docid"]
-        gids_all = (h_doc[rows].astype(np.int64) * index.shard_count
-                    + shard.shard_id)                     # [B, k]
-        finite = np.isfinite(ts)
-        for qi in range(B):
-            m = finite[qi]
+
+        def scan(sub, kk):
+            whole = sub is None
+            ts, rows, cnt = vector_scan_topk(
+                dev["data"], dev["scale"], dev["zp"], dev["qsum"],
+                dev["norm2"], dev["docid"], dev["fieldid"], deleted, tid,
+                field_ok,
+                *(qargs if whole else (put(a[sub]) for a in q_host)),
+                put(score_min if whole else score_min[sub]),
+                k=kk, quantized=quantized, euclidean=euclidean,
+                with_counts=with_counts and whole, exhaustive=exhaustive,
+                use_field_filter=use_ff,
+            )
+            if whole:
+                counts[:] += cnt.cpu().numpy()
+            rows = rows.cpu().numpy()
+            return ts.cpu().numpy(), (h_doc[rows].astype(np.int64)
+                                      * index.shard_count + shard.shard_id)
+
+        for qi, (ts, gids) in enumerate(_widened(scan, k, need)):
+            m = np.isfinite(ts)
             if m.any():
-                cand[qi].append((ts[qi][m], gids_all[qi][m]))
+                cand[qi].append((ts[m], gids[m]))
 
 
 def _scan_committed_mesh(index, mesh, qb, mode, np_eff, score_min,
-                         cluster_thr, with_counts, k, use_ff, field_ok_fn,
-                         euclidean, cand, counts, obs_cl, obs_vec):
+                         cluster_thr, with_counts, k, need, use_ff,
+                         field_ok_fn, euclidean, cand, counts, obs_cl,
+                         obs_vec):
     """Committed scan over a mesh (the reference's _scan_committed_mesh,
     vector_search.py:331-416): the positions hold their shards' vectors
     (``IndexVectors.device_stacked``); one medoid pass selects each shard's
@@ -422,16 +485,24 @@ def _scan_committed_mesh(index, mesh, qb, mode, np_eff, score_min,
                                           p["device"])
                              for j in range(SL)])
             for d, p in enumerate(dev["positions"])]
-        ts, gid, cnt = vector_scan_mesh(
-            positions, tid, field_ok_fn(dev["nf_pad"]), q, score_min, S=S, k=k,
-            quantized=quantized, euclidean=euclidean, with_counts=with_counts,
-            exhaustive=exhaustive, use_field_filter=use_ff,
-            pool_tiles=dev["n_tiles"], lead=mesh.lead)
-        ts, gid, cnt = ts.cpu().numpy(), gid.cpu().numpy(), cnt.cpu().numpy()
-        counts += cnt
-        finite = np.isfinite(ts)
-        for qi in range(len(score_min)):
-            m = finite[qi]
+        field_ok = field_ok_fn(dev["nf_pad"])
+
+        def scan(sub, kk):
+            whole = sub is None
+            ts, gid, cnt = vector_scan_mesh(
+                positions, tid, field_ok,
+                q if whole else tuple(a[sub] for a in q),
+                score_min if whole else score_min[sub], S=S, k=kk,
+                quantized=quantized, euclidean=euclidean,
+                with_counts=with_counts and whole,
+                exhaustive=exhaustive, use_field_filter=use_ff,
+                pool_tiles=dev["n_tiles"], lead=mesh.lead)
+            if whole:
+                counts[:] += cnt.cpu().numpy()
+            return ts.cpu().numpy(), gid.cpu().numpy()
+
+        for qi, (ts, gid) in enumerate(_widened(scan, k, need)):
+            m = np.isfinite(ts)
             if m.any():
-                cand[qi].append((ts[qi][m].astype(np.float32),
-                                 gid[qi][m].astype(np.int64)))
+                cand[qi].append((ts[m].astype(np.float32),
+                                 gid[m].astype(np.int64)))

@@ -29,6 +29,14 @@ from seekstorm_tpu_torch import api_types as port_api
 from seekstorm_tpu_torch import ingest as port_ingest
 from seekstorm_tpu_torch.pdftext import extract_text
 from test_pdf import make_pdf
+from test_torch_native import native_for_both
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_library():
+    """Both packages on the native library (test_torch_native's
+    native_for_both)."""
+    native_for_both()
 
 
 def _both_extract(pdf):

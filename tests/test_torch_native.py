@@ -17,6 +17,8 @@ disagree (scores within 2% of the all-docs oracle, ids within 1e-3 of its
 scores); the port's pages and counts equal the reference's bit for bit.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -47,6 +49,24 @@ class _CommittedAvg(BruteForce):
         norm_lens, _ = super()._shard_stats(sdocs)
         _, avg = super()._shard_stats(sdocs[: self.n_committed])
         return norm_lens, avg
+
+
+def native_for_both():
+    """native/'s library, built through the port's locked build, and the
+    JAX package's loader let look again where it found none.
+
+    Test workers start together.  Where the library is missing, the JAX
+    package's loader runs `make` in native/ with no lock, and a worker
+    whose `make` loses the race to another's keeps "no library" for the
+    rest of its run: it then cannot read what the port wrote with the
+    native library (the compact posting format, Lz4 doc blobs)."""
+    from seekstorm_tpu import native as ref_native
+    from seekstorm_tpu_torch import native
+
+    native.build_library(Path(native.__file__).resolve().parents[1]
+                         / "native")
+    if ref_native._LIB is None:
+        ref_native._TRIED = False
 
 
 def _top(expected, k=10):

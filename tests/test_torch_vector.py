@@ -37,7 +37,16 @@ import seekstorm_tpu_torch as pt
 from seekstorm_tpu.ops import vector as ref_vec
 from seekstorm_tpu_torch.ops import vector as V
 from seekstorm_tpu_torch.ops import vector_scan as vs
+from test_torch_native import native_for_both
 from test_torch_search import _Pair, _to_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_library():
+    """Both packages on the native library (test_torch_native's
+    native_for_both)."""
+    native_for_both()
+
 
 EPS = 2.0 ** -24
 T = 256

@@ -14,10 +14,11 @@ all.  The host's speed drifts over a run, so the three ways take turns.
 
 Prints the median batch time of each way, the sessions' start and stop
 times, the share of ``search_batch``'s seconds each METRICS timer took in
-the untraced batches, the spans a batch in the written traces, the share
-of the card's kernels that lie inside a ``search_batch`` span (the spans
-and the device events on one clock), and a check of the clock pairing:
-``record_function`` markers read against ``time.time_ns()``.
+the untraced batches and the counters they moved, the spans a batch in
+the written traces, the share of the card's kernels that lie inside a
+``search_batch`` span (the spans and the device events on one clock), and
+a check of the clock pairing: ``record_function`` markers read against
+``time.time_ns()``.
 """
 
 from __future__ import annotations
@@ -97,7 +98,6 @@ def main(argv=None) -> int:
 
     import seekstorm_tpu_torch as st
     from harness import files
-    from harness.systems import SYSTEMS
     from seekstorm_tpu_torch import metrics
 
     dev = args.device
@@ -113,7 +113,8 @@ def main(argv=None) -> int:
 
     cell = files.load_cell(args.cell)
     config = files.load_config(cell["config"])
-    system = SYSTEMS[config["kind"]](config, cell, args.seed)
+    system = files.load_kind(config["kind"]).System(config, cell,
+                                                     args.seed)
     where, _ = run.cached_index(config, dev, files.CACHE)
     idx = system.open(st, where, dev)
     system.ingest_tail(idx)
@@ -127,7 +128,7 @@ def main(argv=None) -> int:
 
     times = {w: [] for w in WAYS}
     t_start, t_stop, paths = [], [], []
-    shares, total = {}, 0.0
+    shares, total, counts = {}, 0.0, {}
     nxt = 0
     for r in range(-(-args.batches // args.block)):
         for way in WAYS[r % 3:] + WAYS[:r % 3]:
@@ -164,6 +165,9 @@ def main(argv=None) -> int:
                         name = k[:-len("_seconds_total")]
                         shares[name] = (shares.get(name, 0.0) + v
                                         - s0.get(k, 0.0))
+                    elif k.endswith("_total") and not k.endswith(
+                            "_seconds_total"):
+                        counts[k] = counts.get(k, 0.0) + v - s0.get(k, 0.0)
 
     med = {w: statistics.median(v) * 1e3 for w, v in times.items()}
     tr = read_traces(paths)
@@ -186,6 +190,8 @@ def main(argv=None) -> int:
           f"({100.0 * tr['inside'] / max(tr['kernels'], 1):.2f}%)")
     print(f"% of search_batch ({total:.3f} s) by timer, untraced batches:",
           {k: round(100 * v / total, 2) for k, v in shares.items()})
+    print("counters over the untraced batches:",
+          {k: v for k, v in counts.items() if v})
     for w in WAYS:
         print(f"batch ms {w}:", [round(x * 1e3, 2) for x in times[w]])
     return 0

@@ -124,6 +124,12 @@ Phases, each printing what it found:
              ties at the shared threshold: 40 copies of one tile, 40
              queries at all tiles and at 32 selected (G = kk = 32), 1
              query at 32 selected, 449 queries at k=16 (G = kk = 16);
+             then pages of 33-64, the running scan's 64-entry lists
+             (phase_k4_deep): i8 and f32, dot and Euclidean, 1, 64 and
+             128 queries, all tiles and 4 selected with -1 padding under
+             a field filter, k 33 and 64, 64 queries in 132 ranges of 64
+             over 264 tiles, ties at the threshold on 70 copies of one
+             tile, no call on the per-tile scan (k4_per_tile_total);
              i8 bitwise equal (scores, rows, counts), f32 within the bound
              of a different sum order (2.1*d*2^-24*sum|q_i r_i|, doubled
              for Euclidean); at the serving shape (B=64, 1,048,576 rows,
@@ -152,7 +158,10 @@ Phases, each printing what it found:
              "cpu" exactly, recall at nprobe 16 and 33 within 0.02 of
              "cpu"'s (the global re-cluster runs on each device); 64
              hybrid requests (bench.make_queries text with the proxy's
-             vectors) equal to "cpu" exactly;
+             vectors) equal to "cpu" exactly; a warm hybrid batch of 64 at
+             All and at Nprobe 16 (k = 64): one K4 call on the running
+             scan (k4_per_tile_total unmoved), bitwise equal to
+             vector_scan_ref;
   12. server: python -m seekstorm_tpu_torch.server device=cuda as a
              subprocess over a tenancy root (one API key) holding copies of
              phase 4's and phase 11's committed indexes (nvidia-smi lists
@@ -2858,6 +2867,7 @@ def phase_k4(torch):
         n_ties += 1
     print(f"[K4] {n_ties} cases with ties at the shared threshold (40 copies "
           f"of one tile; G = kk and G > kk): i8 bitwise equal")
+    n_deep = phase_k4_deep(torch, g, field_ok, n_sm)
 
     # the serving shape: B=64, 1,048,576 rows, d=128, i8, all tiles, k=32
     B, n_tiles, k = 64, (1 << 20) // 256, 32
@@ -2904,8 +2914,86 @@ def phase_k4(torch):
           f"{'n/a' if int_mm is None else f'{int_mm:.4f} ms'}")
     device_kernels(torch, "K4 serving shape",
                    lambda: vs.vector_scan_cuda(*args, **kw))
-    return dict(err=max_err, ms=ms, plain_ms=plain, bound_ms=bound,
+    return dict(err=max_err, n_deep=n_deep, ms=ms, plain_ms=plain,
+                bound_ms=bound,
                 bound_by=by, library_ms=lib, int_mm_ms=int_mm)
+
+
+def phase_k4_deep(torch, g, field_ok, n_sm):
+    """K4's running scan at pages of 33-64 (its 64-entry lists) against
+    vector_scan_ref: i8 and f32, dot and Euclidean, 1, 64 and 128 queries,
+    all tiles and 4 selected with -1 padding (under a field filter), k 33
+    and 64, on _k4_stress_pool (ties across ranges, a range deleted whole)
+    with _k4_case's threshold that cuts half the queries; 132 ranges of 64
+    (more than 8,192 list entries a query) on 264 tiles; ties at the shared
+    threshold on 70 copies of one tile (G = kk and G > kk).  Every call
+    takes the running scan: k4_per_tile_total does not move.  Returns the
+    number of cases."""
+    from seekstorm_tpu_torch.metrics import METRICS
+    from seekstorm_tpu_torch.ops import vector_scan as vs
+
+    dev = g.device
+    d = 128
+    per_tile0 = METRICS.snapshot().get("k4_per_tile_total", 0)
+    small = torch.tensor([2, 7, -1, -1], dtype=torch.int32, device=dev)
+    cases = []                         # (pool, quantized, B, tiles, k, euclid)
+    for quantized in (True, False):
+        pool = _k4_stress_pool(torch, g, 40, d, quantized)
+        for euclidean in (False, True):
+            for Bs in (1, 64, 128):
+                for tiles in (None, small):
+                    for k in (33, 64):
+                        cases.append((pool, quantized, Bs, tiles, k,
+                                      euclidean))
+        wide = _k4_pool(torch, g, 264, d, quantized)
+        sel = torch.cat([torch.arange(0, 264, 2, dtype=torch.int32,
+                                      device=dev),
+                         torch.full((4,), -1, dtype=torch.int32,
+                                    device=dev)])
+        for tiles in (None, sel):
+            for k in (33, 64):
+                cases.append((wide, quantized, 64, tiles, k, True))
+    n = 0
+    for pool, quantized, Bs, tiles, k, euclidean in cases:
+        qargs = list(_k4_queries(torch, g, Bs, d, quantized))
+        if not quantized and euclidean:
+            qargs[0][0] = 0.0
+            qargs[4][0] = -0.0
+        tol = None if quantized else _f32_tol(torch, pool, qargs, euclidean)
+        NT = pool["data"].shape[0] if tiles is None else tiles.shape[0]
+        G = vs.n_ranges(NT, Bs, k, n_sm)
+        check(G > 0, f"k={k} takes the running scan")
+        tag = (f"deep {'i8' if quantized else 'f32'} "
+               f"{'euclid' if euclidean else 'dot'} B={Bs} "
+               f"{'all' if tiles is None else 'sel'} k={k} NT={NT} G={G}")
+        _k4_case(torch, pool, tiles, field_ok, qargs, tol, tag, k=k,
+                 quantized=quantized, euclidean=euclidean, with_counts=True,
+                 exhaustive=tiles is None, use_field_filter=tiles is not None)
+        n += 1
+    # ties at the shared threshold with 64-entry lists
+    pool = _k4_pool(torch, g, 70, d, True, p_del=0.0)
+    for key in ("data", "scale", "zp", "qsum", "norm2", "fieldid"):
+        pool[key][:] = pool[key][0].clone()
+    first64 = torch.arange(64, dtype=torch.int32, device=dev)
+    for Bs, tiles, k in ((40, None, 64), (1, first64, 64), (3, None, 33),
+                         (64, None, 64)):
+        qargs = _k4_queries(torch, g, Bs, d, True)
+        NT = 70 if tiles is None else tiles.shape[0]
+        tag = (f"deep ties B={Bs} {'all' if tiles is None else 'sel'} k={k} "
+               f"NT={NT} G={vs.n_ranges(NT, Bs, k, n_sm)}")
+        _k4_case(torch, pool, tiles, field_ok, qargs, None, tag, k=k,
+                 quantized=True, euclidean=True, with_counts=True,
+                 exhaustive=tiles is None, use_field_filter=False)
+        n += 1
+    per_tile = METRICS.snapshot().get("k4_per_tile_total", 0) - per_tile0
+    check(per_tile == 0, f"{per_tile} deep-page calls took the per-tile scan")
+    print(f"[K4] {n} cases of pages of 33-64 on the running scan's 64-entry "
+          f"lists (i8 and f32, dot and Euclidean, B 1/64/128, all tiles and "
+          f"4 selected with -1 padding under a field filter, k 33/64, ties "
+          f"across ranges, a threshold that cuts half the queries; B=64 "
+          f"over 264 tiles, 132 ranges of 64; 70 copies of one tile): i8 "
+          f"bitwise equal, f32 within the bound; no per-tile call")
+    return n
 
 
 class _recording_vector_scans:
@@ -3169,6 +3257,36 @@ def phase_vector(torch, st, n_vec=N_VEC, n_tail=N_VEC_TAIL,
           f"{bad[:5]}")
     check(k4 == 1 and not bad and all(rs.results for rs in hyb),
           "hybrid: one K4 launch, full pages, cuda equal to cpu")
+    # a warm hybrid batch's vector list (k = 64: top-20 docs, twice over)
+    # takes the running scan's 64-entry lists, at All (132 ranges of 64)
+    # and at Nprobe 16 (selected tiles, -1 padding): its own K4 result held
+    # bitwise against vector_scan_ref, and k4_per_tile_total unmoved
+    from seekstorm_tpu_torch.metrics import METRICS
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for mode, nprobe in (("All", 0), ("Nprobe", 16)):
+        reqs = _vec_reqs(st, queries[:batch], mode, nprobe,
+                         queries=hq[:batch])
+        st.search_batch(idx, reqs, device="cuda")
+        m0 = METRICS.snapshot()
+        with _recording_vector_scans() as calls:
+            st.search_batch(idx, reqs, device="cuda")
+        m1 = METRICS.snapshot()
+        launches = m1["k4_launches_total"] - m0["k4_launches_total"]
+        per_tile = (m1.get("k4_per_tile_total", 0)
+                    - m0.get("k4_per_tile_total", 0))
+        check(len(calls) == launches == 1 and per_tile == 0,
+              f"hybrid {mode}: one K4 call, on the running scan ({launches} "
+              f"launches, {per_tile} per-tile)")
+        args, kw, got = calls[0]
+        want = V.vector_scan_ref(*args, **kw)
+        torch.cuda.synchronize()
+        _check_k4(torch, got, want, None, None, args[15], kw["k"],
+                  f"hybrid {mode} batch")
+        NT = args[0].shape[0] if kw["exhaustive"] else args[8].shape[0]
+        G = vs.n_ranges(NT, batch, kw["k"], n_sm)
+        print(f"[vector] hybrid {mode} x {batch}, warm: one K4 call (k="
+              f"{kw['k']}, NT={NT}, G={G}), k4_per_tile_total unmoved; "
+              f"bitwise equal to vector_scan_ref (scores, rows, counts)")
     # phase 12 serves this index's committed files from a server and holds
     # its answers against this in-process index (same committed vectors,
     # same tail) and this ground truth

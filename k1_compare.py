@@ -5,7 +5,7 @@ current one on one GPU.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 k1_compare.py build/parent
     python3 k1_compare.py --k3 build/parent
-    python3 k1_compare.py --k4 build/parent/seekstorm_tpu_torch/csrc/vector_scan.cu
+    python3 k1_compare.py --k4 build/parent
     python3 k1_compare.py --k56 build/parent
 
 Both kernels run in this process on the same inputs, in turns (earlier,
@@ -29,19 +29,20 @@ entry point facet_hist_launch has not changed) run in the same turns at the
 shapes of chip_smoke.k3_shapes, their counts must equal the plain version's,
 and each line gives both times beside chip_smoke.k3_bound.
 
-With --k4 an earlier K4 source and the current one run in the same turns
-on chip_smoke.py's K4 serving pool (1,048,576 i8 rows, d=128, Euclidean):
-64 queries at all tiles k=32, 1,024 selected tiles k=32 and all tiles
-k=256; 1 query at all tiles and at the 1,024 selected, and 4 and 16
-queries at all tiles, k=16.  Where the running scan serves the page (k <=
-32) two variants of the current source run in the same turns: built with
--DK4_BUCKETS=0 (no buckets: the shared threshold is gthr alone beside
-each CTA's own kk-th) and routed to its per-tile scan (G = 0).  Every run
-must equal vector_scan_ref bitwise, and each line gives the times beside
-chip_smoke.k4_bound.  The earlier source is the per-tile K4 of commit
-ed057dd (its vector_scan_launch writes each tile's top min(k, 256) as
-[B, NT, kk] scores and rows); it is timed with the merge its wrapper ran,
-one stable sort of the [B, NT*kk] lists (ops/vector.merge_candidates).
+With --k4 the earlier tree's K4 (its csrc/vector_scan.cu, whose C entry
+point vector_scan_launch has not changed, called through its own wrapper,
+ops/vector_scan.py, which picks its route) and the current one run in the
+same turns on chip_smoke.py's K4 pools (i8, d=128, Euclidean): the hybrid
+cell's shape (128 queries, k=64 and k=32, 10,700 selected tiles of 13,203
+padded with -1 to 16,384 slots) and the vector cell's (64 queries at k=32
+over 1,024 selected tiles and over all 4,096 tiles of 1,048,576 rows), and
+64 queries at k=64 over all 4,096 tiles.  Where the current running scan
+serves a page of 33-64 two variants of it run in the same turns: built
+with -DK4_BUCKETS=0 (no buckets: the shared threshold is gthr alone beside
+each CTA's own kk-th), and with G capped at 128 ranges so that 64-entry
+lists fit the merge's 8,192-entry pass (at 64 queries G is 132 and the
+merge takes its 16,384-entry pass).  Every run must equal vector_scan_ref
+bitwise, and each line gives the times beside chip_smoke.k4_bound.
 
 With --k56 the earlier tree's K6 (csrc/wand_rungs.cu) and K5
 (csrc/wand_rescore.cu) and the current ones are built side by side from
@@ -203,148 +204,158 @@ def compare_k3(torch, tree: Path, card) -> list:
     return rows
 
 
-# the earlier K4's C entry point: data, scale, zp, qsum, norm2, docid,
-# fieldid, deleted, n_deleted, field_ok, n_field, tile_ids, NT, q_data,
-# q_scale, q_zp, q_qsum, q_norm2, score_min, B, d, kk, quantized,
-# euclidean, use_ff, with_counts, out_vals, out_rows, counts, stream
-_P, _I = ctypes.c_void_p, ctypes.c_int
-EARLIER_K4 = [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I] * 7 + [_P] * 4
+def compare_k4(torch, tree: Path, card) -> list:
+    """The earlier tree's K4 (source and wrapper) and the current one at
+    the hybrid and vector cells' shapes, in turns, with two variants of the
+    current running scan at pages of 33-64: built without its buckets, and
+    with G capped at 128."""
+    import importlib.util
 
-
-def earlier_k4(torch, lib, args, kw):
-    """The earlier K4 and its wrapper's merge on vector_scan_cuda's
-    arguments."""
-    from seekstorm_tpu_torch.ops import vector as V
-
-    (data, scale, zp, qsum, norm2, docid, fieldid, deleted, tile_ids,
-     field_ok, q_data, q_scale, q_zp, q_qsum, q_norm2, score_min) = args
-    B, d, k = q_data.shape[0], data.shape[2], kw["k"]
-    NT = data.shape[0] if kw["exhaustive"] else tile_ids.shape[0]
-    kt = min(k, 256)
-    vals = torch.empty((B, NT, kt), dtype=torch.float32, device=data.device)
-    rows = torch.empty((B, NT, kt), dtype=torch.int32, device=data.device)
-    counts = torch.zeros(B, dtype=torch.int32, device=data.device)
-    err = lib.vector_scan_launch(
-        data.data_ptr(), scale.data_ptr(), zp.data_ptr(), qsum.data_ptr(),
-        norm2.data_ptr(), docid.data_ptr(), fieldid.data_ptr(),
-        deleted.data_ptr(), deleted.shape[0], field_ok.data_ptr(),
-        field_ok.shape[0], None if kw["exhaustive"] else tile_ids.data_ptr(),
-        NT, q_data.data_ptr(), q_scale.data_ptr(), q_zp.data_ptr(),
-        q_qsum.data_ptr(), q_norm2.data_ptr(), score_min.data_ptr(), B, d,
-        kt, int(kw["quantized"]), int(kw["euclidean"]),
-        int(kw["use_field_filter"]), int(kw["with_counts"]),
-        vals.data_ptr(), rows.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"earlier K4 launch failed (error {err})")
-    ts, out = V.merge_candidates(vals.view(B, NT * kt), rows.view(B, NT * kt),
-                                 k)
-    return ts, out, counts
-
-
-def compare_k4(torch, src: Path, card) -> list:
-    """An earlier K4 source and the current one at chip_smoke's K4 serving
-    shape, in turns, with two variants of the current one where the
-    running scan serves the page: built without its buckets, and routed
-    to its per-tile scan."""
     import numpy as np
 
     from seekstorm_tpu_torch import _build
-    from seekstorm_tpu_torch.ops import vector as V
     from seekstorm_tpu_torch.ops import vector_scan as vs
 
     current = _build.load("vector_scan")
 
-    def build(name, source, argtypes, *flags):
+    def build(name, source, *flags):
         out = _build.BUILD_DIR / f"libvector_scan_{name}.so"
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
-                        str(out), str(source)], check=True,
-                       capture_output=True, text=True)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                              "-Xptxas", "-v", *flags, "-o", str(out),
+                              str(source)], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc {source}: {res.stderr[-4000:]}")
+        print_ptxas(res.stderr, f"K4 {name}", K4_KERNELS)
         lib = ctypes.CDLL(str(out))
-        lib.vector_scan_launch.argtypes = argtypes
+        lib.vector_scan_launch.argtypes = \
+            _build._SIGNATURES["vector_scan"]["vector_scan_launch"]
         lib.vector_scan_launch.restype = ctypes.c_int
         return lib
 
-    earlier = build("earlier", src, EARLIER_K4)
+    csrc = tree / "seekstorm_tpu_torch" / "csrc" / "vector_scan.cu"
+    earlier = build("earlier", csrc)
+    build("current", _build.CSRC / "vector_scan.cu")
     no_buckets = build("no_buckets", _build.CSRC / "vector_scan.cu",
-                       _build._SIGNATURES["vector_scan"]["vector_scan_launch"],
                        "-DK4_BUCKETS=0")
+    # the earlier wrapper, as a module of the current package (its relative
+    # imports resolve here; its kernel library is the earlier build)
+    spec = importlib.util.spec_from_file_location(
+        "seekstorm_tpu_torch.ops._earlier_vector_scan",
+        tree / "seekstorm_tpu_torch" / "ops" / "vector_scan.py")
+    earlier_vs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(earlier_vs)
     n_ranges = vs.n_ranges
 
-    def run_current(lib, per_tile=False):
+    def run_with(wrapper, lib, ranges=None):
         def run(args, kw):
             _build._LIBS["vector_scan"] = lib   # the wrapper loads it here
-            vs.n_ranges = (lambda *a: 0) if per_tile else n_ranges
+            if ranges is not None:
+                vs.n_ranges = ranges
             try:
-                return vs.vector_scan_cuda(*args, **kw)
+                return wrapper.vector_scan_cuda(*args, **kw)
             finally:
                 _build._LIBS["vector_scan"] = current
                 vs.n_ranges = n_ranges
         return run
 
-    runs = {"earlier": lambda args, kw: earlier_k4(torch, earlier, args, kw),
-            "current": run_current(current),
-            "no buckets": run_current(no_buckets),
-            "per-tile": run_current(current, per_tile=True)}
+    runs = {"earlier": run_with(earlier_vs, earlier),
+            "current": run_with(vs, current),
+            "no buckets": run_with(vs, no_buckets),
+            "G <= 128": run_with(vs, current, lambda *a: min(
+                128, n_ranges(*a)))}
 
     g = torch.Generator(device="cuda")
     g.manual_seed(10)
-    n_tiles, d = (1 << 20) // 256, 128
+    d = 128
+    rng = np.random.default_rng(10)
+    rows = []
+    # the hybrid cell: 3.38M rows in 13,203 tiles; a batch of 128 at nprobe
+    # 48 probes about 81% of its 3,677 clusters, padded to a power of two
+    n_hyb = 13_203
+    pool = cs._k4_pool(torch, g, n_hyb, d, True, n_fields=1, p_del=0.01)
+    qargs = cs._k4_queries(torch, g, 128, d, True)
+    sel = np.sort(rng.choice(n_hyb, 10_700, replace=False))
+    tid = torch.from_numpy(np.concatenate(
+        [sel, np.full(16_384 - len(sel), -1)]).astype(np.int32)).cuda()
+    shapes = [("hybrid cell", pool, qargs, 128, tid, 64),
+              ("hybrid cell", pool, qargs, 128, tid, 32)]
+    rows += _k4_turns(torch, runs, shapes, len(sel), card)
+    del pool, qargs, tid, shapes
+    torch.cuda.empty_cache()
+    # the vector cell's pool and the 1,048,576-row serving shape
+    n_tiles = (1 << 20) // 256
     pool = cs._k4_pool(torch, g, n_tiles, d, True, n_fields=1, p_del=0.01)
     qargs = cs._k4_queries(torch, g, 64, d, True)
-    field_ok = torch.ones(4, dtype=torch.bool, device="cuda")
-    sel = np.sort(np.random.default_rng(10).choice(n_tiles, 1024,
-                                                   replace=False))
+    sel = np.sort(rng.choice(n_tiles, 1024, replace=False))
     tid = torch.from_numpy(sel.astype(np.int32)).cuda()
+    rows += _k4_turns(torch, runs, [
+        ("vector cell", pool, qargs, 64, tid, 32),
+        ("serving shape", pool, qargs, 64, None, 32)], len(sel), card)
+    rows += _k4_turns(torch, runs, [
+        ("serving shape", pool, qargs, 64, None, 64)], n_tiles, card)
+    return rows
+
+
+def _k4_turns(torch, runs, shapes, n_sel, card) -> list:
+    """Each shape (tag, pool, queries, B, tile ids or None, k): every run
+    held bitwise to vector_scan_ref, then timed in turns (the variants of
+    the running scan only at pages of 33-64)."""
+    from seekstorm_tpu_torch.ops import vector as V
+
     rows = []
-    for B, tiles, k in ((64, None, 32), (64, tid, 32), (64, None, 256),
-                        (1, None, 16), (1, tid, 16), (4, None, 16),
-                        (16, None, 16)):
-        name = (f"{'all tiles' if tiles is None else '1,024 selected tiles'}"
+    for what, pool, qargs, B, tiles, k in shapes:
+        n_tiles = pool["data"].shape[0]
+        NT = n_tiles if tiles is None else tiles.shape[0]
+        name = (f"{what}, {'all tiles' if tiles is None else f'{n_sel:,} selected tiles in {NT:,} slots'}"
                 f", B={B}, k={k}")
         kw = dict(k=k, quantized=True, euclidean=True, with_counts=True,
                   exhaustive=tiles is None, use_field_filter=False)
         smin = torch.full((B,), float("-inf"), device="cuda")
+        field_ok = torch.ones(4, dtype=torch.bool, device="cuda")
         args = cs._k4_args(pool, tiles, field_ok, [q[:B] for q in qargs],
                            smin)
         want = V.vector_scan_ref(*args, **kw)
-        tags = [t for t in runs if k <= vs.RUN_KK or t in ("earlier",
-                                                             "current")]
+        tags = [t for t in runs if k > 32 or t in ("earlier", "current")]
         for tag in tags:
             got = runs[tag](args, kw)
             torch.cuda.synchronize()
             cs._check_k4(torch, got, want, None, None, smin, k,
                          f"{tag} K4, {name}")
+        del want
         order = tags + tags[::-1]
         turns = [cs._median_ms(torch, lambda run=runs[tag]: run(args, kw))
                  for tag in order]
         ms = {tag: [turns[i], turns[len(order) - 1 - i]]
               for i, tag in enumerate(tags)}
-        n_rows = (n_tiles if tiles is None else len(sel)) * 256
-        bound, by = cs.k4_bound(n_rows, d, B, k, True,
+        n_rows = (n_tiles if tiles is None else n_sel) * 256
+        bound, by = cs.k4_bound(n_rows, pool["data"].shape[2], B, k, True,
                                 pool["deleted"].shape[0],
                                 use_field_filter=False)
         rows.append(dict(tag=name, B=B, k=k, ms=ms, bound_ms=bound,
                          bound_by=by, card=card))
         print(f"[compare] K4 {name}: bitwise equal; " + ", ".join(
             f"{tag} {a:.4f} / {b:.4f} ms" for tag, (a, b) in ms.items())
-            + f"; bound {bound:.4f} ms ({by})")
-        del want
+            + f"; bound {bound:.4f} ms ({by}), current "
+            f"{100 * bound / min(ms['current']):.2f}% of it")
+        for tag in ("earlier", "current"):
+            cs.device_kernels(torch, f"K4 {tag}, {name}",
+                              lambda run=runs[tag]: run(args, kw))
     return rows
 
 
+K4_KERNELS = ("running_scan", "tile_scan", "merge_lists", "select_threshold")
 K56_KERNELS = ("rungs_kernel", "rescore_page_kernel", "exact_fold_kernel",
                 "fold_merge_kernel")
 K56_NAMES = ("wand_rungs", "wand_rescore")
 
 
-def print_ptxas(log: str, tag: str) -> None:
-    """What ptxas -v said of each K5/K6 kernel in `log` (registers, shared
-    memory, spills)."""
+def print_ptxas(log: str, tag: str, kernels=None) -> None:
+    """What ptxas -v said of each kernel of `kernels` (K5/K6's by default)
+    in `log` (registers, shared memory, spills)."""
     keep = False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in K56_KERNELS)
+            keep = any(k in line for k in kernels or K56_KERNELS)
         if keep and ("Compiling entry" in line or "Used" in line
                      or "spill" in line):
             print(f"[ptxas {tag}] {line.strip()}")

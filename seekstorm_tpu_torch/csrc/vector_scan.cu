@@ -48,11 +48,14 @@
 // keeping each query's top k costs list upkeep for every row that may
 // enter it; both are cut as far as they go below.
 //
-// 1. Pages up to 32 (kk <= 32, every page of up to 16 results): the
-//    running scan, three launches.  A persistent grid of G CTAs (512
-//    threads) a block of 64 queries, about one CTA an SM; CTA g walks the
-//    contiguous slot range [g*NT/G, (g+1)*NT/G) once for all 64 queries:
-//      - a 3-stage ring in shared memory filled by 16-byte cp.async, one
+// 1. Pages up to 64 (kk <= 64, every page of up to 32 results): the
+//    running scan, three launches, its running lists KK = 32 entries a
+//    query for kk <= 32 and KK = 64 above (one instantiation each).  A
+//    persistent grid of G CTAs (512 threads) a block of 64 queries, about
+//    one CTA an SM; CTA g walks the contiguous slot range [g*NT/G,
+//    (g+1)*NT/G) once for all 64 queries:
+//      - a ring of 3 stages (KK = 64: 2, its lists taking the third's
+//        shared memory) filled by 16-byte cp.async, one
 //        stage = 128 bytes of each of the tile's 256 rows (a k-chunk; d >
 //        128 i8 or any f32 takes several), the queries' same 128 bytes
 //        and, with a slot's first chunk, its rows' stats; each 16-byte
@@ -65,10 +68,12 @@
 //        each thread's 32 sums into masked scores (counted per thread) in
 //        a [64][256] shared matrix and flags each query with a row that
 //        beats its threshold; then a warp takes 4 queries, and a flagged
-//        one's rows join its running top-32 in shared memory: up to 3 by
-//        a shuffle each, up to 32 compacted into one run that is sorted
-//        in registers (bitonic) and folded in, more as 8 runs sorted side
-//        by side and folded pairwise.
+//        one's rows join its running top-KK in shared memory (KK / 32
+//        entries a lane while the warp holds it): up to 3 by a shuffle
+//        each, up to 32 compacted into one run that is sorted in
+//        registers (bitonic) and folded in, more as 8 runs sorted side by
+//        side and folded pairwise (KK = 64: merged pairwise into runs of
+//        64, which are folded pairwise).
 //    A row enters only below a query's threshold, the smallest of three
 //    bounds.  Each has kk distinct rows at or below it, so a row above it
 //    is in no top kk, and a row equal to it is one of those kk, which
@@ -79,18 +84,19 @@
 //    kk-th; and the largest of kk buckets plus one, bucket b holding the
 //    best row found by the ranges g = b (mod kk), which every CTA lowers
 //    as it finds better rows.  So a range admits few rows from its first
-//    slot on.
+//    slot on.  The argument holds word for word for any kk <= 64: G >= kk
+//    distinct ranges' best rows, and kk buckets of distinct rows.
 //    Each CTA writes its list per query, ascending (entries it skipped by
 //    the shared threshold stay sentinels); counts go out once a CTA.
-// 2. Deeper pages (32 < k): K4's first kernel (commit ed057dd), kept as
+// 2. Deeper pages (64 < k): K4's first kernel (commit ed057dd), kept as
 //    the branch for them (as K3 kept its first kernel for its wide case):
 //    one CTA scores one tile against 32 queries with __dp4a and sorts the
 //    tile's 256 keys in shared memory (bitonic), writing each tile's top
 //    min(k, 256).
 // Then the merge (both cases): one CTA a query takes the top kk of its
-// sorted lists.  Up to 8,192 entries a query, in one pass: every entry at
-// or below the running scan's shared threshold into shared memory, one
-// bitonic sort.  More (deep pages): each thread walks its lists in order,
+// sorted lists.  Up to 8,192 entries a query (16,384 for the 64-entry
+// lists: 256 ranges), in one pass: every entry at or below the running
+// scan's shared threshold into shared memory, one bitonic sort.  More (deep pages): each thread walks its lists in order,
 // copying entries whose key is below the running kk-th key into a buffer;
 // the buffer is sorted and folded into the running top-P (P = kk rounded
 // up to a power of two, in shared memory up to 4,096 entries, else in the
@@ -265,6 +271,109 @@ __device__ __forceinline__ void top32_of_runs(Key (&k)[8], float (&v)[8],
   }
 }
 
+// 64-entry lists, two entries a lane: entry lane in (ak, av), entry 32 +
+// lane in (bk, bv)
+
+// a bitonic 64 (a then b) ascending: entry i against entry i + 32 in the
+// lane, then each half's 5 stages side by side
+__device__ __forceinline__ void merge64(Key& ak, float& av, Key& bk,
+                                        float& bv, int lane) {
+  if (bk < ak) {
+    const Key tk = ak;
+    const float tv = av;
+    ak = bk;
+    av = bv;
+    bk = tk;
+    bv = tv;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    exchange(ak, av, stride, (lane & stride) == 0);
+    exchange(bk, bv, stride, (lane & stride) == 0);
+  }
+}
+
+// the 64 smallest of an ascending 64 (a, b) and an ascending run of 32
+// (r): entry i of the list against entry 63 - i of the run padded with
+// sentinels to 64, so a stays and b meets the run reversed; a bitonic 64
+__device__ __forceinline__ void fold64(Key& ak, float& av, Key& bk,
+                                       float& bv, Key rk, float rv,
+                                       int lane) {
+  const Key xk = __shfl_sync(FULL, rk, 31 - lane);
+  const float xv = __shfl_sync(FULL, rv, 31 - lane);
+  if (xk < bk) {
+    bk = xk;
+    bv = xv;
+  }
+  merge64(ak, av, bk, bv, lane);
+}
+
+// the 64 smallest keys of 8 runs of 32 (run r in k[r], v[r]), ascending
+// into (k[0], k[1]): the 8 runs sorted side by side, each pair merged into
+// a run of 64, then the runs of 64 folded pairwise (2 rounds); each stage's
+// exchanges independent of each other
+__device__ __forceinline__ void top64_of_runs(Key (&k)[8], float (&v)[8],
+                                              int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) exchange(k[r], v[r], stride, keep_min);
+    }
+  }
+  // runs r and r + 1 (r even): r, then r + 1 reversed, is a bitonic 64
+#pragma unroll
+  for (int r = 1; r < 8; r += 2) {
+    k[r] = __shfl_sync(FULL, k[r], 31 - lane);
+    v[r] = __shfl_sync(FULL, v[r], 31 - lane);
+  }
+  // rounds of bitonic 64s: the pairs (r, r + 1), r a multiple of 2 * hh,
+  // hh = 1 the sorted runs' merge, then each fold's kept 64
+#pragma unroll
+  for (int hh = 1; hh < 8; hh <<= 1) {
+#pragma unroll
+    for (int r = 0; r < 8; r += 2 * hh) {
+      if (k[r + 1] < k[r]) {
+        const Key tk = k[r];
+        const float tv = v[r];
+        k[r] = k[r + 1];
+        v[r] = v[r + 1];
+        k[r + 1] = tk;
+        v[r + 1] = tv;
+      }
+    }
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int r = 0; r < 8; r += 2 * hh) {
+        exchange(k[r], v[r], stride, (lane & stride) == 0);
+        exchange(k[r + 1], v[r + 1], stride, (lane & stride) == 0);
+      }
+    }
+    if (hh == 4) break;
+    // the 64 smallest of the ascending 64s at r and r + 2 * hh: entry i
+    // of one against entry 63 - i of the other
+#pragma unroll
+    for (int r = 0; r < 8; r += 4 * hh) {
+      const int o = r + 2 * hh;
+      const Key x0 = __shfl_sync(FULL, k[o + 1], 31 - lane);
+      const float y0 = __shfl_sync(FULL, v[o + 1], 31 - lane);
+      const Key x1 = __shfl_sync(FULL, k[o], 31 - lane);
+      const float y1 = __shfl_sync(FULL, v[o], 31 - lane);
+      if (x0 < k[r]) {
+        k[r] = x0;
+        v[r] = y0;
+      }
+      if (x1 < k[r + 1]) {
+        k[r + 1] = x1;
+        v[r + 1] = y1;
+      }
+    }
+  }
+}
+
 // a threshold key as a float test: a row (v, pos) beats it when v > ts,
 // or v == ts and pos < tp; KEY_MAX (no threshold) becomes (-inf,
 // POS_NONE), which every row beats
@@ -280,7 +389,7 @@ __device__ __forceinline__ void key_to_thr(Key key, float& ts, uint32_t& tp) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. the running scan (kk <= 32)
+// 1. the running scan (kk <= 64)
 
 namespace run {
 
@@ -289,23 +398,30 @@ constexpr int RT = 512;                // threads a CTA
 constexpr int WARPS = RT / 32;
 constexpr int QW = QM / WARPS;         // queries a warp in the warp pass
 constexpr int NI = T / (WARPS / 4) / 8;  // n8 row tiles a warp in the dots
-constexpr int KK = 32;                 // running list a query
 constexpr int CB = 128;                // bytes of a row a stage
-constexpr int STAGES = 3;
 constexpr int TILE_B = T * CB;
 constexpr int QRY_B = QM * CB;
 constexpr int STAT_B = T * 4 * 5;      // scale, zp, qsum, norm2, docid
 constexpr int STAGE_B = TILE_B + QRY_B + STAT_B;
 constexpr int S_B = QM * T * 4;        // masked scores of a tile
-constexpr int LIST_B = QM * KK * 8;    // (score, position) lists
 constexpr int ROW_B = T * 16 + T;      // a slot's (scale, zp, qsum, norm2), ok
 constexpr int THR_B = QM * 8 + QM * 4;  // each query's threshold key, hit
 constexpr int RUN_B = WARPS * 32 * 12;  // a warp's compacted run
-constexpr int SMEM_BYTES =
-    STAGES * STAGE_B + S_B + LIST_B + ROW_B + THR_B + RUN_B;
 constexpr int INSERT_MAX = 3;          // admitted rows inserted one at a time
 
-static_assert(SMEM_BYTES <= 232448, "shared memory of one CTA");
+// the layout of a CTA with running lists of KK entries a query: KK = 32
+// (pages up to 32) in a 3-stage ring; KK = 64 (pages of 33-64) takes the
+// 16 KB its lists add from the ring, which keeps 2 stages (a slot's load
+// overlaps the slot before it)
+template <int KK>
+struct Shape {
+  static_assert(KK == 32 || KK == 64, "running lists of 32 or 64 entries");
+  static constexpr int STAGES = KK == 32 ? 3 : 2;
+  static constexpr int LIST_B = QM * KK * 8;  // (score, position) lists
+  static constexpr int SMEM_BYTES =
+      STAGES * STAGE_B + S_B + LIST_B + ROW_B + THR_B + RUN_B;
+  static_assert(SMEM_BYTES <= 232448, "shared memory of one CTA");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -360,7 +476,15 @@ __device__ __forceinline__ float to_f32(int acc, bool small_d) {
 }
 __device__ __forceinline__ float to_f32(float acc, bool) { return acc; }
 
-template <bool QUANT>
+// the running list of a query as a warp holds it, KK / 32 entries a lane
+// (entry 32 * h + lane in k[h], v[h]): its kk-th key
+template <int KK>
+__device__ __forceinline__ Key kth_key(const Key (&k)[KK / 32], int kk) {
+  if (KK == 32 || kk <= 32) return __shfl_sync(FULL, k[0], kk - 1);
+  return __shfl_sync(FULL, k[KK / 32 - 1], kk - 33);
+}
+
+template <bool QUANT, int KK>
 __global__ void __launch_bounds__(RT, 1)
 running_scan(const unsigned char* __restrict__ data,
              const float* __restrict__ scale, const float* __restrict__ zp,
@@ -380,12 +504,13 @@ running_scan(const unsigned char* __restrict__ data,
              uint32_t* __restrict__ list_p,
              Key* __restrict__ gthr, Key* __restrict__ best,
              Key* __restrict__ bucket, int* __restrict__ counts) {
+  constexpr int STAGES = Shape<KK>::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   float* S = reinterpret_cast<float*>(smem + STAGES * STAGE_B);
   float* lv = reinterpret_cast<float*>(smem + STAGES * STAGE_B + S_B);
   uint32_t* lp = reinterpret_cast<uint32_t*>(lv + QM * KK);
   float4* rstat = reinterpret_cast<float4*>(smem + STAGES * STAGE_B + S_B +
-                                            LIST_B);
+                                            Shape<KK>::LIST_B);
   unsigned char* rok = reinterpret_cast<unsigned char*>(rstat + T);
   Key* thr_k = reinterpret_cast<Key*>(rok + T);   // [64] threshold keys
 
@@ -512,17 +637,17 @@ running_scan(const unsigned char* __restrict__ data,
     const unsigned char* st = smem + (it % STAGES) * STAGE_B;
     const int slot = s0 + it / nchunks, c = it % nchunks;
     // the shared thresholds of this warp's 4 queries (8 lanes a query:
-    // gthr and 4 of its kk buckets each), read now, used after the
+    // gthr and KK / 8 of its kk buckets each), read now, used after the
     // epilogue
     const int jq = QW * w + (lane >> 3), part = lane & 7;
     Key g_pre = KEY_MAX, b_pre = BUCKETS ? 0 : KEY_MAX;
     if (c == nchunks - 1 && q0 + jq < B) {
       g_pre = *reinterpret_cast<volatile Key*>(gthr + q0 + jq);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (BUCKETS && 4 * part + u < kk) {
+      for (int u = 0; u < KK / 8; ++u) {
+        if (BUCKETS && KK / 8 * part + u < kk) {
           const Key bk = *reinterpret_cast<volatile Key*>(
-              bucket + (size_t)(q0 + jq) * 32 + 4 * part + u);
+              bucket + (size_t)(q0 + jq) * KK + KK / 8 * part + u);
           b_pre = max(b_pre, bk);
         }
       }
@@ -680,7 +805,7 @@ running_scan(const unsigned char* __restrict__ data,
     }
 
     // ---- a warp a query: the rows that beat the query's threshold join
-    // its running top-32; then its threshold for the next slot is the
+    // its running top-KK; then its threshold for the next slot is the
     // smaller of its own kk-th key and the other CTAs' (gthr)
     // the shared threshold of the lane's query: gthr, or the largest of
     // its kk buckets' keys plus one (kk distinct rows at or below it, the
@@ -714,11 +839,17 @@ running_scan(const unsigned char* __restrict__ data,
         n += __popc(bal[r]);
       }
       if (n) {
-        float Lv = lv[j * KK + lane];
-        Key Lk = make_key(Lv, lp[j * KK + lane]);
+        // the query's list, KK / 32 entries a lane
+        Key Lk[KK / 32];
+        float Lv[KK / 32];
+#pragma unroll
+        for (int hh = 0; hh < KK / 32; ++hh) {
+          Lv[hh] = lv[j * KK + 32 * hh + lane];
+          Lk[hh] = make_key(Lv[hh], lp[j * KK + 32 * hh + lane]);
+        }
         if (n <= INSERT_MAX) {
           // one at a time: the keys below the new one stay, the rest move
-          // up a lane
+          // up an entry
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
             unsigned bl = bal[r];
@@ -728,17 +859,36 @@ running_scan(const unsigned char* __restrict__ data,
               const Key ck = __shfl_sync(FULL, k8[r], src);
               const float cv = __shfl_sync(FULL, v8[r], src);
               if (ck >= thr) continue;
-              const int at = __popc(__ballot_sync(FULL, Lk < ck));
-              const Key uk = __shfl_up_sync(FULL, Lk, 1);
-              const float uv = __shfl_up_sync(FULL, Lv, 1);
-              if (lane == at) {
-                Lk = ck;
-                Lv = cv;
-              } else if (lane > at) {
-                Lk = uk;
-                Lv = uv;
+              int at = 0;
+              Key uk[KK / 32];
+              float uv[KK / 32];
+#pragma unroll
+              for (int hh = 0; hh < KK / 32; ++hh) {
+                at += __popc(__ballot_sync(FULL, Lk[hh] < ck));
+                uk[hh] = __shfl_up_sync(FULL, Lk[hh], 1);
+                uv[hh] = __shfl_up_sync(FULL, Lv[hh], 1);
               }
-              thr = min(thr, __shfl_sync(FULL, Lk, kk - 1));
+              if constexpr (KK == 64) {
+                // entry 31 moves up to entry 32
+                const Key top = __shfl_sync(FULL, Lk[0], 31);
+                const float topv = __shfl_sync(FULL, Lv[0], 31);
+                if (lane == 0) {
+                  uk[1] = top;
+                  uv[1] = topv;
+                }
+              }
+#pragma unroll
+              for (int hh = 0; hh < KK / 32; ++hh) {
+                const int e = 32 * hh + lane;
+                if (e == at) {
+                  Lk[hh] = ck;
+                  Lv[hh] = cv;
+                } else if (e > at) {
+                  Lk[hh] = uk[hh];
+                  Lv[hh] = uv[hh];
+                }
+              }
+              thr = min(thr, kth_key<KK>(Lk, kk));
             }
           }
         } else if (n <= 32) {
@@ -759,9 +909,12 @@ running_scan(const unsigned char* __restrict__ data,
           float cv = lane < n ? run_v[lane] : sentinel_v();
           __syncwarp();
           warp_sort32(ck, cv, lane);
-          fold(Lk, Lv, ck, cv, lane);
+          if constexpr (KK == 32)
+            fold(Lk[0], Lv[0], ck, cv, lane);
+          else
+            fold64(Lk[0], Lv[0], Lk[1], Lv[1], ck, cv, lane);
         } else {
-          // many (a range's first slot: all of them): the top 32 of the
+          // many (a range's first slot: all of them): the top KK of the
           // admitted rows, folded in
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
@@ -770,19 +923,38 @@ running_scan(const unsigned char* __restrict__ data,
               v8[r] = sentinel_v();
             }
           }
-          top32_of_runs(k8, v8, lane);
-          fold(Lk, Lv, k8[0], v8[0], lane);
+          if constexpr (KK == 32) {
+            top32_of_runs(k8, v8, lane);
+            fold(Lk[0], Lv[0], k8[0], v8[0], lane);
+          } else {
+            // the 64 smallest of the list and the ascending 64 (k8[0],
+            // k8[1]): entry i of one against entry 63 - i of the other
+            top64_of_runs(k8, v8, lane);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const Key xk = __shfl_sync(FULL, k8[1 - hh], 31 - lane);
+              const float xv = __shfl_sync(FULL, v8[1 - hh], 31 - lane);
+              if (xk < Lk[hh]) {
+                Lk[hh] = xk;
+                Lv[hh] = xv;
+              }
+            }
+            merge64(Lk[0], Lv[0], Lk[1], Lv[1], lane);
+          }
         }
-        const Key own = __shfl_sync(FULL, Lk, kk - 1);
-        const Key first = __shfl_sync(FULL, Lk, 0);
+        const Key own = kth_key<KK>(Lk, kk);
+        const Key first = __shfl_sync(FULL, Lk[0], 0);
         thr = min(thr, own);
-        lv[j * KK + lane] = Lv;
-        lp[j * KK + lane] = (uint32_t)Lk;
+#pragma unroll
+        for (int hh = 0; hh < KK / 32; ++hh) {
+          lv[j * KK + 32 * hh + lane] = Lv[hh];
+          lp[j * KK + 32 * hh + lane] = (uint32_t)Lk[hh];
+        }
         if (lane == 0) {
           if (own < g_j) atomicMin(gthr + q0 + j, own);
           // this range's best row joins its bucket (ranges g = b mod kk)
           if (BUCKETS)
-            atomicMin(bucket + (size_t)(q0 + j) * 32 + blockIdx.x % kk,
+            atomicMin(bucket + (size_t)(q0 + j) * KK + blockIdx.x % kk,
                       first);
         }
       }
@@ -795,14 +967,16 @@ running_scan(const unsigned char* __restrict__ data,
   }
   cp_async_wait<0>();
 
-  // this CTA's lists: [B][G][32], each ascending by key
+  // this CTA's lists: [B][G][KK], each ascending by key
   __syncwarp();
   for (int jj = 0; jj < QW; ++jj) {
     const int j = QW * w + jj;
     if (q0 + j >= B) break;
-    const size_t o = ((size_t)(q0 + j) * G + blockIdx.x) * KK + lane;
-    list_v[o] = lv[j * KK + lane];
-    list_p[o] = lp[j * KK + lane];
+    const size_t o = ((size_t)(q0 + j) * G + blockIdx.x) * KK;
+    for (int i = lane; i < KK; i += 32) {
+      list_v[o + i] = lv[j * KK + i];
+      list_p[o + i] = lp[j * KK + i];
+    }
   }
   if (with_counts) {
 #pragma unroll
@@ -819,7 +993,7 @@ running_scan(const unsigned char* __restrict__ data,
 }  // namespace run
 
 // ---------------------------------------------------------------------------
-// 2. the per-tile scan (32 < k): K4's first kernel, each tile's top
+// 2. the per-tile scan (64 < k): K4's first kernel, each tile's top
 //    min(k, 256)
 
 namespace tile {
@@ -971,9 +1145,18 @@ tile_scan(const uint32_t* __restrict__ data, const float* __restrict__ scale,
 namespace merge {
 
 constexpr int SMEM_P = 4096;           // largest running top-P in shared memory
-constexpr int FLAT_MAX = 8192;         // most entries merged in one pass
-constexpr int SMEM_BYTES = 2 * SMEM_P * 8 > FLAT_MAX * 8 ? 2 * SMEM_P * 8
-                                                         : FLAT_MAX * 8;
+
+// the lists of the per-tile scan and of the running scan's 32-entry lists
+// (KB = 32) or 64-entry lists (KB = 64, also the buckets' stride): at
+// most FLAT_MAX entries a query merged in one pass, G ranges of 64 up to
+// 256 (16,384 keys, 128 KB of shared memory)
+template <int KB>
+struct Flat {
+  static constexpr int FLAT_MAX = KB == 64 ? 16384 : 8192;
+  static constexpr int SMEM_BYTES = 2 * SMEM_P * 8 > FLAT_MAX * 8
+                                        ? 2 * SMEM_P * 8
+                                        : FLAT_MAX * 8;
+};
 
 __device__ __forceinline__ Key key_at(const float* v, const uint32_t* p,
                                       int i) {
@@ -1012,6 +1195,7 @@ __host__ __device__ inline int flat_cap(int M) {
   return c;
 }
 
+template <int KB>
 __global__ void __launch_bounds__(THREADS)
 merge_lists(const float* __restrict__ list_v,
             const uint32_t* __restrict__ list_p, int L, int LK,
@@ -1034,7 +1218,7 @@ merge_lists(const float* __restrict__ list_v,
     if (gthr) {
       Key bmax = BUCKETS ? 0 : KEY_MAX;
       for (int i = 0; BUCKETS && i < kk; ++i)
-        bmax = max(bmax, bucket[(size_t)b * 32 + i]);
+        bmax = max(bmax, bucket[(size_t)b * KB + i]);
       g = min(gthr[b], bmax);
     }
     thr = g != KEY_MAX ? g + 1 : KEY_MAX;
@@ -1043,7 +1227,7 @@ merge_lists(const float* __restrict__ list_v,
   float* Rv;
   uint32_t* Rp;
 
-  if (M <= FLAT_MAX) {
+  if (M <= Flat<KB>::FLAT_MAX) {
     // one pass: every entry below the threshold, then one sort
     const int cap = flat_cap(M);
     Rv = reinterpret_cast<float*>(smem);
@@ -1168,7 +1352,8 @@ merge_lists(const float* __restrict__ list_v,
 // the running scan's shared threshold from its probe pass: the kk-th
 // smallest of the G ranges' best keys (G distinct rows, so kk real rows
 // sit at or below it), plus one, as a row equal to it must enter; all
-// bits set when G < kk.  One warp a query, G <= 256.
+// bits set when G < kk.  One warp a query, G <= 256, KK buckets a query.
+template <int KK>
 __global__ void __launch_bounds__(32)
 select_threshold(const Key* __restrict__ best, int G, int kk,
                  Key* __restrict__ gthr, Key* __restrict__ bucket) {
@@ -1181,18 +1366,64 @@ select_threshold(const Key* __restrict__ best, int G, int kk,
     k8[r] = i < G ? best[(size_t)b * G + i] : KEY_MAX;
     v8[r] = 0.f;
   }
-  top32_of_runs(k8, v8, lane);
-  const Key kth = __shfl_sync(FULL, k8[0], kk - 1);
+  Key kth;
+  if constexpr (KK == 32) {
+    top32_of_runs(k8, v8, lane);
+    kth = __shfl_sync(FULL, k8[0], kk - 1);
+  } else {
+    top64_of_runs(k8, v8, lane);
+    kth = kk <= 32 ? __shfl_sync(FULL, k8[0], kk - 1)
+                   : __shfl_sync(FULL, k8[1], kk - 33);
+  }
   if (lane == 0) gthr[b] = kth == KEY_MAX ? KEY_MAX : kth + 1;
-  // bucket lane: the best of the ranges g = lane (mod kk), which the scan
+  // bucket i: the best of the ranges g = i (mod kk), which the scan
   // lowers as its ranges find better rows
-  Key m = KEY_MAX;
-  if (lane < kk)
-    for (int i = lane; i < G; i += kk) m = min(m, best[(size_t)b * G + i]);
-  bucket[(size_t)b * 32 + lane] = m;
+#pragma unroll
+  for (int i0 = lane; i0 < KK; i0 += 32) {
+    Key m = KEY_MAX;
+    if (i0 < kk)
+      for (int i = i0; i < G; i += kk) m = min(m, best[(size_t)b * G + i]);
+    bucket[(size_t)b * KK + i0] = m;
+  }
 }
 
 }  // namespace merge
+
+// the running scan's three launches: the probe pass (each range's first
+// slot: its best key a query), the shared threshold, then the scan
+template <bool QUANT, int KK>
+cudaError_t running(cudaStream_t stream, const void* data, const float* scale,
+                    const float* zp, const float* qsum, const float* norm2,
+                    const int* docid, const int* fieldid,
+                    const unsigned char* deleted, int n_deleted,
+                    const unsigned char* field_ok, int n_field,
+                    const int* tile_ids, int NT, const void* q_data,
+                    const float* q_scale, const float* q_zp,
+                    const float* q_qsum, const float* q_norm2,
+                    const float* score_min, int B, int d, int kk, int G,
+                    int euclidean, int use_ff, int with_counts, int gath,
+                    float* list_v, uint32_t* list_p, Key* gthr, int* counts) {
+  constexpr int SMEM = run::Shape<KK>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      run::running_scan<QUANT, KK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(G, (B + run::QM - 1) / run::QM);
+  Key* best = gthr + B;
+  Key* bucket = best + (size_t)B * G;
+  for (int probe = 1; probe >= 0; --probe) {
+    run::running_scan<QUANT, KK><<<grid, run::RT, SMEM, stream>>>(
+        static_cast<const unsigned char*>(data), scale, zp, qsum, norm2,
+        docid, fieldid, deleted, n_deleted, field_ok, n_field, tile_ids, NT,
+        static_cast<const unsigned char*>(q_data), q_scale, q_zp, q_qsum,
+        q_norm2, score_min, B, d, G, kk, euclidean, use_ff, with_counts,
+        probe, gath, list_v, list_p, gthr, best, bucket, counts);
+    if (probe)
+      merge::select_threshold<KK><<<B, 32, 0, stream>>>(best, G, kk, gthr,
+                                                         bucket);
+  }
+  return cudaGetLastError();
+}
 
 template <bool QUANT>
 cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
@@ -1206,34 +1437,15 @@ cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
                  const float* score_min, int B, int d, int k, int kk,
                  int G, int euclidean, int use_ff, int with_counts, int gath,
                  float* list_v, uint32_t* list_p, Key* gthr, int* counts) {
-  cudaError_t err;
-  if (G > 0) {
-    err = cudaFuncSetAttribute(run::running_scan<QUANT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               run::SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(G, (B + run::QM - 1) / run::QM);
-    // the probe pass (each range's first slot: its best key a query), the
-    // shared threshold, then the scan
-    Key* best = gthr + B;
-    Key* bucket = best + (size_t)B * G;
-    for (int probe = 1; probe >= 0; --probe) {
-      run::running_scan<QUANT><<<grid, run::RT, run::SMEM_BYTES, stream>>>(
-          static_cast<const unsigned char*>(data), scale, zp, qsum, norm2,
-          docid, fieldid, deleted, n_deleted, field_ok, n_field, tile_ids,
-          NT, static_cast<const unsigned char*>(q_data), q_scale, q_zp,
-          q_qsum, q_norm2, score_min, B, d, G, kk, euclidean, use_ff,
-          with_counts, probe, gath, list_v, list_p, gthr, best, bucket,
-          counts);
-      if (probe)
-        merge::select_threshold<<<B, 32, 0, stream>>>(best, G, kk, gthr,
-                                                       bucket);
-    }
-    return cudaGetLastError();
-  }
-  err = cudaFuncSetAttribute(tile::tile_scan<QUANT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tile::SMEM_BYTES);
+  if (G > 0)
+    return (k <= 32 ? running<QUANT, 32> : running<QUANT, 64>)(
+        stream, data, scale, zp, qsum, norm2, docid, fieldid, deleted,
+        n_deleted, field_ok, n_field, tile_ids, NT, q_data, q_scale, q_zp,
+        q_qsum, q_norm2, score_min, B, d, kk, G, euclidean, use_ff,
+        with_counts, gath, list_v, list_p, gthr, counts);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile::tile_scan<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(NT, (B + tile::QB - 1) / tile::QB);
   tile::tile_scan<QUANT><<<grid, THREADS, tile::SMEM_BYTES, stream>>>(
@@ -1245,21 +1457,47 @@ cudaError_t scan(cudaStream_t stream, const void* data, const float* scale,
   return cudaGetLastError();
 }
 
+// the merge of L lists of LK a query; KB the running lists' length (32 for
+// the per-tile scan's lists, which keep no threshold)
+template <int KB>
+cudaError_t merge_all(cudaStream_t stream, const float* list_v,
+                      const uint32_t* list_p, int L, int LK, const Key* gthr,
+                      const Key* bucket, const int* tile_ids, int B, int kk,
+                      int k, int P, void* merge_scratch, float* out_vals,
+                      int* out_rows) {
+  const int smem = L * LK <= merge::Flat<KB>::FLAT_MAX
+                       ? merge::flat_cap(L * LK) * 8
+                   : merge_scratch ? 0
+                                   : 2 * P * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge::merge_lists<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge::Flat<KB>::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+  }
+  merge::merge_lists<KB><<<B, THREADS, smem, stream>>>(
+      list_v, list_p, L, LK, gthr, bucket, tile_ids, kk, k, P,
+      static_cast<unsigned char*>(merge_scratch), out_vals, out_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // d a multiple of 128, k >= 1, NT >= 1, B >= 1; tile_ids may be null (all
 // NT tiles in order).  gathered != 0 takes the corrections' order of a scan
 // that gathers its tiles (the reference's, for two or more slots of a pool
-// of two or more tiles; ops/vector.py).  G >= 1 (k <= 32 only) takes the
+// of two or more tiles; ops/vector.py).  G >= 1 (k <= 64 only) takes the
 // running scan over G slot ranges (G <= min(NT, 256)), whose lists are
-// list_v / list_p [B, G, 32], with gthr [B + B*G + B*32] its scratch (the
-// shared thresholds, the probe pass's best keys, each query's 32 buckets);
-// G = 0 the per-tile scan, lists [B, NT, min(k, 256)].  The merge takes
-// lists of up to 8,192 entries a query in one pass, else keeps a running
-// top-P (P a power of two >= min(k, NT*256), at least 32): in shared memory
-// when merge_scratch is null (P <= 4,096), else in merge_scratch (B * 16 *
-// P bytes).  Writes out_vals / out_rows [B, k] and adds counts[B].  Returns
-// cudaGetLastError() after the launches.
+// list_v / list_p [B, G, KK], KK = 32 for k <= 32 and 64 above, with gthr
+// [B + B*G + B*KK] its scratch (the shared thresholds, the probe pass's
+// best keys, each query's KK buckets); G = 0 the per-tile scan, lists [B,
+// NT, min(k, 256)].  The merge takes the per-tile scan's and the 32-entry
+// lists up to 8,192 entries a query in one pass, the 64-entry lists up to
+// 16,384, else keeps a running top-P (P a power of two >= min(k, NT*256),
+// at least 32): in shared memory when merge_scratch is null (P <= 4,096),
+// else in merge_scratch (B * 16 * P bytes).  Writes out_vals / out_rows
+// [B, k] and adds counts[B].  Returns cudaGetLastError() after the
+// launches.
 extern "C" int vector_scan_launch(
     const void* data, const float* scale, const float* zp, const float* qsum,
     const float* norm2, const int* docid, const int* fieldid,
@@ -1276,7 +1514,7 @@ extern "C" int vector_scan_launch(
   if (d <= 0 || d % 128 || k < 1 || NT < 1 || B < 1 || rows > 0x7fffffffLL ||
       P < kk || P < 32 || (P & (P - 1)) ||
       (!merge_scratch && P > merge::SMEM_P) ||
-      G < 0 || (G > 0 && (k > run::KK || G > NT || G > 256 || !gthr)))
+      G < 0 || (G > 0 && (k > 64 || G > NT || G > 256 || !gthr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       quantized
@@ -1291,20 +1529,15 @@ extern "C" int vector_scan_launch(
                         d, k, kk, G, euclidean, use_ff, with_counts,
                         gathered, list_v, list_p, gthr, counts);
   if (err != cudaSuccess) return (int)err;
-  const int L = G > 0 ? G : NT;
-  const int LK = G > 0 ? run::KK : (k < T ? k : T);
-  const int smem = L * LK <= merge::FLAT_MAX ? merge::flat_cap(L * LK) * 8
-                   : merge_scratch       ? 0
-                                         : 2 * P * 8;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(merge::merge_lists,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               merge::SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-  }
-  merge::merge_lists<<<B, THREADS, smem, stream>>>(
-      list_v, list_p, L, LK, G > 0 ? gthr : nullptr,
-      G > 0 ? gthr + B + (size_t)B * G : nullptr, tile_ids, kk, k, P,
-      static_cast<unsigned char*>(merge_scratch), out_vals, out_rows);
-  return (int)cudaGetLastError();
+  const int KK = k <= 32 ? 32 : 64;    // the running lists' length
+  const Key* bucket = G > 0 ? gthr + B + (size_t)B * G : nullptr;
+  err = G > 0 && KK == 64
+            ? merge_all<64>(stream, list_v, list_p, G, KK, gthr, bucket,
+                            tile_ids, B, kk, k, P, merge_scratch, out_vals,
+                            out_rows)
+            : merge_all<32>(stream, list_v, list_p, G > 0 ? G : NT,
+                            G > 0 ? KK : (k < T ? k : T),
+                            G > 0 ? gthr : nullptr, bucket, tile_ids, B, kk,
+                            k, P, merge_scratch, out_vals, out_rows);
+  return (int)err;
 }

@@ -281,7 +281,7 @@ def vector_scan_running_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
                             k: int, n_ranges: int, quantized: bool,
                             euclidean: bool, with_counts: bool,
                             exhaustive: bool, use_field_filter: bool):
-    """The plain form of K4's running scan (k <= 32), its thresholds
+    """The plain form of K4's running scan (k <= 64), its thresholds
     included; same arguments and returns as vector_scan_ref, and equal to
     it when the thresholds are exact.  G = n_ranges (1 <= G <= NT)
     contiguous slot ranges walk their slots in turns, one slot each a turn
@@ -296,8 +296,8 @@ def vector_scan_running_ref(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     tids = _slots(data, tile_ids, exhaustive)
     NT, T = tids.shape[0], data.shape[1]
     B, G, kk = q_data.shape[0], n_ranges, k
-    if not (k <= 32 and 1 <= G <= NT):
-        raise ValueError(f"the running scan takes k <= 32 and 1 <= G <= NT, "
+    if not (k <= 64 and 1 <= G <= NT):
+        raise ValueError(f"the running scan takes k <= 64 and 1 <= G <= NT, "
                          f"got k={k}, G={G}, NT={NT}")
     vals = np.empty((B, NT * T), np.float32)
     counts = torch.zeros(B, dtype=torch.int64)

@@ -3,16 +3,19 @@ scan and the merge of its lists in one call.
 
 Replaces ``seekstorm_tpu/ops/vector.py::vector_scan_topk`` (74-157), whose
 plain PyTorch form is ``ops/vector.vector_scan_ref``.  The [B, NT*256]
-score matrix never reaches device memory.  For pages up to 32 (kk <= 32)
+score matrix never reaches device memory.  For pages up to 64 (kk <= 64)
 a persistent grid of G CTAs a block of 64 queries each walks a contiguous
-slot range on the s8 tensor cores and keeps each query's top 32 of it by
-(score desc, position asc), skipping rows that a threshold the CTAs share
-proves out of the top k (a probe pass over each range's first slot sets
-it); deeper pages take the per-tile scan (each tile's top min(k, 256)).
+slot range on the s8 tensor cores and keeps each query's top 32 of it (64
+for kk > 32) by (score desc, position asc), skipping rows that a threshold
+the CTAs share proves out of the top k (a probe pass over each range's
+first slot sets it); deeper pages take the per-tile scan (each tile's top
+min(k, 256)).
 A last launch merges each query's sorted lists into its top k, which is
 ``lax.top_k``'s order: ties keep the lower position
 (``ops/vector.vector_scan_split_ref`` is the plain form of that split).
-One call is one K4 launch in ``LAUNCHES``, whatever it enqueues.
+One call is one K4 launch in ``LAUNCHES``, whatever it enqueues;
+METRICS' ``k4_per_tile_total`` counts the calls that took the per-tile
+scan.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .vector import gathered_order
 from .wand_scan import _check
 
 TILE = 256
-RUN_KK = 32             # deepest page of the running scan
+RUN_KK = 64             # deepest page of the running scan
 RUN_QUERIES = 64        # queries a CTA of the running scan
 MERGE_SMEM_P = 4096     # largest running top-P the merge keeps on chip
 
@@ -37,20 +40,23 @@ LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
-def _count_launch() -> None:
+def _count_launch(per_tile: bool = False) -> None:
     """One more K4 launch: in LAUNCHES and in METRICS' k4_launches_total
-    (a server's /metrics shows which kernels its requests ran)."""
+    (a server's /metrics shows which kernels its requests ran), and in
+    k4_per_tile_total where it took the per-tile scan (0 added otherwise,
+    so the counter is there from the first launch)."""
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
     METRICS.inc("k4_launches_total")
+    METRICS.inc("k4_per_tile_total", float(per_tile))
 
 
 def n_ranges(NT: int, B: int, k: int, n_sm: int) -> int:
     """G, the running scan's slot ranges a block of 64 queries: about one
     CTA an SM over the batch's query blocks, at most one range a slot and
     256 in all (the ranges' best keys a query fit one warp's sort); 0 (the
-    per-tile scan) for pages deeper than 32."""
+    per-tile scan) for pages deeper than 64."""
     if k > RUN_KK:
         return 0
     blocks = -(-B // RUN_QUERIES)
@@ -110,10 +116,13 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     kk = min(k, NT * TILE)
     G = n_ranges(NT, B, k,
                  torch.cuda.get_device_properties(dev).multi_processor_count)
-    L, LK = (G, RUN_KK) if G else (NT, min(k, TILE))
+    # the running lists' length: 32 entries a query for pages up to 32, 64
+    # above
+    KK = 32 if k <= 32 else RUN_KK
+    L, LK = (G, KK) if G else (NT, min(k, TILE))
     # the running scan's scratch: each query's shared threshold key, each
-    # range's best key a query from the probe pass, 32 buckets a query
-    gthr = (torch.empty(B * (G + 33), dtype=torch.int64, device=dev)
+    # range's best key a query from the probe pass, KK buckets a query
+    gthr = (torch.empty(B * (G + 1 + KK), dtype=torch.int64, device=dev)
             if G else None)
     list_v = torch.empty((B, L, LK), dtype=torch.float32, device=dev)
     list_p = torch.empty((B, L, LK), dtype=torch.int32, device=dev)
@@ -125,7 +134,7 @@ def vector_scan_cuda(data, r_scale, r_zp, r_qsum, r_norm2, row_docid,
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
     lib = _build.load("vector_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _count_launch()
+    _count_launch(G == 0)
     with torch.cuda.device(dev):
         err = lib.vector_scan_launch(
             data.data_ptr(), r_scale.data_ptr(), r_zp.data_ptr(),

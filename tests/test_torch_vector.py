@@ -736,7 +736,7 @@ def test_split_ref_equals_one_scan(mode, G, k):
         assert (zeros.view(torch.int32) != 0).any()
 
 
-@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("k", [16, 32, 48, 64])
 @pytest.mark.parametrize("G", ["one", "three", "NT"])
 @pytest.mark.parametrize("mode", ["i8_all_euclid", "i8_sel_dot",
                                   "f32_all_euclid", "f32_sel_euclid"])
@@ -751,15 +751,17 @@ def test_running_ref_equals_one_scan(mode, G, k):
 
 
 @pytest.mark.parametrize("B,n_sel,k,G", [
-    (3, 0, 32, 40), (1, 32, 32, 32), (5, 0, 16, 16), (2, 36, 32, 36)])
+    (3, 0, 32, 40), (1, 32, 32, 32), (5, 0, 16, 16), (2, 36, 32, 36),
+    (3, 0, 64, 70), (1, 64, 64, 64), (2, 70, 64, 70)])
 def test_running_ref_ties_at_the_threshold(B, n_sel, k, G):
-    """Forty copies of one tile (no row deleted): every range's first slot
-    holds the same best score, so the largest bucket is the kk-th best key
-    itself when G >= kk, and that row must still enter its list.  All
-    tiles or the first n_sel, G ranges (G == kk, G > kk), bitwise equal to
-    vector_scan_ref."""
+    """Forty copies of one tile (70 where the ranges or the selected tiles
+    need them; no row deleted): every range's first slot holds the same
+    best score, so the largest bucket is the kk-th best key itself when G
+    >= kk, and that row must still enter its list.  All tiles or the first
+    n_sel, G ranges (G == kk, G > kk), pages of 32 and 64 entries, bitwise
+    equal to vector_scan_ref."""
     rng = np.random.default_rng([B, n_sel, k, G])
-    pool = _pool(rng, 40, 128, True)
+    pool = _pool(rng, max(40, G, n_sel), 128, True)
     for x in (pool[0], pool[1], pool[2], pool[3], pool[4], pool[6]):
         x[:] = x[0]
     pool[7][:] = False
@@ -780,12 +782,29 @@ def test_running_ref_ties_at_the_threshold(B, n_sel, k, G):
 @pytest.mark.parametrize("NT,B,k,n_sm,G", [
     (4096, 64, 32, 132, 132), (4096, 256, 16, 132, 33), (4, 1, 32, 132, 4),
     (4, 65, 16, 132, 4), (100, 1000, 32, 132, 8), (3, 9000, 32, 132, 1),
-    (4096, 64, 32, 300, 256), (4096, 64, 33, 132, 0), (4, 1, 256, 132, 0)])
+    (4096, 64, 32, 300, 256), (4096, 64, 33, 132, 132), (4, 1, 256, 132, 0),
+    (4096, 128, 64, 132, 66), (4096, 64, 65, 132, 0)])
 def test_k4_ranges(NT, B, k, n_sm, G):
     """The running scan's G: one CTA an SM over the query blocks, at least
     one, at most one range a slot and 256 in all; 0, the per-tile scan, for
-    pages deeper than 32."""
+    pages deeper than 64."""
     assert vs.n_ranges(NT, B, k, n_sm) == G
+
+
+@pytest.mark.parametrize("per_tile", [False, True])
+def test_k4_counts_its_per_tile_calls(per_tile):
+    """Every K4 call adds one to k4_launches_total and, where it took the
+    per-tile scan, one to k4_per_tile_total; a running-scan call adds 0,
+    so the counter is there from the first call on."""
+    n0 = vs.LAUNCHES
+    before = pt.METRICS.snapshot()
+    vs._count_launch(per_tile)
+    after = pt.METRICS.snapshot()
+    vs.LAUNCHES = n0
+    assert after["k4_launches_total"] == before.get("k4_launches_total",
+                                                    0) + 1
+    assert after["k4_per_tile_total"] == before.get("k4_per_tile_total",
+                                                    0) + per_tile
 
 
 # ---------------------------------------------------------------------------
